@@ -1,0 +1,196 @@
+// Shared pieces of the packed-heads attention kernels (attention_fwd.cu,
+// attention_bwd.cu).
+//
+// Operands are the projections exactly as the Linear layers emit them:
+// packed (B, L, H*D), row-major and contiguous. A block owns one
+// (batch, head, row tile); it reads its head's D columns straight out of
+// the packed rows through strides, so no transpose or copy exists on
+// either side of the call.
+//
+// Tiles are staged in shared memory as fp32, whatever the operand type,
+// and every product is an fp32 FMA. bf16 operands are exact in fp32, so
+// the products equal the tensor-core products of the plain version; only
+// the order of the sums differs. Rows of a tile are padded to an odd
+// leading dimension so that sixteen threads reading sixteen rows at one
+// column hit sixteen banks.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stddef.h>
+
+namespace dft {
+
+constexpr int BQ = 64;        // query rows per tile
+constexpr int BK = 64;        // key rows per tile
+constexpr int NT = 256;       // threads per block
+constexpr int SLD = BK + 1;   // leading dimension of (BQ, BK) score tiles
+
+// dtype codes shared with the Python wrappers
+constexpr int DTYPE_F32 = 0;
+constexpr int DTYPE_BF16 = 1;
+
+template <typename T>
+__device__ __forceinline__ float to_f(T x);
+template <>
+__device__ __forceinline__ float to_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);  // round to nearest even, as torch's cast
+}
+
+// x rounded through T: the plain version's cast of P (or dS) to the
+// operand type before the second product
+template <typename T>
+__device__ __forceinline__ float round_as(float x) {
+  return to_f<T>(from_f<T>(x));
+}
+
+// odd leading dimension of a (rows, D) fp32 tile
+__host__ __device__ __forceinline__ int tile_ld(int d) { return d | 1; }
+
+// Stage rows [row0, row0 + rows) of one head of a packed (L, H*D) slab as
+// fp32; rows past L are zero. Consecutive threads read consecutive
+// columns of a row.
+template <typename T>
+__device__ __forceinline__ void load_tile(float* dst, int ld, const T* src,
+                                          int row0, int rows, int L, int hd,
+                                          int col0, int d) {
+  for (int idx = threadIdx.x; idx < rows * d; idx += NT) {
+    const int r = idx / d;
+    const int c = idx - r * d;
+    const int gr = row0 + r;
+    dst[r * ld + c] = gr < L ? to_f<T>(src[(size_t)gr * hd + col0 + c]) : 0.f;
+  }
+}
+
+// acc = A Bᵀ for one thread's 4x4 share of a (64, 64) product of two
+// (64, d) tiles. Thread t owns rows t/16 + 16a and columns t%16 + 16b.
+__device__ __forceinline__ void tile_abt(const float* A, const float* B,
+                                         int ld, int d, float acc[4][4]) {
+  const int tx = threadIdx.x & 15;
+  const int ty = threadIdx.x >> 4;
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int b = 0; b < 4; ++b) acc[a][b] = 0.f;
+  for (int k = 0; k < d; ++k) {
+    float av[4], bv[4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a) av[a] = A[(ty + 16 * a) * ld + k];
+#pragma unroll
+    for (int b = 0; b < 4; ++b) bv[b] = B[(tx + 16 * b) * ld + k];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) acc[a][b] = fmaf(av[a], bv[b], acc[a][b]);
+  }
+}
+
+// acc[u] += Σ_j P(r, j) · V[j][c] for the thread's row r = t/4 and columns
+// c = t%4 + 4u < d, over j < n. P(r, j) is P[r][j], or P[j][r] when trans.
+template <int NC>
+__device__ __forceinline__ void acc_pv(const float* P, bool trans,
+                                       const float* V, int ld, int d, int n,
+                                       float acc[NC]) {
+  const int r = threadIdx.x >> 2;
+  const int cg = threadIdx.x & 3;
+  for (int j = 0; j < n; ++j) {
+    const float p = trans ? P[j * SLD + r] : P[r * SLD + j];
+    const float* vr = V + j * ld;
+#pragma unroll
+    for (int u = 0; u < NC; ++u) {
+      const int c = cg + 4 * u;
+      if (c < d) acc[u] = fmaf(p, vr[c], acc[u]);
+    }
+  }
+}
+
+// reductions over the 16 lanes that share a score row in tile_abt
+__device__ __forceinline__ float row16_max(float x) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+__device__ __forceinline__ float row16_sum(float x) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// Row max m and row sum l of exp(s·scale − m) over all keys, for the
+// thread's four rows of the query tile staged in Qs. Ks is scratch for
+// the key tiles. Ends with every thread of a row holding its stats.
+template <typename T>
+__device__ __forceinline__ void row_stats(const float* Qs, float* Ks,
+                                          const T* kb, int lk, int hd,
+                                          int col0, int d, float scale,
+                                          float m[4], float l[4]) {
+  const int ld = tile_ld(d);
+  const int tx = threadIdx.x & 15;
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    m[a] = -INFINITY;
+    l[a] = 0.f;
+  }
+  for (int k0 = 0; k0 < lk; k0 += BK) {
+    __syncthreads();
+    load_tile<T>(Ks, ld, kb, k0, BK, lk, hd, col0, d);
+    __syncthreads();
+    float s[4][4];
+    tile_abt(Qs, Ks, ld, d, s);
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        if (k0 + tx + 16 * b < lk) mx = fmaxf(mx, s[a][b] * scale);
+      const float mn = fmaxf(m[a], row16_max(mx));
+      float sum = 0.f;
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        if (k0 + tx + 16 * b < lk) sum += expf(s[a][b] * scale - mn);
+      l[a] = l[a] * expf(m[a] - mn) + row16_sum(sum);
+      m[a] = mn;
+    }
+  }
+}
+
+// The path's head dims: 32 in the classifier; 40, 80 and 160 at the
+// UNet's levels 0, 1 and 2 (160 also in its middle block).
+__host__ __device__ constexpr bool supported_head_dim(int d) {
+  return d == 32 || d == 40 || d == 80 || d == 160;
+}
+
+}  // namespace dft
+
+// Instantiate KERNEL_CALL with NC = d / 4 columns per thread, for each
+// supported head dim d.
+#define DFT_DISPATCH_NC(d, ...)                 \
+  do {                                          \
+    if ((d) == 32) {                            \
+      constexpr int NC = 8;                     \
+      __VA_ARGS__;                              \
+    } else if ((d) == 40) {                     \
+      constexpr int NC = 10;                    \
+      __VA_ARGS__;                              \
+    } else if ((d) == 80) {                     \
+      constexpr int NC = 20;                    \
+      __VA_ARGS__;                              \
+    } else if ((d) == 160) {                    \
+      constexpr int NC = 40;                    \
+      __VA_ARGS__;                              \
+    }                                           \
+  } while (0)

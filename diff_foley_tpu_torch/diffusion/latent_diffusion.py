@@ -1,0 +1,90 @@
+"""LatentDiffusion at inference: conditioning, the ε-UNet, DPM-Solver++
+sampling with guidance, and the first-stage decode
+(``diff_foley_tpu/diffusion/latent_diffusion.py``).
+
+Children mirror the JAX params layout: ``unet`` ({"unet": …}), ``cond``
+({"cond": …}) and ``vae`` (the separate VAE params, decode half).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..models.cond_encoder import VideoFeatEncoderPosembed
+from ..models.unet import LDM_UNET, UNetConfig, UNetModel
+from ..models.vae import SD_VAE, AutoencoderKL, VAEConfig
+from .guidance import GuidanceSpec, make_guided_eps_fn
+from .samplers import dpm_solver_sample
+from .schedule import DiffusionSchedule
+
+
+@dataclasses.dataclass(frozen=True)
+class LDMConfig:
+    """Shipped Stage-2 operating point."""
+
+    unet: UNetConfig = LDM_UNET
+    vae: VAEConfig = SD_VAE
+    cond_origin_dim: int = 512
+    cond_embed_dim: int = 768
+    cond_seq_len: int = 40
+    timesteps: int = 1000
+    linear_start: float = 0.00085
+    linear_end: float = 0.0120
+    scale_factor: float = 0.18215
+
+
+class LatentDiffusion(nn.Module):
+    def __init__(self, cfg: LDMConfig = LDMConfig()):
+        super().__init__()
+        self.cfg = cfg
+        self.unet = UNetModel(cfg.unet)
+        self.cond = VideoFeatEncoderPosembed(
+            cfg.cond_origin_dim, cfg.cond_embed_dim, cfg.cond_seq_len)
+        self.vae = AutoencoderKL(cfg.vae)
+        self.schedule = DiffusionSchedule.create(
+            timesteps=cfg.timesteps, linear_start=cfg.linear_start,
+            linear_end=cfg.linear_end)
+
+    def get_learned_conditioning(self, feat: torch.Tensor) -> torch.Tensor:
+        return self.cond(feat)
+
+    def apply_model(self, x, t, context):
+        """Cross-attention conditioning into the UNet."""
+        return self.unet(x, t, context)
+
+    def decode_first_stage(self, z: torch.Tensor) -> torch.Tensor:
+        """Scaled latent → mel image, NHWC."""
+        return self.vae.decode(z / self.cfg.scale_factor)
+
+    def sample(self, video_feat: torch.Tensor, *, latent_hw=(16, 64),
+               steps: int = 25, cfg_scale: float = 4.5,
+               classifier: Optional[nn.Module] = None,
+               classifier_scale: float = 0.0,
+               x_T: Optional[torch.Tensor] = None,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Latents conditioned on CAVP features, by DPM-Solver++ with CFG
+        (zeros as the null embedding) and, when a classifier is given,
+        alignment guidance. The classifier (a ``ClassifierBackbone``) sees
+        the raw 512-d features, not the encoded ones. ``x_T`` overrides the
+        initial noise drawn from ``generator``."""
+        context = self.get_learned_conditioning(video_feat)
+        classifier_fn = None
+        if classifier is not None:
+            def classifier_fn(x, t_model, feat_ctx):
+                return F.logsigmoid(
+                    classifier(x, t_model, feat_ctx, return_logits=True))
+
+        eps_fn = make_guided_eps_fn(
+            self.apply_model, context, torch.zeros_like(context),
+            GuidanceSpec(cfg_scale=cfg_scale,
+                         classifier_scale=classifier_scale),
+            classifier_fn, video_feat if classifier is not None else None)
+        if x_T is None:
+            x_T = torch.randn(
+                (video_feat.shape[0], *latent_hw, self.cfg.unet.in_channels),
+                generator=generator, device=video_feat.device)
+        return dpm_solver_sample(eps_fn, self.schedule, x_T, steps=steps)

@@ -1,0 +1,70 @@
+"""flax parameter trees → state dicts of this package's modules.
+
+The port's modules carry the flax scope names, so conversion is a rename
+and a transpose per leaf:
+
+- ``kernel`` → ``weight``: Dense (in, out) → (out, in); Conv HWIO → OIHW;
+- ``scale`` → ``weight`` and ``bias`` → ``bias`` (normalisations);
+- ``embedding`` → ``weight``; any other leaf (``pos_emb``) keeps its name;
+- the ``GroupNorm_0`` scope that ``GroupNorm32`` opens for its flax
+  GroupNorm is folded into its parent.
+
+Covers the UNet, the classifier, ``VideoFeatEncoderPosembed`` and the VAE
+(``vae_decoder_state`` keeps the decode half). Load with ``strict=True``.
+"""
+from __future__ import annotations
+
+from collections.abc import Mapping
+
+import numpy as np
+import torch
+
+_FOLDED_SCOPES = {"GroupNorm_0"}
+_LEAF_NAMES = {"kernel": "weight", "scale": "weight", "embedding": "weight"}
+
+
+def _to_tensor(a) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.kind == "V" or a.dtype.name == "bfloat16":
+        a = a.astype(np.float32)
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _leaf(name: str, a) -> tuple[str, torch.Tensor]:
+    t = _to_tensor(a)
+    if name == "kernel":
+        if t.dim() == 2:
+            t = t.T
+        elif t.dim() == 4:
+            t = t.permute(3, 2, 0, 1)
+        else:
+            raise ValueError(f"kernel of rank {t.dim()} has no rule")
+    return _LEAF_NAMES.get(name, name), t.contiguous()
+
+
+def from_jax_params(tree) -> dict[str, torch.Tensor]:
+    """flax variables ({"params": …}) or params tree of numpy arrays →
+    state dict."""
+    if isinstance(tree, Mapping) and set(tree) == {"params"}:
+        tree = tree["params"]
+    out: dict[str, torch.Tensor] = {}
+
+    def walk(node: Mapping, path: list[str]):
+        for name, v in node.items():
+            if isinstance(v, Mapping):
+                walk(v, path if name in _FOLDED_SCOPES else path + [name])
+            else:
+                leaf, t = _leaf(name, v)
+                key = ".".join(path + [leaf])
+                if key in out:
+                    raise ValueError(f"two leaves map to {key}")
+                out[key] = t
+
+    walk(tree, [])
+    return out
+
+
+def vae_decoder_state(tree) -> dict[str, torch.Tensor]:
+    """The decode half (``decoder.*``, ``post_quant_conv.*``) of a VAE tree."""
+    return {k: v for k, v in from_jax_params(tree).items()
+            if k.startswith(("decoder.", "post_quant_conv."))}

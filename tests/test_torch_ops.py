@@ -1,0 +1,252 @@
+"""PyTorch port ops against the JAX package, on the CPU.
+
+Inputs come from a numpy seed and go to both sides as numpy arrays. The
+attention kernel module is held against the Pallas kernels themselves, run
+in TPU interpret mode as tests/test_pallas_attention.py runs them; on CPU
+tensors the port's wrappers run their plain versions.
+"""
+import importlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from diff_foley_tpu.audio import transforms as jtr
+from diff_foley_tpu.diffusion.schedule import DiffusionSchedule as JSchedule
+from diff_foley_tpu.diffusion.schedule import timestep_embedding as j_temb
+from diff_foley_tpu.ops import mel as jmel
+from diff_foley_tpu.ops import pallas_attention as pa
+from diff_foley_tpu.ops.attention import multi_head_attention as j_mha
+from diff_foley_tpu_torch.audio import transforms as ttr
+from diff_foley_tpu_torch.diffusion.schedule import DiffusionSchedule
+from diff_foley_tpu_torch.diffusion.schedule import timestep_embedding
+from diff_foley_tpu_torch.ops import griffin_lim as tgl
+from diff_foley_tpu_torch.ops import hopper_attention as ha
+from diff_foley_tpu_torch.ops import mel as tmel
+from diff_foley_tpu_torch.ops import stft as tstft
+from diff_foley_tpu_torch.ops.attention import (multi_head_attention,
+                                                multi_head_attention_packed)
+
+# diff_foley_tpu.ops re-exports functions named like these modules
+jgl = importlib.import_module("diff_foley_tpu.ops.griffin_lim")
+jstft = importlib.import_module("diff_foley_tpu.ops.stft")
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _close(out, ref, tol, what=""):
+    """max|Δ| ≤ tol · max(1, max|ref|)."""
+    out = np.asarray(out, np.float64)
+    ref = np.asarray(ref, np.float64)
+    assert out.shape == ref.shape, (what, out.shape, ref.shape)
+    err = np.abs(out - ref).max()
+    scale = max(1.0, np.abs(ref).max())
+    assert err <= tol * scale, f"{what}: max|Δ| {err:.3e} > {tol:.1e}·{scale:.3g}"
+
+
+@pytest.fixture
+def interpret_mode():
+    """Pallas kernels in TPU interpret mode on the CPU."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    with pltpu.force_tpu_interpret_mode():
+        yield
+
+
+# (b, heads, lq, lk, d): the classifier's head dim 32, the UNet level-0 head
+# dim 40, and a ragged shape
+ATTN_SHAPES = [(2, 4, 64, 32, 40), (1, 8, 128, 128, 32), (2, 2, 100, 30, 40)]
+
+
+@pytest.mark.parametrize("b,heads,lq,lk,d", ATTN_SHAPES)
+def test_packed_attention_forward_matches_pallas(interpret_mode, b, heads, lq,
+                                                 lk, d):
+    # fp32 both sides; only the order of the sums differs (Pallas' own
+    # packed test holds 2e-5)
+    rng = np.random.default_rng(10)
+    q, k, v = (rng.standard_normal((b, n, heads * d)).astype(np.float32)
+               for n in (lq, lk, lk))
+    ref = pa.flash_attention_packed(jnp.asarray(q), jnp.asarray(k),
+                                    jnp.asarray(v), d**-0.5, heads)
+    out = multi_head_attention_packed(_t(q), _t(k), _t(v), heads)
+    _close(out, ref, 2e-5, "packed forward")
+
+
+@pytest.mark.parametrize("b,heads,lq,lk,d", ATTN_SHAPES)
+def test_packed_attention_grad_matches_pallas(interpret_mode, b, heads, lq,
+                                              lk, d):
+    # ∇ of Σ w·attn(q, k, v) through the Pallas vjp against the port's
+    # autograd.Function; fp32, 1e-4 as Pallas' own gradient test
+    rng = np.random.default_rng(11)
+    q, k, v = (rng.standard_normal((b, n, heads * d)).astype(np.float32)
+               for n in (lq, lk, lk))
+    w = rng.standard_normal((b, lq, heads * d)).astype(np.float32)
+    loss = lambda q_, k_, v_: jnp.sum(
+        pa.flash_attention_packed(q_, k_, v_, d**-0.5, heads) * w)
+    refs = jax.grad(loss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    qt, kt, vt = (_t(a).requires_grad_(True) for a in (q, k, v))
+    (ha.FlashAttentionPacked.apply(qt, kt, vt, d**-0.5, heads) * _t(w)).sum(
+    ).backward()
+    for name, t, r in zip("qkv", (qt, kt, vt), refs):
+        _close(t.grad, r, 1e-4, f"d{name}")
+
+
+def test_packed_backward_reference_matches_xla_bwd():
+    # the plain backward is _xla_bwd's formula, split and merged over heads
+    rng = np.random.default_rng(12)
+    b, heads, lq, lk, d = 2, 4, 48, 20, 32
+    q, k, v, g = (rng.standard_normal((b, n, heads * d)).astype(np.float32)
+                  for n in (lq, lk, lk, lq))
+    refs = pa._xla_bwd(d**-0.5, *(pa._split_heads(jnp.asarray(a), heads)
+                                  for a in (q, k, v, g)))
+    outs = ha.attention_packed_bwd(_t(q), _t(k), _t(v), _t(g), d**-0.5, heads)
+    for o, r in zip(outs, refs):
+        _close(o, pa._merge_heads(r), 1e-5, "plain backward")
+
+
+def test_multi_head_attention_matches_xla():
+    # the plain (B, H, L, D) formula of the VAE's mid attention
+    rng = np.random.default_rng(13)
+    q, k, v = (rng.standard_normal((2, 1, 64, 48)).astype(np.float32)
+               for _ in range(3))
+    ref = j_mha(*map(jnp.asarray, (q, k, v)), backend="xla")
+    _close(multi_head_attention(_t(q), _t(k), _t(v)), ref, 1e-5, "mha")
+
+
+def test_schedule_tables_match():
+    # both sides round the same float64 tables to float32: exact
+    j = JSchedule.create(timesteps=1000, linear_start=0.00085,
+                         linear_end=0.0120)
+    t = DiffusionSchedule.create(timesteps=1000, linear_start=0.00085,
+                                 linear_end=0.0120)
+    for name in ("betas", "alphas_cumprod"):
+        np.testing.assert_array_equal(getattr(t, name),
+                                      np.asarray(getattr(j, name)), name)
+
+
+@pytest.mark.parametrize("dim", [32, 33])
+def test_timestep_embedding_matches(dim):
+    # times up to 999 rad: one float32 ulp of a frequency moves cos/sin by
+    # ~1e-4, so 2e-4
+    ts = np.array([0.0, 1.5, 250.0, 999.0], np.float32)
+    _close(timestep_embedding(_t(ts), dim), j_temb(jnp.asarray(ts), dim),
+           2e-4, "timestep embedding")
+
+
+def test_mel_filterbank_matches():
+    np.testing.assert_array_equal(
+        tmel.mel_filterbank().numpy(), np.asarray(jmel.mel_filterbank()))
+
+
+@pytest.mark.parametrize("rdft", ["fft", "matmul"])
+def test_stft_istft_match(rdft):
+    # torch.fft against XLA's FFT or the fp32 DFT matmuls: 1e-4 of the
+    # largest bin
+    rng = np.random.default_rng(14)
+    x = rng.standard_normal((2, 8192)).astype(np.float32)
+    ref = jstft.stft(jnp.asarray(x), rdft=rdft)
+    out = tstft.stft(_t(x))
+    _close(out.real, np.real(ref), 1e-4, "stft re")
+    _close(out.imag, np.imag(ref), 1e-4, "stft im")
+    spec = np.asarray(ref)
+    y = tstft.istft(_t(spec), length=8192)
+    _close(y, jstft.istft(jnp.asarray(spec), length=8192, rdft=rdft), 1e-4,
+           "istft")
+
+
+def test_spectrogram_normalisation_matches():
+    rng = np.random.default_rng(15)
+    mel = np.abs(rng.standard_normal((2, 16, 8))).astype(np.float32) * 3
+    _close(ttr.normalize_spectrogram(_t(mel)),
+           jtr.normalize_spectrogram(jnp.asarray(mel)), 1e-6, "normalize")
+    spec = rng.uniform(size=(2, 16, 8)).astype(np.float32)
+    _close(ttr.denormalize_spectrogram(_t(spec)),
+           jtr.denormalize_spectrogram(jnp.asarray(spec)), 1e-5, "denorm")
+
+
+def _spec(frames: int, seed: int):
+    rng = np.random.default_rng(seed)
+    return rng.uniform(0.2, 0.9, size=(2, 128, frames)).astype(np.float32)
+
+
+def test_mel_to_stft_matches():
+    # 30 power iterations and 60 FISTA steps in fp32 on both sides
+    mel = np.asarray(jtr.denormalize_spectrogram(jnp.asarray(_spec(16, 16))))
+    _close(tgl.mel_to_stft(_t(mel)), jgl.mel_to_stft(jnp.asarray(mel)), 1e-4,
+           "mel_to_stft")
+
+
+def test_griffin_lim_matches_with_shared_phase():
+    # the JAX phase draw, handed to the port; 8 momentum iterations keep
+    # the fp32 FFT-vs-matmul differences at ~1e-5 of the signal
+    rng = np.random.default_rng(17)
+    mag = np.abs(rng.standard_normal((2, 513, 24))).astype(np.float32)
+    key = jax.random.PRNGKey(3)
+    phase = np.asarray(jax.random.uniform(key, mag.shape, dtype=jnp.float32))
+    ref = jgl.griffin_lim(jnp.asarray(mag), key, n_iter=8, length=6000)
+    out = tgl.griffin_lim(_t(mag), phase=_t(phase), n_iter=8, length=6000)
+    _close(out, ref, 1e-3, "griffin_lim")
+
+
+def test_mel_to_wav_matches_with_shared_phase():
+    spec = _spec(24, 18)
+    key = jax.random.PRNGKey(4)
+    phase = np.asarray(jax.random.uniform(key, (2, 513, 24),
+                                          dtype=jnp.float32))
+    ref = jtr.mel_to_wav(jnp.asarray(spec), key, n_iter=8, length=6144)
+    out = ttr.mel_to_wav(_t(spec), n_iter=8, length=6144, phase=_t(phase))
+    _close(out, ref, 1e-3, "mel_to_wav")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["fwd", "bwd"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_kernels_match_plain(kind, dtype):
+    """The CUDA kernels against their plain versions on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    gen = torch.Generator("cuda").manual_seed(0)
+    b, heads, lq, lk, d = 2, 8, 200, 72, 40
+    q, k, v, g = (torch.randn((b, n, heads * d), generator=gen,
+                              device="cuda").to(dtype)
+                  for n in (lq, lk, lk, lq))
+    before = dict(ha.LAUNCHES)
+    if kind == "fwd":
+        outs = (ha.attention_packed_fwd(q, k, v, d**-0.5, heads),)
+        refs = (ha.attention_packed_reference(q, k, v, d**-0.5, heads),)
+    else:
+        outs = ha.attention_packed_bwd(q, k, v, g, d**-0.5, heads)
+        refs = ha.attention_packed_backward_reference(q, k, v, g, d**-0.5,
+                                                      heads)
+    torch.cuda.synchronize()
+    assert ha.LAUNCHES[f"attn_packed_{kind}"] == before[
+        f"attn_packed_{kind}"] + 1
+    # max|Δ| and rms(Δ) against rms(plain), the limits chip_smoke.py holds
+    # the path's shapes to (a few times what the kernels reach there)
+    max_tol, rms_tol = {
+        ("fwd", torch.float32): (5e-6, 3e-7), ("bwd", torch.float32): (1e-5, 5e-7),
+        ("fwd", torch.bfloat16): (0.06, 4e-4),
+        ("bwd", torch.bfloat16): (0.25, 0.015)}[(kind, dtype)]
+    for o, r in zip(outs, refs):
+        assert o.dtype == dtype
+        o, r = o.float(), r.float()
+        rms = float(r.square().mean().sqrt())
+        assert float((o - r).abs().max()) <= max_tol * rms
+        assert float((o - r).square().mean().sqrt()) <= rms_tol * rms
+
+
+@pytest.mark.parametrize("d,ok", [(32, True), (40, True), (80, True),
+                                  (160, True), (64, False), (48, False)])
+def test_kernel_wrappers_take_the_path_head_dims(d, ok):
+    # the CUDA sources instantiate the path's head dims only
+    heads = 2
+    q = torch.zeros((1, 4, heads * d))
+    if ok:
+        assert ha._check_packed(q, q, q, heads) == d
+    else:
+        with pytest.raises(ValueError, match="does not split"):
+            ha._check_packed(q, q, q, heads)

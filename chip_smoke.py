@@ -1,27 +1,36 @@
-"""Drive the PyTorch port's main path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's main paths on one NVIDIA GPU and check them.
 
-    python3 chip_smoke.py            # build, kernel, pipeline, agreement
+    python3 chip_smoke.py            # build, kernels, pipelines, agreement
     python3 chip_smoke.py --profile  # also torch.profiler over two steps
+                                     # of each sampler
 
 1. Build the CUDA kernels from ``diff_foley_tpu_torch/csrc`` (in parallel).
 2. Kernel phase: each kernel against its plain PyTorch version at every
-   shape of the main path, in bf16 and once in fp32, with times beside the
-   plain version's, PyTorch's SDPA (a yardstick the port never calls) and
-   the card's bound. A planted fault per kernel must fail the same check.
-3. Pipeline phase: ``DiffFoleyPipeline.generate`` at full width (the 860M
-   LDM UNet and the alignment classifier in bf16, the SD VAE in bf16,
-   seeded random weights), 2 windows × 2 samples, 25 DPM-Solver++ steps,
-   CFG 4.5, classifier guidance 50, 32 Griffin-Lim iterations, int16 wav.
-   Launch counts are reset just before and read just after, and must equal
-   what the model structure predicts.
-4. Agreement: a tiny pipeline in float32 on the GPU (kernels) against the
-   same pipeline on the CPU (plain versions), shared x_T and phase.
+   shape of the main paths, in bf16 and once in fp32, with times beside the
+   plain version's, one PyTorch call for the same function (SDPA,
+   F.group_norm then F.silu: yardsticks the port never calls) and the
+   card's bound. A planted fault per kernel must fail the same check.
+3. ``DiffFoleyPipeline.generate`` at full width (the 860M LDM UNet and the
+   alignment classifier in bf16, the SD VAE in bf16, seeded random
+   weights), 2 windows × 2 samples, 25 DPM-Solver++ steps, CFG 4.5,
+   classifier guidance 50, 32 Griffin-Lim iterations, int16 wav.
+4. ``DiffFoleyPipeline.inpaint`` at the same point with 25 masked DDIM
+   steps: the canvas is the generated spec, the first 256 frames of each
+   window are kept. Stage times, the distance to the canvas's VAE
+   roundtrip per region, and the contract check (a fully known canvas
+   lands ten times closer to the roundtrip than free generation).
+   Before each main-path run (3 and 4) the launch counts are reset; read
+   just after, they must equal what the model structure predicts.
+5. Agreement: tiny ``generate`` and ``inpaint`` in float32 on the GPU
+   (kernels) against the same pipeline on the CPU (plain versions), shared
+   noise and phase.
 
 The last line is {"ok": true, "device": {...}}; any failure exits non-zero
 before it. With no GPU it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import collections
 import copy
 import dataclasses
 import json
@@ -33,39 +42,68 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from diff_foley_tpu_torch.audio.transforms import mel_to_wav
 from diff_foley_tpu_torch.diffusion.latent_diffusion import (LatentDiffusion,
                                                               LDMConfig)
 from diff_foley_tpu_torch.models.attention import SpatialTransformer
+from diff_foley_tpu_torch.models.layers import (Downsample, GroupNorm32,
+                                                Upsample)
 from diff_foley_tpu_torch.models.unet import (CLASSIFIER_BACKBONE, LDM_UNET,
                                               ClassifierBackbone, UNetConfig)
-from diff_foley_tpu_torch.models.vae import VAEConfig
+from diff_foley_tpu_torch.models.vae import (SD_VAE, VAEConfig, VAEDownsample,
+                                             VAEUpsample)
 from diff_foley_tpu_torch.ops import cuda_build
 from diff_foley_tpu_torch.ops import hopper_attention as ha
-from diff_foley_tpu_torch.pipeline import (LATENT_HW, WINDOW_FEATS,
+from diff_foley_tpu_torch.ops import hopper_groupnorm as hg
+from diff_foley_tpu_torch.pipeline import (LATENT_HW, SPEC_HW, WINDOW_FEATS,
                                            WINDOW_SAMPLES, DiffFoleyPipeline,
-                                           GenerationConfig)
+                                           GenerationConfig,
+                                           continuation_mask,
+                                           spec_mask_to_latent)
 from diff_foley_tpu_torch.utils.init import randomize_
 
 PEAK_BF16 = 989e12    # H100 SXM dense bf16 tensor-core FLOP/s
 PEAK_FP32 = 67e12     # H100 SXM fp32 FLOP/s outside the tensor cores
 HBM_BYTES_S = 3.35e12
 WINDOWS, SAMPLES, STEPS = 2, 2, 25
+KEEP_FRAMES = 256     # inpaint keeps the first 256 frames of each window
 # Agreement with the plain version, per output tensor, against the size of
 # the plain output: max|Δ| ≤ MAX_TOL·rms(plain) and rms(Δ) ≤ RMS_TOL·rms(plain).
 # The max catches a local fault (a tile, an edge), the rms a small fault
 # spread over every element. Each limit is a few times the largest ratio
 # the kernels reach at the path's shapes; a planted fault per kernel must
-# exceed them (see FAULTS).
-MAX_TOL = {("fwd", torch.bfloat16): 0.06, ("fwd", torch.float32): 5e-6,
-           ("bwd", torch.bfloat16): 0.25, ("bwd", torch.float32): 1e-5}
-RMS_TOL = {("fwd", torch.bfloat16): 4e-4, ("fwd", torch.float32): 3e-7,
-           ("bwd", torch.bfloat16): 0.015, ("bwd", torch.float32): 5e-7}
+# exceed them (see FAULTS). Kinds: packed forward and backward, per-head
+# forward, GroupNorm block, stream stats (fp32 partial sums) and apply.
+BF16, FP32 = torch.bfloat16, torch.float32
+# The apply kernel repeats the plain version's fp32 operations and roundings
+# exactly (measured Δ 0); its limits allow one bf16 rounding step.
+MAX_TOL = {("fwd", BF16): 0.06, ("fwd", FP32): 5e-6,
+           ("bwd", BF16): 0.25, ("bwd", FP32): 1e-5,
+           ("head", BF16): 0.06, ("head", FP32): 1.5e-5,
+           ("gn", BF16): 0.15, ("gn", FP32): 1e-5,
+           ("stats", BF16): 1e-6, ("stats", FP32): 1e-6,
+           ("apply", BF16): 0.02, ("apply", FP32): 1e-6}
+RMS_TOL = {("fwd", BF16): 4e-4, ("fwd", FP32): 3e-7,
+           ("bwd", BF16): 0.015, ("bwd", FP32): 5e-7,
+           ("head", BF16): 4e-4, ("head", FP32): 1e-6,
+           ("gn", BF16): 2e-4, ("gn", FP32): 4e-7,
+           ("stats", BF16): 3e-7, ("stats", FP32): 3e-7,
+           ("apply", BF16): 1e-4, ("apply", FP32): 1e-7}
 KERNELS = {
     "attn_packed_fwd": ("diff_foley_tpu_torch/csrc/attention_fwd.cu",
                         "diff_foley_tpu/ops/pallas_attention.py:294"),
     "attn_packed_bwd": ("diff_foley_tpu_torch/csrc/attention_bwd.cu",
                         "diff_foley_tpu/ops/pallas_attention.py:400"),
+    "attn_fwd": ("diff_foley_tpu_torch/csrc/attention_head_fwd.cu",
+                 "diff_foley_tpu/ops/pallas_attention.py:58"),
+    "gn_block": ("diff_foley_tpu_torch/csrc/groupnorm.cu",
+                 "diff_foley_tpu/ops/pallas_groupnorm.py:78"),
+    "gn_stream_stats": ("diff_foley_tpu_torch/csrc/groupnorm.cu",
+                        "diff_foley_tpu/ops/pallas_groupnorm.py:195"),
+    "gn_stream_apply": ("diff_foley_tpu_torch/csrc/groupnorm.cu",
+                        "diff_foley_tpu/ops/pallas_groupnorm.py:212"),
 }
+RUNS = ("generate", "inpaint")
 
 
 def log(*a):
@@ -84,6 +122,17 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
 
+
+def reset_counts():
+    ha.reset_launch_counts()
+    hg.reset_launch_counts()
+
+
+def read_counts():
+    return {**ha.LAUNCHES, **hg.LAUNCHES}
+
+
+# ---- the path's shapes, from the model structure ----------------------------
 
 def path_shapes(n: int, lk: int):
     """(tag, batch, Lq, Lk, H·D, heads, calls per sampler step) of every
@@ -108,6 +157,69 @@ def path_shapes(n: int, lk: int):
     return out
 
 
+def gn_sites(model, hw):
+    """(channels, h, w, eps, act) of each GroupNorm32 call of one forward.
+    The models register their children in the order the forward runs
+    them, and each Down/Upsample halves/doubles the map."""
+    h, w = hw
+    out = []
+    for m in model.modules():
+        if isinstance(m, (Downsample, VAEDownsample)):
+            h, w = h // 2, w // 2
+        elif isinstance(m, (Upsample, VAEUpsample)):
+            h, w = 2 * h, 2 * w
+        elif isinstance(m, GroupNorm32):
+            out.append((m.weight.shape[0], h, w, m.eps, m.act))
+    return out
+
+
+def gn_kernels(channels: int, h: int, w: int, itemsize: int):
+    """The GroupNorm kernels one call at this map launches (the wrapper's
+    size rule)."""
+    if hg.uses_stream((1, channels, h, w), 32, itemsize):
+        return ("gn_stream_stats", "gn_stream_apply")
+    return ("gn_block",)
+
+
+def gn_path(pipe, n: int, steps: int):
+    """{(model, batch, channels, h, w, eps, act): {run: calls}} of every
+    GroupNorm32 call in one generate and one inpaint run."""
+    models = (("unet", pipe.ldm.unet, LATENT_HW, 2 * n, steps, steps),
+              ("clf", pipe.classifier, LATENT_HW, n, steps, steps),
+              ("vae-dec", pipe.ldm.vae.decoder, LATENT_HW, n, 1, 1),
+              ("vae-enc", pipe.ldm.vae.encoder, SPEC_HW, WINDOWS, 0, 1))
+    out = collections.defaultdict(lambda: dict.fromkeys(RUNS, 0))
+    for name, model, hw, batch, per_gen, per_inp in models:
+        for site in gn_sites(model, hw):
+            calls = out[(name, batch, *site)]
+            calls["generate"] += per_gen
+            calls["inpaint"] += per_inp
+    return out
+
+
+def predicted_launches(pipe, steps: int):
+    """{run: {kernel: launches}} from the module structure. The classifier
+    backward recomputes GroupNorm through the plain formula, so only its
+    forward launches GroupNorm kernels."""
+    count = lambda m: sum(2 * x.depth for x in m.modules()
+                          if isinstance(x, SpatialTransformer))
+    unet, clf = count(pipe.ldm.unet), count(pipe.classifier)
+    pred = {run: dict.fromkeys(KERNELS, 0) for run in RUNS}
+    for run in RUNS:
+        pred[run]["attn_packed_fwd"] = steps * (unet + clf)
+        pred[run]["attn_packed_bwd"] = steps * clf
+        # the VAE's mid attention: the decoder, and in inpaint the encoder
+        pred[run]["attn_fwd"] = 1 if run == "generate" else 2
+    for (_, _, c, h, w, _, _), calls in gn_path(
+            pipe, WINDOWS * SAMPLES, steps).items():
+        for k in gn_kernels(c, h, w, 2):
+            for run in RUNS:
+                pred[run][k] += calls[run]
+    return pred
+
+
+# ---- the kernel phase ---------------------------------------------------------
+
 def bound_ms(kind: str, b, lq, lk, hd, itemsize: int, peak: float):
     prods = 2 if kind == "fwd" else 5
     flops = prods * 2 * b * lq * lk * hd
@@ -115,6 +227,17 @@ def bound_ms(kind: str, b, lq, lk, hd, itemsize: int, peak: float):
                else 3 * b * lq * hd + 4 * b * lk * hd)
     t_ops = flops / peak * 1e3
     t_bytes = tensors * itemsize / HBM_BYTES_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def gn_bound_ms(kind: str, numel: int, itemsize: int):
+    """Bytes over 3.35 TB/s (x read once, y written once: 2·N·itemsize for
+    the block kernel and the apply, N·itemsize for the stats) against ~10,
+    3 and 5 fp32 operations an element (normalise, affine, SiLU; sums;
+    affine, SiLU) over the card's 67 TFLOP/s outside the tensor cores."""
+    nbytes = {"gn": 2, "stats": 1, "apply": 2}[kind] * numel * itemsize
+    ops = {"gn": 10, "stats": 3, "apply": 5}[kind] * numel
+    t_ops, t_bytes = ops / PEAK_FP32 * 1e3, nbytes / HBM_BYTES_S * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -155,10 +278,65 @@ def fault_bwd_no_delta(q, k, v, g, scale, heads):
     return tuple(ha.merge_heads(t) for t in (gq, gk, gv))
 
 
-FAULTS = {"fwd": fault_fwd_neighbour_head, "bwd": fault_bwd_no_delta}
+def fault_head_shifted_keys(q, k, v, scale):
+    """Planted fault: P pairs with the V rows of the next key, as a kernel
+    with a wrong key-tile offset would."""
+    return (ha.attention_reference(q, k, v.roll(1, dims=2), scale),)
 
 
-def check_kernel(kind: str, tag, b, lq, lk, hd, heads, dtype, gen):
+def fault_gn_neighbour_gamma(x, gamma, beta, eps, act):
+    """Planted fault: each channel scaled by its neighbour's γ."""
+    return (hg.group_norm_reference(x, gamma.roll(1), beta, 32, eps, act),)
+
+
+def fault_stats_chunk_dropped(x):
+    """Planted fault: the partial sums of each slab's first chunk lost."""
+    partial = hg.stream_stats_reference(x, 32).clone()
+    partial[:, :, 0] = 0.0
+    return (partial,)
+
+
+def fault_apply_neighbour_affine(x, a, b, act):
+    """Planted fault: each channel gets its neighbour's folded affine."""
+    return (hg.stream_apply_reference(x, a.roll(1, dims=1),
+                                      b.roll(1, dims=1), act),)
+
+
+FAULTS = {"fwd": fault_fwd_neighbour_head, "bwd": fault_bwd_no_delta,
+          "head": fault_head_shifted_keys, "gn": fault_gn_neighbour_gamma,
+          "stats": fault_stats_chunk_dropped,
+          "apply": fault_apply_neighbour_affine}
+
+
+def run_check(kind, dtype, kern, plain, faulty, lib, bound):
+    """Agreement of kern with plain, the fault's, and the three times."""
+    outs, refs = kern(), plain()
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    refs = refs if isinstance(refs, tuple) else (refs,)
+    torch.cuda.synchronize()
+    ok, err, max_r, rms_r = agreement(outs, refs, kind, dtype)
+    fault_ok, _, fault_max_r, fault_rms_r = agreement(faulty, refs, kind,
+                                                      dtype)
+    row = {"dtype": str(dtype).split(".")[-1], "max_abs_err": err,
+           "max_ratio": max_r, "rms_ratio": rms_r,
+           "tol": [MAX_TOL[(kind, dtype)], RMS_TOL[(kind, dtype)]],
+           "ok": ok, "fault": FAULTS[kind].__name__,
+           "fault_ratios": [fault_max_r, fault_rms_r],
+           "fault_caught": not fault_ok, "kernel_ms": time_ms(kern),
+           "plain_ms": time_ms(plain), "bound_ms": bound[0],
+           "bound_by": bound[1]}
+    if lib is None:
+        row["library_ms"] = None
+    else:
+        try:   # the yardstick only: the port never calls it
+            row["library_ms"] = time_ms(lib)
+        except RuntimeError as e:
+            row["library_ms"] = None
+            row["library_error"] = str(e).splitlines()[0][:200]
+    return row
+
+
+def check_packed(kind: str, tag, b, lq, lk, hd, heads, dtype, gen):
     d = hd // heads
     scale = d**-0.5
     q = torch.randn((b, lq, hd), generator=gen, device="cuda").to(dtype)
@@ -170,7 +348,6 @@ def check_kernel(kind: str, tag, b, lq, lk, hd, heads, dtype, gen):
         kern = lambda: ha.attention_packed_fwd(q, k, v, scale, heads)
         plain = lambda: ha.attention_packed_reference(q, k, v, scale, heads)
         lib = lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale)
-        outs, refs = (kern(),), (plain(),)
         faulty = FAULTS[kind](q, k, v, scale, heads)
     else:
         kern = lambda: ha.attention_packed_bwd(q, k, v, g, scale, heads)
@@ -181,50 +358,107 @@ def check_kernel(kind: str, tag, b, lq, lk, hd, heads, dtype, gen):
         gh = ha.split_heads(g, heads)
         lib = lambda: torch.autograd.grad(o, (ql, kl, vl), gh,
                                           retain_graph=True)
-        outs, refs = kern(), plain()
         faulty = FAULTS[kind](q, k, v, g, scale, heads)
-    torch.cuda.synchronize()
-    ok, err, max_r, rms_r = agreement(outs, refs, kind, dtype)
-    fault_ok, _, fault_max_r, fault_rms_r = agreement(faulty, refs, kind,
-                                                      dtype)
-    ms = time_ms(kern)
-    plain_ms = time_ms(plain)
-    library_ms = time_ms(lib)
-    peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32
-    bms, by = bound_ms(kind, b, lq, lk, hd, q.element_size(), peak)
-    return {"shape": tag, "dtype": str(dtype).split(".")[-1],
-            "B": b, "Lq": lq, "Lk": lk, "HD": hd, "D": d,
-            "max_abs_err": err, "max_ratio": max_r, "rms_ratio": rms_r,
-            "tol": [MAX_TOL[(kind, dtype)], RMS_TOL[(kind, dtype)]],
-            "ok": ok, "fault": FAULTS[kind].__name__,
-            "fault_ratios": [fault_max_r, fault_rms_r],
-            "fault_caught": not fault_ok, "kernel_ms": ms,
-            "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bms,
-            "bound_by": by}
+    peak = PEAK_BF16 if dtype == BF16 else PEAK_FP32
+    row = run_check(kind, dtype, kern, plain, faulty, lib,
+                    bound_ms(kind, b, lq, lk, hd, q.element_size(), peak))
+    return {"shape": tag, "B": b, "Lq": lq, "Lk": lk, "HD": hd, "D": d,
+            **row}
 
 
-def kernel_phase(n: int):
+def check_head(tag, b, l, d, dtype, gen):
+    """The per-head kernel on the VAE's layout: the (B, 1, h·w, C) token
+    view of NCHW projections."""
+    q, k, v = (torch.randn((b, d, l), generator=gen, device="cuda")
+               .to(dtype)[:, None].transpose(2, 3) for _ in range(3))
+    scale = d**-0.5
+    peak = PEAK_BF16 if dtype == BF16 else PEAK_FP32
+    row = run_check(
+        "head", dtype, lambda: ha.attention_fwd(q, k, v, scale),
+        lambda: ha.attention_reference(q, k, v, scale),
+        fault_head_shifted_keys(q, k, v, scale),
+        lambda: F.scaled_dot_product_attention(q, k, v, scale=scale),
+        bound_ms("fwd", b, l, l, d, q.element_size(), peak))
+    return {"shape": tag, "B": b, "Lq": l, "Lk": l, "HD": d, "D": d, **row}
+
+
+def check_gn(tag, b, c, h, w, eps, act, dtype, gen):
+    """The GroupNorm kernels one call at this map launches: the block
+    kernel, or the stats and apply pair (one row each)."""
+    x = (torch.randn((b, c, h, w), generator=gen, device="cuda") * 2
+         + 0.5).to(dtype)
+    gamma = (1 + 0.1 * torch.randn(c, generator=gen, device="cuda")).to(dtype)
+    beta = (0.1 * torch.randn(c, generator=gen, device="cuda")).to(dtype)
+    lib = lambda: (F.silu(F.group_norm(x, 32, gamma, beta, eps))
+                   if act == "silu" else F.group_norm(x, 32, gamma, beta, eps))
+    info = {"shape": tag, "B": b, "C": c, "H": h, "W": w, "eps": eps,
+            "act": act}
+    n, itemsize = x.numel(), x.element_size()
+    if not hg.uses_stream(x.shape, 32, itemsize):
+        return [("gn_block", {**info, **run_check(
+            "gn", dtype,
+            lambda: hg.group_norm_block(x, gamma, beta, 32, eps, act),
+            lambda: hg.group_norm_reference(x, gamma, beta, 32, eps, act),
+            fault_gn_neighbour_gamma(x, gamma, beta, eps, act), lib,
+            gn_bound_ms("gn", n, itemsize))})]
+    partial = hg.stream_stats_reference(x, 32)
+    a, bb = hg.fold_stats(partial, gamma, beta, n // b // 32, eps)
+    # F.group_norm (then F.silu) computes the pair's whole function: its
+    # time stands on the apply row, and none on the stats row
+    return [
+        ("gn_stream_stats", {**info, **run_check(
+            "stats", dtype, lambda: hg.stream_stats(x, 32),
+            lambda: hg.stream_stats_reference(x, 32),
+            fault_stats_chunk_dropped(x), None,
+            gn_bound_ms("stats", n, itemsize))}),
+        ("gn_stream_apply", {**info, **run_check(
+            "apply", dtype, lambda: hg.stream_apply(x, a, bb, act),
+            lambda: hg.stream_apply_reference(x, a, bb, act),
+            fault_apply_neighbour_affine(x, a, bb, act), lib,
+            gn_bound_ms("apply", n, itemsize))})]
+
+
+def kernel_phase(pipe):
+    """Every kernel at every shape of the two main paths (bf16, with its
+    calls per run), and once in fp32."""
+    n = WINDOWS * SAMPLES
     gen = torch.Generator("cuda").manual_seed(0)
     rows = []
-    shapes = path_shapes(n, WINDOW_FEATS)
-    for tag, b, lq, lk, hd, heads, calls in shapes:
-        r = check_kernel("fwd", tag, b, lq, lk, hd, heads, torch.bfloat16, gen)
-        r["calls_per_step"] = calls
-        rows.append(("attn_packed_fwd", r))
+    for tag, b, lq, lk, hd, heads, per_step in path_shapes(n, WINDOW_FEATS):
+        calls = dict.fromkeys(RUNS, STEPS * per_step)
+        rows.append(("attn_packed_fwd", {**check_packed(
+            "fwd", tag, b, lq, lk, hd, heads, BF16, gen), "calls": calls}))
         if tag.startswith("clf"):
-            r = check_kernel("bwd", tag, b, lq, lk, hd, heads,
-                             torch.bfloat16, gen)
-            r["calls_per_step"] = calls
-            rows.append(("attn_packed_bwd", r))
-    # once in fp32: the UNet's level-0 cross shape and the classifier's
-    # level-1 self shape
-    rows.append(("attn_packed_fwd", check_kernel(
-        "fwd", "unet-0-cross", 2 * n, 1024, WINDOW_FEATS, 320, 8,
-        torch.float32, gen)))
-    rows.append(("attn_packed_bwd", check_kernel(
-        "bwd", "clf-1-self", n, 256, 256, 256, 8, torch.float32, gen)))
-    # reset after the comparisons: they are not the main path's launches
-    ha.reset_launch_counts()
+            rows.append(("attn_packed_bwd", {**check_packed(
+                "bwd", tag, b, lq, lk, hd, heads, BF16, gen),
+                "calls": calls}))
+    d = SD_VAE.ch * SD_VAE.ch_mult[-1]
+    l = LATENT_HW[0] * LATENT_HW[1]
+    rows.append(("attn_fwd", {**check_head("vae-enc-mid", WINDOWS, l, d,
+                                           BF16, gen),
+                              "calls": {"generate": 0, "inpaint": 1}}))
+    rows.append(("attn_fwd", {**check_head("vae-dec-mid", n, l, d, BF16,
+                                           gen),
+                              "calls": {"generate": 1, "inpaint": 1}}))
+    for (model, b, c, h, w, eps, act), calls in gn_path(pipe, n,
+                                                         STEPS).items():
+        tag = f"{model}-{c}x{h}x{w}"
+        for name, r in check_gn(tag, b, c, h, w, eps, act, BF16, gen):
+            rows.append((name, {**r, "calls": calls}))
+    # once in fp32: the UNet's level-0 cross shape, the classifier's
+    # level-1 self shape, the decoder's mid attention, a UNet level-0 norm
+    # and the decoder's full-resolution norm
+    rows.append(("attn_packed_fwd", check_packed(
+        "fwd", "unet-0-cross", 2 * n, 1024, WINDOW_FEATS, 320, 8, FP32, gen)))
+    rows.append(("attn_packed_bwd", check_packed(
+        "bwd", "clf-1-self", n, 256, 256, 256, 8, FP32, gen)))
+    rows.append(("attn_fwd", check_head("vae-dec-mid", n, l, d, FP32, gen)))
+    rows += check_gn("unet-320x16x64", 2 * n, 320, 16, 64, 1e-5, "silu",
+                     FP32, gen)
+    rows += check_gn("vae-dec-128x128x512", n, 128, 128, 512, 1e-6, "silu",
+                     FP32, gen)
+    # reset after the comparisons: they are not the main paths' launches
+    reset_counts()
     log("kernels " + json.dumps([dict(kernel=k, **r) for k, r in rows]))
     bad = [(k, r["shape"], r["dtype"], r["max_ratio"], r["rms_ratio"])
            for k, r in rows if not r["ok"]]
@@ -234,31 +468,48 @@ def kernel_phase(n: int):
               if not r["fault_caught"]]
     if missed:
         raise AssertionError(f"the comparison passes a planted fault: {missed}")
+    worst = collections.defaultdict(lambda: [0.0, 0.0, float("inf")])
+    for k, r in rows:
+        wr = worst[(k, r["dtype"])]
+        wr[0] = max(wr[0], r["max_ratio"])
+        wr[1] = max(wr[1], r["rms_ratio"])
+        wr[2] = min(wr[2], max(r["fault_ratios"][0] / r["tol"][0],
+                               r["fault_ratios"][1] / r["tol"][1]))
+    log("kernel worst ratios (max, rms, fault/limit) " + json.dumps(
+        {f"{k}/{dt}": v for (k, dt), v in worst.items()}))
     return rows
 
 
 def summarize(rows, launches):
-    """One entry per kernel: its bf16 path shapes summed over one sampler
-    step's calls (ms, plain_ms, library_ms, bound_ms), its largest error,
-    and its launches in the main-path run."""
+    """One entry per kernel: its bf16 path shapes summed over their calls in
+    the generate and the inpaint run (ms, plain_ms, library_ms, bound_ms),
+    its largest error, and its launches in the two main-path runs."""
     out = []
     for name, (source, replaces) in KERNELS.items():
-        rs = [r for k, r in rows if k == name and "calls_per_step" in r]
-        tot = lambda key: sum(r[key] * r["calls_per_step"] for r in rs)
-        t_ops = sum(r["bound_ms"] * r["calls_per_step"] for r in rs
+        rs = [r for k, r in rows if k == name and "calls" in r]
+        tot = lambda key, run: sum((r[key] or 0.0) * r["calls"][run]
+                                   for r in rs)
+        both = lambda key: tot(key, "generate") + tot(key, "inpaint")
+        t_ops = sum(r["bound_ms"] * sum(r["calls"].values()) for r in rs
                     if r["bound_by"] == "operations")
+        has_lib = any(r["library_ms"] is not None for r in rs)
         out.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces,
+            "launches": sum(launches[run][name] for run in RUNS),
             "max_abs_err": max(r["max_abs_err"] for k, r in rows if k == name),
-            "ms": tot("kernel_ms"), "plain_ms": tot("plain_ms"),
-            "bound_ms": tot("bound_ms"),
-            "bound_by": "operations" if t_ops >= tot("bound_ms") / 2
+            "ms": both("kernel_ms"), "plain_ms": both("plain_ms"),
+            "bound_ms": both("bound_ms"),
+            "bound_by": "operations" if t_ops >= both("bound_ms") / 2
             else "bytes",
-            "library_ms": tot("library_ms"),
+            "library_ms": both("library_ms") if has_lib else None,
+            **{f"launches_{run}": launches[run][name] for run in RUNS},
+            **{f"ms_{run}": tot("kernel_ms", run) for run in RUNS},
         })
     return out
 
+
+# ---- the pipelines --------------------------------------------------------------
 
 def build_flagship(seed: int = 0):
     ldm = LatentDiffusion(LDMConfig(
@@ -271,92 +522,183 @@ def build_flagship(seed: int = 0):
                              vae_dtype="bfloat16", device="cuda")
 
 
-def predicted_launches(pipe, steps: int):
-    count = lambda m: sum(2 * x.depth for x in m.modules()
-                          if isinstance(x, SpatialTransformer))
-    unet, clf = count(pipe.ldm.unet), count(pipe.classifier)
-    return {"attn_packed_fwd": steps * (unet + clf),
-            "attn_packed_bwd": steps * clf}
+def check_launches(run: str, launches, expect):
+    log(f"launches {run} {json.dumps(launches)} predicted "
+        f"{json.dumps(expect)}")
+    if launches != expect:
+        raise AssertionError(f"{run} launch counts {launches} != {expect}")
 
 
-def pipeline_phase(profile: bool):
-    t0 = time.perf_counter()
-    pipe = build_flagship()
+def check_outputs(out, what: str):
+    wav, spec = out["wav"], out["spec"]
+    if wav.shape != (SAMPLES, WINDOWS * WINDOW_SAMPLES) or wav.dtype != np.int16:
+        raise AssertionError(f"{what} wav {wav.shape} {wav.dtype}")
+    if spec.shape != (SAMPLES, 128, WINDOWS * 512) or not np.isfinite(spec).all():
+        raise AssertionError(f"{what} spec {spec.shape} "
+                             f"finite={np.isfinite(spec).all()}")
+    if not (spec.min() >= 0.0 and spec.max() <= 1.0):
+        raise AssertionError(f"{what} spec leaves [0, 1]")
+    log(f"{what} spec finite in [0, 1] mean {float(spec.mean()):.6f}; wav "
+        f"int16 |max| {int(np.abs(wav.astype(np.int32)).max())}")
+
+
+def timed(stages: dict, name: str, fn):
     torch.cuda.synchronize()
-    log(f"pipeline build+random weights {time.perf_counter() - t0:.3f} s")
-    feats = np.random.default_rng(0).standard_normal(
-        (WINDOWS * WINDOW_FEATS, 512)).astype(np.float32)
-    gen = GenerationConfig(steps=STEPS, sample_num=SAMPLES, wav_dtype="int16")
+    t = time.perf_counter()
+    r = fn()
+    torch.cuda.synchronize()
+    stages[name] = time.perf_counter() - t
+    return r
 
-    ha.reset_launch_counts()
+
+def generate_phase(pipe, feats, expect, profile: bool):
+    gen = GenerationConfig(steps=STEPS, sample_num=SAMPLES, wav_dtype="int16")
+    reset_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     out = pipe.generate(feats, seed=0, gen=gen)
     torch.cuda.synchronize()
     cold_s = time.perf_counter() - t0
-    launches = dict(ha.LAUNCHES)
-    expect = predicted_launches(pipe, STEPS)
-    wav, spec = out["wav"], out["spec"]
-    log(f"pipeline generate {cold_s:.3f} s (first call) wav {wav.shape} "
-        f"{wav.dtype} spec {spec.shape} peak_mem_GiB "
+    launches = read_counts()
+    log(f"generate {cold_s:.3f} s (first call) peak_mem_GiB "
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f}")
-    log(f"launches {json.dumps(launches)} predicted {json.dumps(expect)}")
-    if launches != expect:
-        raise AssertionError(f"launch counts {launches} != {expect}")
-    if wav.shape != (SAMPLES, WINDOWS * WINDOW_SAMPLES) or wav.dtype != np.int16:
-        raise AssertionError(f"wav {wav.shape} {wav.dtype}")
-    if spec.shape != (SAMPLES, 128, WINDOWS * 512) or not np.isfinite(spec).all():
-        raise AssertionError(f"spec {spec.shape} finite={np.isfinite(spec).all()}")
-    if not (spec.min() >= 0.0 and spec.max() <= 1.0):
-        raise AssertionError("spec leaves [0, 1]")
-    log(f"spec finite {bool(np.isfinite(spec).all())} in [0, 1] "
-        f"mean {float(spec.mean()):.6f}; wav int16 |max| "
-        f"{int(np.abs(wav.astype(np.int32)).max())}")
+    check_launches("generate", launches, expect)
+    check_outputs(out, "generate")
 
     # a second, warm call split into its stages
     stages = {}
     feats_w = torch.as_tensor(feats.reshape(WINDOWS, WINDOW_FEATS, 512),
                               device="cuda")
     g = torch.Generator("cuda").manual_seed(1)
-
-    def stage(name, fn):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        r = fn()
-        torch.cuda.synchronize()
-        stages[name] = time.perf_counter() - t
-        return r
-
     with torch.no_grad():
         cond = feats_w.repeat_interleave(SAMPLES, dim=0)
-        z = stage("sampler_s", lambda: pipe.ldm.sample(
-            cond, steps=STEPS, cfg_scale=gen.cfg_scale,
-            classifier=pipe.classifier,
-            classifier_scale=gen.classifier_scale, generator=g))
-        specs = stage("vae_decode_s", lambda: torch.clamp(
-            pipe.ldm.decode_first_stage(z.to(torch.bfloat16))[..., 0].float(),
-            0.0, 1.0))
-        from diff_foley_tpu_torch.audio.transforms import mel_to_wav
-        stage("griffin_lim_s", lambda: mel_to_wav(
+        z = timed(stages, "sampler_s", lambda: pipe.ldm.sample(
+            cond, generator=g, **pipe.sampler_kwargs(gen)))
+        specs = timed(stages, "vae_decode_s", lambda: pipe.decode_specs(z))
+        timed(stages, "griffin_lim_s", lambda: mel_to_wav(
             specs, n_iter=gen.gl_iters, length=WINDOW_SAMPLES, generator=g))
     stages["total_s"] = sum(stages.values())
-    log("pipeline warm stages " + json.dumps(stages))
+    log("generate warm stages " + json.dumps(stages))
     if profile:
-        profile_steps(pipe, cond, gen)
-    return launches, {"first_call_s": cold_s, **stages}
+        profile_steps("dpm", lambda: pipe.ldm.sample(
+            cond, generator=torch.Generator("cuda").manual_seed(2),
+            **pipe.sampler_kwargs(dataclasses.replace(gen, steps=2))))
+    return launches, {"first_call_s": cold_s, **stages}, out["spec"]
 
 
-def profile_steps(pipe, cond, gen, steps: int = 2):
-    """torch.profiler over a warm sampler run of ``steps`` steps: device
-    busy time per step (the union of the kernels' intervals), the idle
-    share of the wall time, and the kernels that take the most."""
+def canvas(spec: np.ndarray):
+    """The inpaint inputs: the known canvas (sample 0 of a generated spec),
+    its keep mask, and both per window on the card."""
+    known = spec[0]
+    mask = np.tile(continuation_mask(SPEC_HW[1], KEEP_FRAMES), (1, WINDOWS))
+    to_w = lambda a: np.ascontiguousarray(
+        a.reshape(SPEC_HW[0], WINDOWS, SPEC_HW[1]).transpose(1, 0, 2))
+    return (known, mask, torch.as_tensor(to_w(known), device="cuda"),
+            torch.as_tensor(spec_mask_to_latent(to_w(mask)), device="cuda"))
+
+
+def inpaint_stages(pipe, feats_w, spec_w, mask_lat, gen, seed: int):
+    """``inpaint``'s stages, each timed: encode, masked DDIM, decode,
+    Griffin-Lim."""
+    stages = {}
+    s = gen.sample_num
+    g = torch.Generator("cuda").manual_seed(seed)
+    with torch.no_grad():
+        z0 = timed(stages, "encode_s", lambda: pipe.encode_canvas(
+            spec_w).repeat_interleave(s, dim=0))
+        mask = mask_lat.repeat_interleave(s, dim=0)
+        z = timed(stages, "sampler_s", lambda: pipe.ldm.sample(
+            feats_w.repeat_interleave(s, dim=0), generator=g, mask=mask,
+            x0=z0, **pipe.sampler_kwargs(gen)))
+        z = z0 * mask + (1.0 - mask) * z
+        specs = timed(stages, "vae_decode_s", lambda: pipe.decode_specs(z))
+        timed(stages, "griffin_lim_s", lambda: mel_to_wav(
+            specs, n_iter=gen.gl_iters, length=WINDOW_SAMPLES, generator=g))
+    stages["total_s"] = sum(stages.values())
+    return stages, (z, z0, mask)
+
+
+def region_errors(spec_out, rt, mask):
+    """Mean |Δ| against the roundtrip on the kept and the generated region."""
+    d = np.abs(spec_out - rt[None])
+    keep = np.broadcast_to(mask[None] > 0, d.shape)
+    return float(d[keep].mean()), float(d[~keep].mean())
+
+
+def inpaint_phase(pipe, feats, spec, expect, profile: bool):
+    gen = GenerationConfig(sampler="ddim", steps=STEPS, sample_num=SAMPLES,
+                           wav_dtype="int16")
+    known, mask, spec_w, mask_lat = canvas(spec)
+    feats_w = torch.as_tensor(feats.reshape(WINDOWS, WINDOW_FEATS, 512),
+                              device="cuda")
+    first, _ = inpaint_stages(pipe, feats_w, spec_w, mask_lat, gen, 3)
+    log("inpaint first stages " + json.dumps(first))
+
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = pipe.inpaint(feats, known, mask, seed=0, gen=gen)
+    torch.cuda.synchronize()
+    call_s = time.perf_counter() - t0
+    launches = read_counts()
+    log(f"inpaint {call_s:.3f} s (main-path call) peak_mem_GiB "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f}")
+    check_launches("inpaint", launches, expect)
+    check_outputs(out, "inpaint")
+
+    warm, (z, z0, mask_s) = inpaint_stages(pipe, feats_w, spec_w, mask_lat,
+                                           gen, 4)
+    log("inpaint warm stages " + json.dumps(warm))
+    latent_kept = float(((z - z0) * mask_s).abs().max())
+    log(f"inpaint latents max|Δ| to the canvas's on the kept cells "
+        f"{latent_kept} (the final composite pins them)")
+    if latent_kept != 0.0:
+        raise AssertionError("the kept latents moved")
+    rt = pipe.decode_specs(pipe.encode_canvas(spec_w)).cpu().numpy()
+    rt = rt.transpose(1, 0, 2).reshape(SPEC_HW[0], -1)
+    kept, generated = region_errors(out["spec"], rt, mask)
+    log(f"inpaint mean |Δ| to decode(encode(canvas)): kept region {kept:.6f}"
+        f" generated region {generated:.6f}")
+
+    # the contract at full width (tests/test_pipeline_inpaint.py): 4 DDIM
+    # steps, CFG 1, no classifier, a fully known canvas
+    g4 = GenerationConfig(sampler="ddim", steps=4, sample_num=SAMPLES,
+                          gl_iters=2, cfg_scale=1.0, classifier_scale=0.0,
+                          wav_dtype="int16")
+    full = np.ones_like(known)
+    err_in = np.abs(pipe.inpaint(feats, known, full, seed=5, gen=g4)["spec"]
+                    - rt[None]).mean()
+    err_free = np.abs(pipe.generate(feats, seed=5, gen=g4)["spec"]
+                      - rt[None]).mean()
+    log(f"inpaint contract: fully known canvas mean |Δ| {err_in:.6f}, free "
+        f"generation {err_free:.6f} (must be ≥ 10× apart)")
+    if not err_in * 10 <= err_free:
+        raise AssertionError(f"inpaint lands {err_in} from the roundtrip, "
+                             f"free generation {err_free}")
+    if profile:
+        with torch.no_grad():
+            cond = feats_w.repeat_interleave(SAMPLES, dim=0)
+            profile_steps("ddim-masked", lambda: pipe.ldm.sample(
+                cond, generator=torch.Generator("cuda").manual_seed(2),
+                mask=mask_s, x0=z0,
+                **pipe.sampler_kwargs(dataclasses.replace(gen, steps=2))))
+    return launches, {"main_call_s": call_s,
+                      **{f"first_{k}": v for k, v in first.items()},
+                      **{f"warm_{k}": v for k, v in warm.items()},
+                      "latent_kept_max_abs_delta": latent_kept,
+                      "kept_mean_abs_delta": kept,
+                      "generated_mean_abs_delta": generated,
+                      "contract_inpaint": float(err_in),
+                      "contract_free": float(err_free)}
+
+
+def profile_steps(what: str, run, steps: int = 2):
+    """torch.profiler over a warm sampler run of two steps: device busy
+    time per step (the union of the kernels' intervals), the idle share of
+    the wall time, and the kernels that take the most."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    run = lambda: pipe.ldm.sample(
-        cond, steps=steps, cfg_scale=gen.cfg_scale,
-        classifier=pipe.classifier, classifier_scale=gen.classifier_scale,
-        generator=torch.Generator("cuda").manual_seed(2))
     with torch.no_grad():
         run()
         torch.cuda.synchronize()
@@ -378,7 +720,7 @@ def profile_steps(pipe, cond, gen, steps: int = 2):
         t[0] += k.time_range.elapsed_us()
         t[1] += 1
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
-    log("profile " + json.dumps({
+    log(f"profile {what} " + json.dumps({
         "steps": steps, "wall_ms_per_step": wall_ms / steps,
         "device_busy_ms_per_step": busy_us / 1e3 / steps,
         "device_idle_share": 1.0 - busy_us / 1e3 / wall_ms,
@@ -388,9 +730,10 @@ def profile_steps(pipe, cond, gen, steps: int = 2):
 
 
 def agreement_phase():
-    """Tiny float32 pipeline: GPU (kernels) against CPU (plain versions).
-    Head dims 40 and 80 in the UNet, 32 in the classifier: the kernels
-    take the path's head dims only."""
+    """Tiny float32 pipelines, generate and inpaint: GPU (kernels) against
+    CPU (plain versions). Head dims 40 and 80 in the UNet, 32 in the
+    classifier and the VAE (ch 32): the kernels take the path's head dims
+    only. The VAE's full-resolution norms stream in fp32."""
     ucfg = UNetConfig(model_channels=160, num_res_blocks=1,
                       channel_mult=(1, 2), attention_resolutions=(1, 2),
                       num_heads=4, context_dim=64)
@@ -407,20 +750,31 @@ def agreement_phase():
                           dtype=torch.float32)
     phase = torch.as_tensor(rng.uniform(size=(2, 513, 512)),
                             dtype=torch.float32)
+    known = rng.uniform(0.2, 0.8, size=SPEC_HW).astype(np.float32)
+    mask = continuation_mask(SPEC_HW[1], KEEP_FRAMES)
+    mask_noise = torch.as_tensor(rng.standard_normal((4, 2, *LATENT_HW, 4)),
+                                 dtype=torch.float32)
     gen = GenerationConfig(steps=3, sample_num=2, gl_iters=4)
+    gen_in = dataclasses.replace(gen, sampler="ddim", steps=4)
     outs = {}
     for device in ("cpu", "cuda"):
         pipe = DiffFoleyPipeline(copy.deepcopy(ldm), copy.deepcopy(clf),
                                  device=device)
-        outs[device] = pipe.generate(feats, gen=gen, x_T=x_T.to(device),
-                                     gl_phase=phase.to(device))
-    d_spec = float(np.abs(outs["cpu"]["spec"] - outs["cuda"]["spec"]).max())
-    d_wav = float(np.abs(outs["cpu"]["wav"] - outs["cuda"]["wav"]).max())
-    wav_scale = float(np.abs(outs["cpu"]["wav"]).max())
-    log(f"agreement tiny fp32 gpu-vs-cpu spec max|Δ| {d_spec:.3e} (tol 1e-3) "
-        f"wav max|Δ| {d_wav:.3e} of |wav| {wav_scale:.3e} (tol 1e-2·|wav|)")
-    if not d_spec <= 1e-3 or not d_wav <= 1e-2 * max(wav_scale, 1e-6):
-        raise AssertionError("GPU pipeline disagrees with the CPU pipeline")
+        outs[("generate", device)] = pipe.generate(
+            feats, gen=gen, x_T=x_T.to(device), gl_phase=phase.to(device))
+        outs[("inpaint", device)] = pipe.inpaint(
+            feats, known, mask, gen=gen_in, x_T=x_T.to(device),
+            mask_noise=mask_noise.to(device), gl_phase=phase.to(device))
+    for run in RUNS:
+        cpu, gpu = outs[(run, "cpu")], outs[(run, "cuda")]
+        d_spec = float(np.abs(cpu["spec"] - gpu["spec"]).max())
+        d_wav = float(np.abs(cpu["wav"] - gpu["wav"]).max())
+        wav_scale = float(np.abs(cpu["wav"]).max())
+        log(f"agreement tiny fp32 {run} gpu-vs-cpu spec max|Δ| {d_spec:.3e} "
+            f"(tol 1e-3) wav max|Δ| {d_wav:.3e} of |wav| {wav_scale:.3e} "
+            f"(tol 1e-2·|wav|)")
+        if not d_spec <= 1e-3 or not d_wav <= 1e-2 * max(wav_scale, 1e-6):
+            raise AssertionError(f"GPU {run} disagrees with the CPU's")
 
 
 def main(argv):
@@ -445,9 +799,25 @@ def main(argv):
             if "registers" in line or "spill" in line:
                 log(f"ptxas {name}: {line.strip()}")
 
-    rows = kernel_phase(WINDOWS * SAMPLES)
-    launches, times = pipeline_phase("--profile" in argv)
-    log("pipeline times " + json.dumps(times))
+    t0 = time.perf_counter()
+    pipe = build_flagship()
+    torch.cuda.synchronize()
+    log(f"pipeline build+random weights {time.perf_counter() - t0:.3f} s")
+    expect = predicted_launches(pipe, STEPS)
+    t0 = time.perf_counter()
+    rows = kernel_phase(pipe)
+    log(f"kernel phase {time.perf_counter() - t0:.3f} s")
+    feats = np.random.default_rng(0).standard_normal(
+        (WINDOWS * WINDOW_FEATS, 512)).astype(np.float32)
+    profile = "--profile" in argv
+    launches = {}
+    launches["generate"], times, spec = generate_phase(
+        pipe, feats, expect["generate"], profile)
+    log("generate times " + json.dumps(times))
+    launches["inpaint"], times = inpaint_phase(
+        pipe, feats, spec, expect["inpaint"], profile)
+    log("inpaint times " + json.dumps(times))
+    del pipe
     agreement_phase()
     log(json.dumps({"kernels": summarize(rows, launches)}))
     log(card)

@@ -231,11 +231,11 @@ static cudaError_t launch_bwd(const void* q, const void* k, const void* v,
       sizeof(float) * ((size_t)(2 * BQ + 2 * BK) * ld + 2 * BQ * SLD + 3 * BQ);
   auto kdq = attn_packed_bwd_dq_kernel<T, NC>;
   auto kkv = attn_packed_bwd_dkdv_kernel<T, NC>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kdq, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_dq);
+  // d = 4·NC, so both budgets are fixed per instantiation
+  static SmemLimit limit_dq, limit_kv;
+  cudaError_t err = limit_dq.raise(kdq, smem_dq);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(
-      kkv, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_kv);
+  err = limit_kv.raise(kkv, smem_kv);
   if (err != cudaSuccess) return err;
   dim3 grid_q((lq + BQ - 1) / BQ, heads, b);
   kdq<<<grid_q, NT, smem_dq, stream>>>((const T*)q, (const T*)k, (const T*)v,

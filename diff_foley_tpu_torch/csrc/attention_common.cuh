@@ -15,10 +15,7 @@
 // column hit sixteen banks.
 #pragma once
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stddef.h>
+#include "common.cuh"
 
 namespace dft {
 
@@ -26,35 +23,6 @@ constexpr int BQ = 64;        // query rows per tile
 constexpr int BK = 64;        // key rows per tile
 constexpr int NT = 256;       // threads per block
 constexpr int SLD = BK + 1;   // leading dimension of (BQ, BK) score tiles
-
-// dtype codes shared with the Python wrappers
-constexpr int DTYPE_F32 = 0;
-constexpr int DTYPE_BF16 = 1;
-
-template <typename T>
-__device__ __forceinline__ float to_f(T x);
-template <>
-__device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as torch's cast
-}
-
-// x rounded through T: the plain version's cast of P (or dS) to the
-// operand type before the second product
-template <typename T>
-__device__ __forceinline__ float round_as(float x) {
-  return to_f<T>(from_f<T>(x));
-}
 
 // odd leading dimension of a (rows, D) fp32 tile
 __host__ __device__ __forceinline__ int tile_ld(int d) { return d | 1; }

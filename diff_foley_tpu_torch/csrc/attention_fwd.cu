@@ -94,8 +94,8 @@ static cudaError_t launch_fwd(const void* q, const void* k, const void* v,
   const int ld = tile_ld(d);
   const size_t smem = sizeof(float) * ((size_t)(BQ + 2 * BK) * ld + BQ * SLD);
   auto kernel = attn_packed_fwd_kernel<T, NC>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static SmemLimit limit;   // d = 4·NC, so smem is fixed per instantiation
+  cudaError_t err = limit.raise(kernel, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((lq + BQ - 1) / BQ, heads, b);
   kernel<<<grid, NT, smem, stream>>>((const T*)q, (const T*)k, (const T*)v,

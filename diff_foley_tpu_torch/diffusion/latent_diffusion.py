@@ -1,9 +1,9 @@
-"""LatentDiffusion at inference: conditioning, the ε-UNet, DPM-Solver++
-sampling with guidance, and the first-stage decode
+"""LatentDiffusion at inference: conditioning, the ε-UNet, DPM-Solver++ or
+DDIM sampling with guidance, and the first stage's encode and decode
 (``diff_foley_tpu/diffusion/latent_diffusion.py``).
 
 Children mirror the JAX params layout: ``unet`` ({"unet": …}), ``cond``
-({"cond": …}) and ``vae`` (the separate VAE params, decode half).
+({"cond": …}) and ``vae`` (the separate VAE params).
 """
 from __future__ import annotations
 
@@ -18,7 +18,7 @@ from ..models.cond_encoder import VideoFeatEncoderPosembed
 from ..models.unet import LDM_UNET, UNetConfig, UNetModel
 from ..models.vae import SD_VAE, AutoencoderKL, VAEConfig
 from .guidance import GuidanceSpec, make_guided_eps_fn
-from .samplers import dpm_solver_sample
+from .samplers import ddim_sample, dpm_solver_sample
 from .schedule import DiffusionSchedule
 
 
@@ -56,21 +56,34 @@ class LatentDiffusion(nn.Module):
         """Cross-attention conditioning into the UNet."""
         return self.unet(x, t, context)
 
+    def encode_first_stage(self, x: torch.Tensor) -> torch.Tensor:
+        """NHWC mel image → scaled latent, the posterior's mode."""
+        return self.cfg.scale_factor * self.vae.encode(x).mode()
+
     def decode_first_stage(self, z: torch.Tensor) -> torch.Tensor:
         """Scaled latent → mel image, NHWC."""
         return self.vae.decode(z / self.cfg.scale_factor)
 
     def sample(self, video_feat: torch.Tensor, *, latent_hw=(16, 64),
-               steps: int = 25, cfg_scale: float = 4.5,
+               sampler: str = "dpm", steps: int = 25, cfg_scale: float = 4.5,
                classifier: Optional[nn.Module] = None,
                classifier_scale: float = 0.0,
                x_T: Optional[torch.Tensor] = None,
-               generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """Latents conditioned on CAVP features, by DPM-Solver++ with CFG
-        (zeros as the null embedding) and, when a classifier is given,
-        alignment guidance. The classifier (a ``ClassifierBackbone``) sees
-        the raw 512-d features, not the encoded ones. ``x_T`` overrides the
-        initial noise drawn from ``generator``."""
+               generator: Optional[torch.Generator] = None,
+               mask: Optional[torch.Tensor] = None,
+               x0: Optional[torch.Tensor] = None,
+               mask_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Latents conditioned on CAVP features, by DPM-Solver++
+        (``sampler="dpm"``) or DDIM (``"ddim"``) with CFG (zeros as the null
+        embedding) and, when a classifier is given, alignment guidance. The
+        classifier (a ``ClassifierBackbone``) sees the raw 512-d features,
+        not the encoded ones. ``x_T`` overrides the initial noise drawn from
+        ``generator``. ``mask``/``x0``/``mask_noise`` are DDIM's inpainting
+        inputs (:func:`~.samplers.ddim_sample`)."""
+        if sampler not in ("dpm", "ddim"):
+            raise ValueError(f"unknown sampler {sampler!r}: 'dpm' or 'ddim'")
+        if sampler == "dpm" and mask is not None:
+            raise ValueError("the DPM-Solver has no mask path: use 'ddim'")
         context = self.get_learned_conditioning(video_feat)
         classifier_fn = None
         if classifier is not None:
@@ -87,4 +100,8 @@ class LatentDiffusion(nn.Module):
             x_T = torch.randn(
                 (video_feat.shape[0], *latent_hw, self.cfg.unet.in_channels),
                 generator=generator, device=video_feat.device)
+        if sampler == "ddim":
+            return ddim_sample(eps_fn, self.schedule, x_T, steps=steps,
+                               mask=mask, x0=x0, mask_noise=mask_noise,
+                               generator=generator)
         return dpm_solver_sample(eps_fn, self.schedule, x_T, steps=steps)

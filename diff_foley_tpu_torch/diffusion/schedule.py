@@ -1,8 +1,8 @@
-"""Noise-schedule tables and the timestep embedding
-(``diff_foley_tpu/diffusion/schedule.py``).
+"""Noise-schedule tables, the DDIM timestep subset and the timestep
+embedding (``diff_foley_tpu/diffusion/schedule.py``).
 
 The tables are computed in float64 numpy and kept as float32, as the
-reference materialises them; the DPM-Solver's float64 host math reads the
+reference materialises them; the samplers' float64 host math reads the
 float32 ᾱ table, exactly as the JAX package's does.
 """
 from __future__ import annotations
@@ -20,6 +20,8 @@ class DiffusionSchedule:
 
     betas: np.ndarray
     alphas_cumprod: np.ndarray
+    sqrt_alphas_cumprod: np.ndarray
+    sqrt_one_minus_alphas_cumprod: np.ndarray
     num_timesteps: int
 
     @classmethod
@@ -27,11 +29,37 @@ class DiffusionSchedule:
                linear_end: float = 2e-2) -> "DiffusionSchedule":
         betas = np.linspace(linear_start**0.5, linear_end**0.5, timesteps,
                             dtype=np.float64) ** 2
+        ac = np.cumprod(1.0 - betas)
         return cls(
             betas=betas.astype(np.float32),
-            alphas_cumprod=np.cumprod(1.0 - betas).astype(np.float32),
+            alphas_cumprod=ac.astype(np.float32),
+            sqrt_alphas_cumprod=np.sqrt(ac).astype(np.float32),
+            sqrt_one_minus_alphas_cumprod=np.sqrt(1.0 - ac).astype(np.float32),
             num_timesteps=int(timesteps),
         )
+
+    def q_sample(self, x_start: torch.Tensor, t: int,
+                 noise: torch.Tensor) -> torch.Tensor:
+        """x_0 diffused to step t: √ᾱ_t·x_0 + √(1−ᾱ_t)·noise."""
+        return (float(self.sqrt_alphas_cumprod[t]) * x_start
+                + float(self.sqrt_one_minus_alphas_cumprod[t]) * noise)
+
+
+def make_ddim_timesteps(num_ddim_timesteps: int,
+                        num_ddpm_timesteps: int) -> np.ndarray:
+    """The "uniform" DDIM subset, every (T // n)-th step plus 1 (the
+    reference's shift). The stride may give more than n steps."""
+    c = num_ddpm_timesteps // num_ddim_timesteps
+    return np.arange(0, num_ddpm_timesteps, c) + 1
+
+
+def make_ddim_sampling_parameters(alphacums: np.ndarray,
+                                  ddim_timesteps: np.ndarray):
+    """(α, α_prev) float64 tables of a deterministic (η 0) DDIM run."""
+    alphas = alphacums[ddim_timesteps]
+    alphas_prev = np.asarray([alphacums[0]]
+                             + alphacums[ddim_timesteps[:-1]].tolist())
+    return alphas, alphas_prev
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int,

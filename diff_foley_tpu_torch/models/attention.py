@@ -95,5 +95,6 @@ class SpatialTransformer(nn.Module):
         t = t.reshape(b, inner, h * w).transpose(1, 2).contiguous()
         for i in range(self.depth):
             t = getattr(self, f"block{i}")(t, context)
-        t = t.transpose(1, 2).reshape(b, inner, h, w)
+        # back to a contiguous NCHW map, as the GroupNorm kernels take them
+        t = t.transpose(1, 2).reshape(b, inner, h, w).contiguous()
         return self.proj_out(t) + x

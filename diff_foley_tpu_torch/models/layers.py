@@ -7,13 +7,17 @@ bf16 input meets bf16 weights in bf16.
 
 Normalisations follow flax's formula: statistics in float32 with the fast
 variance max(0, E[x²] − E[x]²), y = (x − μ)·(rsqrt(σ² + ε)·scale) + bias,
-result in the promoted type of input and parameters.
+result in the promoted type of input and parameters. ``GroupNorm32`` goes
+through ``ops/hopper_groupnorm.py::fused_group_norm``: the GroupNorm
+kernels on CUDA tensors, their plain versions on CPU tensors.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from ..ops.hopper_groupnorm import fused_group_norm
 
 
 def _promote(x: torch.Tensor, *params) -> torch.dtype:
@@ -117,16 +121,16 @@ class LayerNorm(nn.Module):
 
 class GroupNorm32(GroupNorm):
     """GroupNorm in float32 whatever the activation type, cast back, with
-    the caller's SiLU folded in (``act="silu"``)."""
+    the caller's SiLU folded in (``act="silu"``, applied after the cast).
+    γ and β are read in their own type."""
 
     def __init__(self, channels: int, eps: float = 1e-5, act: str | None = None):
         super().__init__(channels, eps)
         self.act = act
 
     def forward(self, x):
-        h = flax_norm(x.float(), self.weight, self.bias, self.eps,
-                      self.groups).to(x.dtype)
-        return F.silu(h) if self.act == "silu" else h
+        return fused_group_norm(x, self.weight, self.bias, self.groups,
+                                self.eps, self.act)
 
 
 class TimestepEmbedMLP(nn.Module):

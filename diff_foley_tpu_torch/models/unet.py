@@ -121,7 +121,8 @@ class _Trunk(nn.Module):
             timestep_embedding(timesteps, self.cfg.model_channels)).to(dt)
         if context is not None:
             context = context.to(dt)
-        h = self.in_conv(x.permute(0, 3, 1, 2).to(dt))
+        # contiguous NCHW maps throughout, as the GroupNorm kernels take them
+        h = self.in_conv(x.permute(0, 3, 1, 2).to(dt).contiguous())
         hs.append(h)
         h = self.run(self.down_plan, h, emb, context, hs)
         return self.run(self.mid_plan, h, emb, context, hs), emb, context

@@ -1,22 +1,25 @@
-"""Decode path of the SD first-stage AutoencoderKL, f=8
-(``diff_foley_tpu/models/vae.py``): post_quant_conv → Decoder. A
-(B, 16, 64, 4) latent decodes to a (B, 128, 512, 3) mel image (NHWC at the
-surface, NCHW inside).
+"""The SD first-stage AutoencoderKL, f=8 (``diff_foley_tpu/models/vae.py``):
+quant_conv ∘ Encoder → DiagonalGaussian, and post_quant_conv → Decoder. A
+(B, 128, 512, 3) mel image encodes to a (B, 16, 64, 4) latent and decodes
+back (NHWC at the surface, NCHW inside).
 
-The decoder's mid attention is single-head over h·w tokens (L 1024, D 512
-at the shipped size); it runs the plain attention formula, as the JAX
-package runs it through XLA.
+The mid attention of the encoder and of the decoder is single-head over
+h·w tokens (L 1024, D 512 at the shipped size), through
+``multi_head_attention``: the per-head attention kernel on CUDA tensors.
+Every GroupNorm is a ``GroupNorm32`` (ε 1e-6): the GroupNorm kernels.
+Children are registered in the order the forward runs them.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Sequence
 
+import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.attention import multi_head_attention
-from .layers import GroupNorm32, conv1x1, conv3x3
+from .layers import Conv2d, GroupNorm32, conv1x1, conv3x3
 
 
 def _gn(channels: int, act: str | None = None) -> GroupNorm32:
@@ -33,6 +36,7 @@ class VAEConfig:
     num_res_blocks: int = 2
     z_channels: int = 4
     embed_dim: int = 4
+    double_z: bool = True
 
 
 SD_VAE = VAEConfig()
@@ -55,7 +59,8 @@ class VAEResnetBlock(nn.Module):
 
 
 class VAEAttnBlock(nn.Module):
-    """Single-head self-attention over the h·w tokens."""
+    """Single-head self-attention over the h·w tokens. The tokens are a
+    (B, 1, h·w, C) view of the NCHW projections, read in place."""
 
     def __init__(self, ch: int):
         super().__init__()
@@ -72,6 +77,18 @@ class VAEAttnBlock(nn.Module):
         return x + self.proj_out(out.transpose(2, 3).reshape(b, c, h, w))
 
 
+class VAEDownsample(nn.Module):
+    """taming's asymmetric pad (0, 1) on H and W, then a VALID stride-2
+    3×3 conv (not a symmetric padding of 1)."""
+
+    def __init__(self, ch: int):
+        super().__init__()
+        self.conv = Conv2d(ch, ch, 3, stride=2)
+
+    def forward(self, x):
+        return self.conv(F.pad(x, (0, 1, 0, 1)))
+
+
 class VAEUpsample(nn.Module):
     def __init__(self, ch: int):
         super().__init__()
@@ -79,6 +96,37 @@ class VAEUpsample(nn.Module):
 
     def forward(self, x):
         return self.conv(F.interpolate(x, scale_factor=2, mode="nearest"))
+
+
+class Encoder(nn.Module):
+    def __init__(self, cfg: VAEConfig = SD_VAE):
+        super().__init__()
+        self.conv_in = conv3x3(cfg.in_channels, cfg.ch)
+        self.plan = []
+        ch = cfg.ch
+        for level, mult in enumerate(cfg.ch_mult):
+            out = cfg.ch * mult
+            for i in range(cfg.num_res_blocks):
+                name = f"down_{level}_block{i}"
+                setattr(self, name, VAEResnetBlock(ch, out))
+                self.plan.append(name)
+                ch = out
+            if level != len(cfg.ch_mult) - 1:
+                setattr(self, f"down_{level}_ds", VAEDownsample(ch))
+                self.plan.append(f"down_{level}_ds")
+        self.mid_block1 = VAEResnetBlock(ch, ch)
+        self.mid_attn = VAEAttnBlock(ch)
+        self.mid_block2 = VAEResnetBlock(ch, ch)
+        self.norm_out = _gn(ch, "silu")
+        z = 2 * cfg.z_channels if cfg.double_z else cfg.z_channels
+        self.conv_out = conv3x3(ch, z)
+
+    def forward(self, x):
+        h = self.conv_in(x)
+        for name in self.plan:
+            h = getattr(self, name)(h)
+        h = self.mid_block2(self.mid_attn(self.mid_block1(h)))
+        return self.conv_out(self.norm_out(h))
 
 
 class Decoder(nn.Module):
@@ -110,16 +158,37 @@ class Decoder(nn.Module):
         return self.conv_out(self.norm_out(h))
 
 
+class DiagonalGaussian:
+    """The posterior N(mean, diag σ²) over NHWC latents, at inference:
+    ``mode`` only (sampling, KL and NLL wait for training)."""
+
+    def __init__(self, params: torch.Tensor):
+        self.mean, logvar = params.chunk(2, dim=-1)
+        self.logvar = torch.clamp(logvar, -30.0, 20.0)
+
+    def mode(self) -> torch.Tensor:
+        return self.mean
+
+
 class AutoencoderKL(nn.Module):
-    """The first stage's decode half: ``decode`` maps NHWC latents to NHWC
-    images in the parameters' type."""
+    """The frozen first stage: ``encode`` maps NHWC images to a posterior,
+    ``decode`` NHWC latents to NHWC images, in the parameters' type. Maps
+    are contiguous NCHW inside, as the GroupNorm kernels take them."""
 
     def __init__(self, cfg: VAEConfig = SD_VAE):
         super().__init__()
         self.cfg = cfg
+        self.encoder = Encoder(cfg)
         self.decoder = Decoder(cfg)
+        z = 2 * cfg.z_channels if cfg.double_z else cfg.z_channels
+        self.quant_conv = conv1x1(z, 2 * cfg.embed_dim)
         self.post_quant_conv = conv1x1(cfg.embed_dim, cfg.z_channels)
 
-    def decode(self, z):
-        h = self.decoder(self.post_quant_conv(z.permute(0, 3, 1, 2)))
+    def encode(self, x: torch.Tensor) -> DiagonalGaussian:
+        h = self.quant_conv(self.encoder(x.permute(0, 3, 1, 2).contiguous()))
+        return DiagonalGaussian(h.permute(0, 2, 3, 1))
+
+    def decode(self, z: torch.Tensor) -> torch.Tensor:
+        h = self.decoder(self.post_quant_conv(
+            z.permute(0, 3, 1, 2).contiguous()))
         return h.permute(0, 2, 3, 1)

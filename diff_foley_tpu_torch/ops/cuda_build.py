@@ -9,6 +9,11 @@ so an edited source is rebuilt and never mixed with a stale build.
 
 The build directory is ``build/kernels`` beside the package (listed in
 ``.gitignore``), or ``$DFT_KERNEL_BUILD_DIR``.
+
+The wrapper modules (``hopper_*.py``) call the C entries through
+:func:`launch`, with the operands as :func:`ptr` and the stream as
+:func:`stream`, and send CPU tensors to their plain versions by
+:func:`on_cpu`.
 """
 from __future__ import annotations
 
@@ -20,12 +25,18 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("attention_fwd", "attention_bwd")
+SOURCES = ("attention_fwd", "attention_bwd", "attention_head_fwd",
+           "groupnorm")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+# the dtype codes of csrc/common.cuh
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -95,3 +106,40 @@ def load(name: str) -> ctypes.CDLL:
             build((name,))
         lib = _LIBS[name] = ctypes.CDLL(str(path))
     return lib
+
+
+# ---- calling a C entry -----------------------------------------------------
+
+def on_cpu(what: str, *tensors) -> bool:
+    """True when the tensors all lie on the CPU, False when all on CUDA
+    devices; raises on a mix."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cpu"}:
+        return True
+    if kinds == {"cuda"}:
+        return False
+    raise ValueError(f"{what} operands must all lie on the CPU or all on "
+                     f"one CUDA device, got {sorted(kinds)}")
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream(t: torch.Tensor) -> ctypes.c_void_p:
+    """The current stream of t's device, the last argument of every entry."""
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def launch(name: str, fn: str, argtypes, *args, device) -> None:
+    """Call the C entry ``fn`` of ``csrc/<name>.cu`` on ``device``; its
+    argument types are set at the first call. Raises when it returns a
+    cudaError."""
+    f = getattr(load(name), fn)
+    if f.argtypes is None:
+        f.argtypes = argtypes
+        f.restype = ctypes.c_int
+    with torch.cuda.device(device):
+        err = f(*args)
+    if err:
+        raise RuntimeError(f"{fn} launch failed: cudaError {err}")

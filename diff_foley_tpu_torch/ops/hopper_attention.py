@@ -1,9 +1,10 @@
-"""Packed-heads softmax attention, forward and backward, as CUDA kernels.
+"""Softmax attention as CUDA kernels: packed heads forward and backward,
+and the per-head forward.
 
-Counterpart of ``diff_foley_tpu/ops/pallas_attention.py``'s packed-heads
-kernels. Operands stay packed ``(B, L, H·D)``, exactly as the to_q/to_k/to_v
-Linear layers emit them; the kernels read each head's D columns through
-strides, so no transpose or copy surrounds a call.
+Counterpart of ``diff_foley_tpu/ops/pallas_attention.py``. Packed operands
+stay ``(B, L, H·D)``, exactly as the to_q/to_k/to_v Linear layers emit
+them; the kernels read each head's D columns through strides, so no
+transpose or copy surrounds a call.
 
 - :func:`attention_packed_fwd` launches ``csrc/attention_fwd.cu``, which
   replaces ``_attn_packed_kernel`` (``_pallas_forward_packed``).
@@ -11,6 +12,11 @@ strides, so no transpose or copy surrounds a call.
   replaces ``_attn_packed_bwd_kernel`` (``_pallas_backward_packed``).
 - :class:`FlashAttentionPacked` is the ``custom_vjp`` of
   ``flash_attention_packed``: it saves exactly q, k and v.
+- :func:`attention_fwd` launches ``csrc/attention_head_fwd.cu``, which
+  replaces ``_attn_kernel`` (``_pallas_forward``, entry
+  ``flash_attention``) over (B, H, L, D) operands of any dense strides: the
+  VAE's single-head mid attention at D 512. Its backward
+  (``_attn_bwd_kernel``) is not ported yet.
 
 Bound on the H100 (989 TFLOP/s bf16 tensor-core peak, 3.35 TB/s): the
 forward does 4·B·Lq·Lk·H·D operations on (2·Lq + 2·Lk)·B·H·D operand
@@ -31,12 +37,16 @@ import ctypes
 import torch
 
 from . import cuda_build
+from .cuda_build import DTYPE_CODES as _DTYPE_CODES, ptr as _ptr, \
+    stream as _stream
 
-LAUNCHES = {"attn_packed_fwd": 0, "attn_packed_bwd": 0}
+LAUNCHES = {"attn_packed_fwd": 0, "attn_packed_bwd": 0, "attn_fwd": 0}
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the path's head dims; csrc/attention_common.cuh instantiates these only
 _HEAD_DIMS = (32, 40, 80, 160)
+# the per-head kernel's: the SD VAE's mid attention, and the tiny VAE (ch 32)
+# of chip_smoke.py's agreement run
+_HEAD_DIMS_PER_HEAD = (32, 512)
 
 
 def reset_launch_counts() -> None:
@@ -93,13 +103,7 @@ def attention_packed_backward_reference(q3, k3, v3, g3, scale: float,
 # ---- kernel wrappers -------------------------------------------------------
 
 def _on_cpu(*tensors) -> bool:
-    kinds = {t.device.type for t in tensors}
-    if kinds == {"cpu"}:
-        return True
-    if kinds == {"cuda"}:
-        return False
-    raise ValueError(f"attention operands must all lie on the CPU or all on "
-                     f"one CUDA device, got {sorted(kinds)}")
+    return cuda_build.on_cpu("attention", *tensors)
 
 
 def _check_packed(q3, k3, v3, heads: int, *extra) -> int:
@@ -121,22 +125,23 @@ def _check_packed(q3, k3, v3, heads: int, *extra) -> int:
     return hd // heads
 
 
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+_ENTRIES = {   # C entry: (csrc source, argument types)
+    "dft_attn_packed_fwd": ("attention_fwd", [ctypes.c_void_p] * 4
+                            + [ctypes.c_int] * 5
+                            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]),
+    "dft_attn_packed_bwd": ("attention_bwd", [ctypes.c_void_p] * 8
+                            + [ctypes.c_int] * 5
+                            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]),
+    "dft_attn_fwd": ("attention_head_fwd", [ctypes.c_void_p] * 4
+                     + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 8
+                     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]),
+}
 
 
-def _stream(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
-
-
-def _lib(name: str, fn: str, n_ptrs: int):
-    lib = cuda_build.load(name)
-    f = getattr(lib, fn)
-    if f.argtypes is None:
-        f.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 5
-                      + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-        f.restype = ctypes.c_int
-    return f
+def _launch(fn: str, key: str, *args, device):
+    name, argtypes = _ENTRIES[fn]
+    cuda_build.launch(name, fn, argtypes, *args, device=device)
+    LAUNCHES[key] += 1
 
 
 def attention_packed_fwd(q3, k3, v3, scale: float, heads: int):
@@ -147,13 +152,9 @@ def attention_packed_fwd(q3, k3, v3, scale: float, heads: int):
     b, lq, _ = q3.shape
     lk = k3.shape[1]
     o3 = torch.empty_like(q3)
-    fn = _lib("attention_fwd", "dft_attn_packed_fwd", 4)
-    with torch.cuda.device(q3.device):
-        err = fn(_ptr(q3), _ptr(k3), _ptr(v3), _ptr(o3), b, lq, lk, heads, d,
-                 float(scale), _DTYPE_CODES[q3.dtype], _stream(q3))
-    if err:
-        raise RuntimeError(f"attention_fwd launch failed: cudaError {err}")
-    LAUNCHES["attn_packed_fwd"] += 1
+    _launch("dft_attn_packed_fwd", "attn_packed_fwd", _ptr(q3), _ptr(k3),
+            _ptr(v3), _ptr(o3), b, lq, lk, heads, d, float(scale),
+            _DTYPE_CODES[q3.dtype], _stream(q3), device=q3.device)
     return o3
 
 
@@ -172,14 +173,10 @@ def attention_packed_bwd(q3, k3, v3, g3, scale: float, heads: int):
     dq, dk, dv = (torch.empty_like(t) for t in (q3, k3, v3))
     stats = torch.empty((3, b, heads, lq), dtype=torch.float32,
                         device=q3.device)
-    fn = _lib("attention_bwd", "dft_attn_packed_bwd", 8)
-    with torch.cuda.device(q3.device):
-        err = fn(_ptr(q3), _ptr(k3), _ptr(v3), _ptr(g3), _ptr(dq), _ptr(dk),
-                 _ptr(dv), _ptr(stats), b, lq, lk, heads, d, float(scale),
-                 _DTYPE_CODES[q3.dtype], _stream(q3))
-    if err:
-        raise RuntimeError(f"attention_bwd launch failed: cudaError {err}")
-    LAUNCHES["attn_packed_bwd"] += 1
+    _launch("dft_attn_packed_bwd", "attn_packed_bwd", _ptr(q3), _ptr(k3),
+            _ptr(v3), _ptr(g3), _ptr(dq), _ptr(dk), _ptr(dv), _ptr(stats), b,
+            lq, lk, heads, d, float(scale), _DTYPE_CODES[q3.dtype],
+            _stream(q3), device=q3.device)
     return dq, dk, dv
 
 
@@ -199,3 +196,39 @@ class FlashAttentionPacked(torch.autograd.Function):
         dq, dk, dv = attention_packed_bwd(q3, k3, v3, g3.contiguous(),
                                           ctx.scale, ctx.heads)
         return dq, dk, dv, None, None
+
+
+def _check_per_head(q, k, v) -> int:
+    for t in (q, k, v):
+        if t.dtype not in _DTYPE_CODES or t.dtype != q.dtype:
+            raise TypeError(f"operands must share one dtype of "
+                            f"{list(_DTYPE_CODES)}, got {t.dtype}")
+        if t.dim() != 4 or t.device != q.device:
+            raise ValueError("operands must be (B, H, L, D) on one device")
+        # row-major (B, H, L, D), or the token view of an NCHW map: D the
+        # slowest axis inside a head, L the fastest
+        if not (t.is_contiguous() or t.transpose(2, 3).is_contiguous()):
+            raise ValueError(f"operand strides {t.stride()} are neither "
+                             f"(B, H, L, D) nor (B, H, D, L) dense")
+    b, h, _, d = q.shape
+    if k.shape != v.shape or k.stride() != v.stride() or (
+            k.shape[0], k.shape[1], k.shape[3]) != (b, h, d):
+        raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} must match "
+                         f"q {tuple(q.shape)} in B, H and D and share strides")
+    if d not in _HEAD_DIMS_PER_HEAD:
+        raise ValueError(f"head dim {d} is not one of {_HEAD_DIMS_PER_HEAD}")
+    return d
+
+
+def attention_fwd(q, k, v, scale: float):
+    """softmax(Q Kᵀ·scale) V per (batch, head) over (B, H, L, D); the output
+    has q's strides."""
+    if _on_cpu(q, k, v):
+        return attention_reference(q, k, v, scale)
+    d = _check_per_head(q, k, v)
+    b, h, lq, _ = q.shape
+    o = torch.empty_like(q)   # dense q: the same strides
+    _launch("dft_attn_fwd", "attn_fwd", _ptr(q), _ptr(k), _ptr(v), _ptr(o),
+            b, h, lq, k.shape[2], d, *q.stride(), *k.stride(), float(scale),
+            _DTYPE_CODES[q.dtype], _stream(q), device=q.device)
+    return o

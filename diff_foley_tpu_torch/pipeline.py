@@ -1,10 +1,16 @@
-"""End-to-end generation after feature extraction: CAVP features → latents
-(DPM-Solver++ with CFG and alignment guidance) → VAE decode → mel →
-Griffin-Lim → waveform (``diff_foley_tpu/pipeline.py``).
+"""End-to-end generation after feature extraction
+(``diff_foley_tpu/pipeline.py``):
 
-Operating point: 25 DPM-Solver++ steps, CFG 4.5, classifier guidance 50,
-32 CAVP features per 8.192-s window (131072 samples at 16 kHz, a 128×512
-mel, a 16×64×4 latent), 32 Griffin-Lim iterations.
+- ``generate``: CAVP features → latents (DPM-Solver++ with CFG and
+  alignment guidance) → VAE decode → mel → Griffin-Lim → waveform;
+- ``inpaint``: the same, conditioned also on a known mel canvas and a keep
+  mask (audio continuation): the canvas is VAE-encoded, masked DDIM
+  re-imposes the known latents every step, and they are re-imposed once
+  more before the decode.
+
+Operating point: 25 DPM-Solver++ (or DDIM) steps, CFG 4.5, classifier
+guidance 50, 32 CAVP features per 8.192-s window (131072 samples at
+16 kHz, a 128×512 mel, a 16×64×4 latent), 32 Griffin-Lim iterations.
 """
 from __future__ import annotations
 
@@ -21,10 +27,12 @@ from .diffusion.latent_diffusion import LatentDiffusion, LDMConfig
 WINDOW_FEATS = 32
 WINDOW_SAMPLES = 131072
 LATENT_HW = (16, 64)
+SPEC_HW = (LATENT_HW[0] * 8, LATENT_HW[1] * 8)  # (128 mels, 512 frames)
 
 
 @dataclasses.dataclass(frozen=True)
 class GenerationConfig:
+    sampler: str = "dpm"   # "dpm" (DPM-Solver++) or "ddim"
     steps: int = 25
     cfg_scale: float = 4.5
     classifier_scale: float = 50.0
@@ -63,10 +71,27 @@ def window_features(feats: np.ndarray, window: int = WINDOW_FEATS) -> np.ndarray
     return feats[:n * window].reshape(n, window, feats.shape[-1])
 
 
+def continuation_mask(n_frames: int, known_frames: int,
+                      n_mels: int = SPEC_HW[0]) -> np.ndarray:
+    """Keep-mask for audio continuation: the first ``known_frames`` mel
+    frames are known (1), the rest are generated (0)."""
+    m = np.zeros((n_mels, n_frames), np.float32)
+    m[:, :known_frames] = 1.0
+    return m
+
+
+def spec_mask_to_latent(mask_w: np.ndarray) -> np.ndarray:
+    """(w, 128, 512) spec keep-mask → (w, 16, 64, 1) latent mask by 8×8
+    min-pool: a latent cell is known only when its whole patch is."""
+    w, h, f = mask_w.shape
+    assert h % 8 == 0 and f % 8 == 0, (h, f)
+    return mask_w.reshape(w, h // 8, 8, f // 8, 8).min(axis=(2, 4))[..., None]
+
+
 class DiffFoleyPipeline:
     """The LDM, the optional alignment classifier and the mel inversion on
-    one device. ``vae_dtype="bfloat16"`` decodes in bf16 (GroupNorm
-    statistics stay float32)."""
+    one device. ``vae_dtype="bfloat16"`` encodes and decodes in bf16
+    (GroupNorm statistics stay float32)."""
 
     def __init__(self, ldm: Optional[LatentDiffusion] = None,
                  classifier: Optional[nn.Module] = None,
@@ -90,17 +115,56 @@ class DiffFoleyPipeline:
         """(w, f, 512) windows → (w·sample_num, 128, 512) specs in [0, 1].
         ``x_T`` (w·sample_num, 16, 64, 4) overrides the initial noise."""
         cond = feats_w.repeat_interleave(gen.sample_num, dim=0)
+        z = self.ldm.sample(cond, latent_hw=LATENT_HW, x_T=x_T,
+                            generator=generator, **self.sampler_kwargs(gen))
+        return self.decode_specs(z)
+
+    def sampler_kwargs(self, gen: GenerationConfig) -> dict:
+        """The sampler and guidance arguments of ``LatentDiffusion.sample``."""
         use_clf = gen.classifier_scale > 0 and self.classifier is not None
-        z = self.ldm.sample(
-            cond, latent_hw=LATENT_HW, steps=gen.steps,
-            cfg_scale=gen.cfg_scale,
-            classifier=self.classifier if use_clf else None,
-            classifier_scale=gen.classifier_scale if use_clf else 0.0,
-            x_T=x_T, generator=generator)
+        return dict(sampler=gen.sampler, steps=gen.steps,
+                    cfg_scale=gen.cfg_scale,
+                    classifier=self.classifier if use_clf else None,
+                    classifier_scale=gen.classifier_scale if use_clf else 0.0)
+
+    @torch.no_grad()
+    def encode_canvas(self, spec_w: torch.Tensor) -> torch.Tensor:
+        """(w, 128, 512) mel canvases in [0, 1] → (w, 16, 64, 4) float32
+        scaled latents, the posterior's mode (the canvas must not resample
+        from call to call)."""
+        x_img = spec_w[..., None].expand(*spec_w.shape, 3)
+        if self.vae_compute is not None:
+            x_img = x_img.to(self.vae_compute)
+        return self.ldm.encode_first_stage(x_img).float()
+
+    @torch.no_grad()
+    def decode_specs(self, z: torch.Tensor) -> torch.Tensor:
+        """Scaled latents → specs in [0, 1], channel 0 of the image."""
         if self.vae_compute is not None:
             z = z.to(self.vae_compute)
         spec_img = self.ldm.decode_first_stage(z)
         return torch.clamp(spec_img[..., 0].float(), 0.0, 1.0)
+
+    @torch.no_grad()
+    def _invert_and_pack(self, specs: torch.Tensor, gen: GenerationConfig,
+                         w: int, generator: torch.Generator,
+                         gl_phase: Optional[torch.Tensor]) -> dict:
+        """(w·S, 128, 512) specs → {"wav": (S, w·131072), "spec": (S, 128,
+        w·512)} numpy, windows concatenated in time."""
+        wavs = mel_to_wav(specs, self.melspec, n_iter=gen.gl_iters,
+                          length=WINDOW_SAMPLES, phase=gl_phase,
+                          generator=generator)
+        wavs = _pack_wav(wavs, gen.wav_dtype)
+        s = gen.sample_num
+        sp = specs.cpu().numpy().reshape(w, s, *specs.shape[1:])
+        return {"wav": wavs.cpu().numpy().reshape(w, s, -1)
+                .transpose(1, 0, 2).reshape(s, -1),
+                "spec": sp.transpose(1, 2, 0, 3).reshape(s, sp.shape[2], -1)}
+
+    def _windows(self, cavp_feats) -> torch.Tensor:
+        return torch.as_tensor(
+            window_features(np.asarray(cavp_feats, np.float32)),
+            device=self.device)
 
     def generate(self, cavp_feats: np.ndarray, seed: int = 0,
                  gen: GenerationConfig = GenerationConfig(),
@@ -112,18 +176,64 @@ class DiffFoleyPipeline:
         Initial noise and Griffin-Lim's initial phase come from a generator
         seeded with ``seed``; ``x_T`` and ``gl_phase`` ((w·S, 513, 512)
         uniform [0, 1)) override them."""
-        feats_w = torch.as_tensor(
-            window_features(np.asarray(cavp_feats, np.float32)),
-            device=self.device)
+        feats_w = self._windows(cavp_feats)
         generator = torch.Generator(self.device).manual_seed(seed)
         specs = self._sample_and_decode(feats_w, gen, generator, x_T)
+        return self._invert_and_pack(specs, gen, feats_w.shape[0], generator,
+                                     gl_phase)
+
+    def inpaint(self, cavp_feats: np.ndarray, known_spec: np.ndarray,
+                spec_mask: np.ndarray, seed: int = 0,
+                gen: GenerationConfig = GenerationConfig(sampler="ddim"),
+                x_T: Optional[torch.Tensor] = None,
+                mask_noise: Optional[torch.Tensor] = None,
+                gl_phase: Optional[torch.Tensor] = None) -> dict:
+        """Masked generation: continue or inpaint audio against a video.
+
+        ``known_spec`` (128, ≥ w·512) is a mel image in [0, 1] (a prior
+        ``generate`` sample, say); ``spec_mask`` of the same shape is 1
+        where it is KEPT and 0 where it is generated
+        (``continuation_mask``). The mask is min-pooled 8×8 to the latents;
+        DDIM re-imposes the known latents before every model call, and the
+        pipeline re-imposes them once more before the decode, so the kept
+        region is the VAE's roundtrip of the canvas. Returns what
+        ``generate`` returns.
+
+        A generator seeded with ``seed`` draws x_T, the per-step forward
+        noise of the known region and Griffin-Lim's phase; ``x_T``,
+        ``mask_noise`` ((n_steps, w·S, 16, 64, 4)) and ``gl_phase``
+        override them."""
+        if gen.sampler != "ddim":
+            raise ValueError(f"inpainting needs sampler 'ddim' (ddim.py:210),"
+                             f" got {gen.sampler!r}")
+        feats_w = self._windows(cavp_feats)
+        w = feats_w.shape[0]
+        n_mels, frames = SPEC_HW[0], w * SPEC_HW[1]
+        known_spec = np.asarray(known_spec, np.float32)
+        spec_mask = np.asarray(spec_mask, np.float32)
+        if known_spec.shape != spec_mask.shape:
+            raise ValueError(f"known_spec {known_spec.shape} vs spec_mask "
+                             f"{spec_mask.shape} shape mismatch")
+        if known_spec.shape[0] != n_mels or known_spec.shape[1] < frames:
+            raise ValueError(f"known_spec must be ({n_mels}, ≥{frames}) for "
+                             f"{w} windows, got {known_spec.shape}")
+        # (mels, w·512) → per window (w, mels, 512)
+        to_w = lambda a: np.ascontiguousarray(
+            a[:, :frames].reshape(n_mels, w, SPEC_HW[1]).transpose(1, 0, 2))
+        spec_w = torch.as_tensor(to_w(known_spec), device=self.device)
+        mask = torch.as_tensor(spec_mask_to_latent(to_w(spec_mask)),
+                               device=self.device)
+        s = gen.sample_num
+        generator = torch.Generator(self.device).manual_seed(seed)
         with torch.no_grad():
-            wavs = mel_to_wav(specs, self.melspec, n_iter=gen.gl_iters,
-                              length=WINDOW_SAMPLES, phase=gl_phase,
-                              generator=generator)
-            wavs = _pack_wav(wavs, gen.wav_dtype)
-        w, s = feats_w.shape[0], gen.sample_num
-        sp = specs.cpu().numpy().reshape(w, s, *specs.shape[1:])
-        return {"wav": wavs.cpu().numpy().reshape(w, s, -1)
-                .transpose(1, 0, 2).reshape(s, -1),
-                "spec": sp.transpose(1, 2, 0, 3).reshape(s, sp.shape[2], -1)}
+            z0 = self.encode_canvas(spec_w).repeat_interleave(s, dim=0)
+            mask = mask.repeat_interleave(s, dim=0)
+            z = self.ldm.sample(
+                feats_w.repeat_interleave(s, dim=0), latent_hw=LATENT_HW,
+                x_T=x_T, generator=generator, mask=mask, x0=z0,
+                mask_noise=mask_noise, **self.sampler_kwargs(gen))
+            # the last update moves the known region by one denoising step:
+            # re-impose the canvas exactly before the decode
+            z = z0 * mask + (1.0 - mask) * z
+            specs = self.decode_specs(z)
+        return self._invert_and_pack(specs, gen, w, generator, gl_phase)

@@ -9,8 +9,8 @@ and a transpose per leaf:
 - the ``GroupNorm_0`` scope that ``GroupNorm32`` opens for its flax
   GroupNorm is folded into its parent.
 
-Covers the UNet, the classifier, ``VideoFeatEncoderPosembed`` and the VAE
-(``vae_decoder_state`` keeps the decode half). Load with ``strict=True``.
+Covers the UNet, the classifier, ``VideoFeatEncoderPosembed`` and the
+whole VAE. Load with ``strict=True``.
 """
 from __future__ import annotations
 
@@ -63,8 +63,3 @@ def from_jax_params(tree) -> dict[str, torch.Tensor]:
     walk(tree, [])
     return out
 
-
-def vae_decoder_state(tree) -> dict[str, torch.Tensor]:
-    """The decode half (``decoder.*``, ``post_quant_conv.*``) of a VAE tree."""
-    return {k: v for k, v in from_jax_params(tree).items()
-            if k.startswith(("decoder.", "post_quant_conv."))}

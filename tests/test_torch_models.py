@@ -15,7 +15,10 @@ import torch
 
 from diff_foley_tpu.diffusion.guidance import GuidanceSpec as JSpec
 from diff_foley_tpu.diffusion.guidance import make_guided_eps_fn as j_guided
+from diff_foley_tpu.diffusion import latent_diffusion as jld
+from diff_foley_tpu.diffusion.samplers import ddim_sample as j_ddim
 from diff_foley_tpu.diffusion.samplers import dpm_solver_sample as j_dpm
+from diff_foley_tpu.diffusion.schedule import make_ddim_timesteps as j_ddim_ts
 from diff_foley_tpu.diffusion.schedule import DiffusionSchedule as JSchedule
 from diff_foley_tpu.models import cond_encoder as jce
 from diff_foley_tpu.models import unet as ju
@@ -23,12 +26,14 @@ from diff_foley_tpu.models import vae as jv
 from diff_foley_tpu.utils.precision import cast_floating
 from diff_foley_tpu_torch.diffusion.guidance import (GuidanceSpec,
                                                      make_guided_eps_fn)
-from diff_foley_tpu_torch.diffusion.samplers import dpm_solver_sample
-from diff_foley_tpu_torch.diffusion.schedule import DiffusionSchedule
+from diff_foley_tpu_torch.diffusion import latent_diffusion as tld
+from diff_foley_tpu_torch.diffusion.samplers import ddim_sample, dpm_solver_sample
+from diff_foley_tpu_torch.diffusion.schedule import (DiffusionSchedule,
+                                                     make_ddim_timesteps)
 from diff_foley_tpu_torch.models import cond_encoder as tce
 from diff_foley_tpu_torch.models import unet as tu
 from diff_foley_tpu_torch.models import vae as tv
-from diff_foley_tpu_torch.utils.convert import from_jax_params, vae_decoder_state
+from diff_foley_tpu_torch.utils.convert import from_jax_params
 from diff_foley_tpu_torch.utils.init import random_flax_params
 
 UNET_KW = dict(model_channels=32, num_res_blocks=1, channel_mult=(1, 2),
@@ -137,22 +142,53 @@ def test_cond_encoder_matches():
         _close(tm(_t(feat)), ref, 1e-5, "cond encoder")
 
 
-def test_vae_decode_matches():
-    # decode half only: post_quant_conv → Decoder, fp32, 1e-4
-    cfg = jv.VAEConfig(**VAE_KW)
-    jm = jv.AutoencoderKL(cfg)
+def _vae_pair(seed):
+    """The tiny JAX AutoencoderKL with random params, and the port's loaded
+    with the whole tree."""
+    jm = jv.AutoencoderKL(jv.VAEConfig(**VAE_KW))
     shapes = jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0),
                                             jnp.zeros((1, 16, 32, 3))))
-    params = random_flax_params(shapes["params"], 26)
+    params = random_flax_params(shapes["params"], seed)
     tm = tv.AutoencoderKL(tv.VAEConfig(**VAE_KW))
-    tm.load_state_dict(vae_decoder_state(params), strict=True)
+    tm.load_state_dict(from_jax_params(params), strict=True)
+    return jm, {"params": params}, tm.eval()
+
+
+def test_vae_decode_matches():
+    # post_quant_conv → Decoder, fp32, 1e-4
+    jm, jp, tm = _vae_pair(26)
     z = np.random.default_rng(27).standard_normal((2, 8, 16, 4)).astype(
         np.float32)
     ref = jax.jit(lambda p, z_: jm.apply(p, z_, method=lambda m, a: m.decode(a)))(
-        {"params": params}, z)
+        jp, z)
     with torch.no_grad():
         out = tm.decode(_t(z))
     _close(out, ref, 1e-4, "vae decode")
+
+
+def test_vae_encode_matches():
+    # Encoder (asymmetric-pad downsample, mid attention) → quant_conv →
+    # the posterior's mode and clipped log-variance, and the LDM's
+    # encode_first_stage (× 0.18215); fp32, 1e-4
+    jm, jp, tm = _vae_pair(34)
+    x = np.random.default_rng(35).uniform(size=(2, 16, 32, 3)).astype(
+        np.float32)
+    mean, logvar = jax.jit(lambda p, a: jm.apply(
+        p, a, method=lambda m, a_: (lambda g: (g.mode(), g.logvar))(
+            m.encode(a_))))(jp, x)
+    jl = jld.LatentDiffusion(jld.LDMConfig(unet=ju.UNetConfig(**UNET_KW),
+                                           vae=jv.VAEConfig(**VAE_KW)))
+    ref_z = jl.encode_first_stage(jp, x)
+    tl = tld.LatentDiffusion(tld.LDMConfig(unet=tu.UNetConfig(**UNET_KW),
+                                           vae=tv.VAEConfig(**VAE_KW)))
+    tl.vae = tm
+    with torch.no_grad():
+        post = tm.encode(_t(x))
+        z = tl.encode_first_stage(_t(x))
+    assert post.mode().shape == (2, 8, 16, 4)
+    _close(post.mode(), mean, 1e-4, "mode")
+    _close(post.logvar, logvar, 1e-4, "logvar")
+    _close(z, ref_z, 1e-4, "encode_first_stage")
 
 
 def test_guided_eps_fn_matches():
@@ -225,3 +261,64 @@ def test_converter_rules():
     x, t, ctx = _inputs(32)
     _pair(ju.UNetModel(cfg), tu.UNetModel(tu.UNetConfig(**UNET_KW)), 33,
           x, t, ctx)
+
+
+def _ddim_inputs(seed, steps, shape=(2, 8, 16, 4)):
+    """x_T, x0, a left-half keep mask and the per-step forward noise."""
+    rng = np.random.default_rng(seed)
+    n = len(make_ddim_timesteps(steps, 1000))
+    assert n == len(j_ddim_ts("uniform", steps, 1000))
+    x_T, x0 = (rng.standard_normal(shape).astype(np.float32) for _ in "ab")
+    mask = np.zeros(shape[:3] + (1,), np.float32)
+    mask[:, :, : shape[2] // 2] = 1.0
+    noise = rng.standard_normal((n, *shape)).astype(np.float32)
+    return x_T, x0, mask, noise
+
+
+@pytest.mark.parametrize("steps", [4, 25])
+def test_ddim_inpaint_matches_on_tiny_unet(steps):
+    # masked DDIM (η 0) with CFG 4.5 and the classifier term at 50·√(1−ᾱ_t)
+    # through a tiny UNet and classifier, shared x_T and forward noise;
+    # fp32, 1e-4 of x. (3 steps are out of the JAX sampler's range: the
+    # stride gives step 1000 of a 1000-entry table.)
+    ucfg = ju.UNetConfig(**UNET_KW)
+    x, t, ctx = _inputs(36)
+    jpu, tun = _pair(ju.UNetModel(ucfg), tu.UNetModel(tu.UNetConfig(**UNET_KW)),
+                     37, x, t, ctx)
+    jm, jpc, tclf, (_, _, feat) = _classifier()
+    spec = dict(cfg_scale=4.5, classifier_scale=50.0)
+    j_eps = j_guided(
+        lambda x_, t_, c_: ju.UNetModel(ucfg).apply(jpu, x_, t_, c_),
+        jnp.asarray(ctx), jnp.zeros_like(ctx), JSpec(**spec),
+        lambda x_, t_, f_: jax.nn.log_sigmoid(
+            jm.apply(jpc, x_, t_, f_, return_logits=True)),
+        jnp.asarray(feat))
+    t_eps = make_guided_eps_fn(
+        tun, _t(ctx), torch.zeros(ctx.shape), GuidanceSpec(**spec),
+        lambda x_, t_, f_: torch.nn.functional.logsigmoid(
+            tclf(x_, t_, f_, return_logits=True)), _t(feat))
+    kw = dict(timesteps=1000, linear_start=0.00085, linear_end=0.0120)
+    x_T, x0, mask, noise = _ddim_inputs(38, steps)
+    ref = j_ddim(j_eps, JSchedule.create(**kw), jnp.asarray(x_T),
+                 jax.random.PRNGKey(0), steps=steps, mask=jnp.asarray(mask),
+                 x0=jnp.asarray(x0), mask_noise=jnp.asarray(noise))
+    out = ddim_sample(t_eps, DiffusionSchedule.create(**kw), _t(x_T),
+                      steps=steps, mask=_t(mask), x0=_t(x0),
+                      mask_noise=_t(noise))
+    _close(out, ref, 1e-4, "ddim inpaint")
+
+
+@pytest.mark.parametrize("steps,masked", [(6, True), (25, False)])
+def test_ddim_matches_closed_form_eps(steps, masked):
+    # the sampler alone, on a closed-form ε: 6 steps make the stride give
+    # 7 (as the reference's does); fp32, 1e-5 of x
+    kw = dict(timesteps=1000, linear_start=0.00085, linear_end=0.0120)
+    x_T, x0, mask, noise = _ddim_inputs(39, steps, (2, 4, 8, 4))
+    jm = dict(mask=jnp.asarray(mask), x0=jnp.asarray(x0),
+              mask_noise=jnp.asarray(noise)) if masked else {}
+    tm = dict(mask=_t(mask), x0=_t(x0), mask_noise=_t(noise)) if masked else {}
+    ref = j_ddim(_toy_eps_jax, JSchedule.create(**kw), jnp.asarray(x_T),
+                 jax.random.PRNGKey(0), steps=steps, **jm)
+    out = ddim_sample(_toy_eps_torch, DiffusionSchedule.create(**kw),
+                      _t(x_T), steps=steps, **tm)
+    _close(out, ref, 1e-5, "ddim")

@@ -117,6 +117,43 @@ def test_multi_head_attention_matches_xla():
     _close(multi_head_attention(_t(q), _t(k), _t(v)), ref, 1e-5, "mha")
 
 
+# (b, heads, l, d) of the per-head kernel: the SD VAE's D 512 at a small L
+# (the Pallas kernel fits VMEM there), and the tiny VAE (ch 32) of
+# chip_smoke.py's agreement run at the full latent's 1024 tokens
+PER_HEAD_SHAPES = [(1, 1, 64, 512, "_pallas_forward"),
+                   (2, 1, 1024, 32, "flash_attention")]
+
+
+@pytest.mark.parametrize("b,heads,l,d,oracle", PER_HEAD_SHAPES)
+def test_per_head_attention_matches_pallas(interpret_mode, b, heads, l, d,
+                                           oracle):
+    # fp32; the port gets the VAE's layout, the token view of NCHW
+    # projections (B, H, L, D) with D the slow axis. 2e-5, as the packed
+    # forward
+    rng = np.random.default_rng(19)
+    q, k, v = (rng.standard_normal((b, heads, l, d)).astype(np.float32)
+               for _ in range(3))
+    ref = getattr(pa, oracle)(*map(jnp.asarray, (q, k, v)), d**-0.5)
+    view = lambda a: _t(a.transpose(0, 1, 3, 2).copy()).transpose(2, 3)
+    out = multi_head_attention(view(q), view(k), view(v))
+    _close(out, ref, 2e-5, oracle)
+
+
+def test_per_head_wrapper_takes_the_path_layouts():
+    meta = torch.empty(2, 1, 64, 512, device="meta")
+    tok = torch.empty(2, 1, 512, 64, device="meta").transpose(2, 3)
+    assert ha._check_per_head(meta, meta, meta) == 512
+    assert ha._check_per_head(tok, tok, tok) == 512
+    gapped = torch.empty(2, 1, 64, 1024, device="meta")[..., ::2]
+    with pytest.raises(ValueError, match="neither"):
+        ha._check_per_head(gapped, meta, meta)
+    with pytest.raises(ValueError, match="share strides"):
+        ha._check_per_head(meta, meta, tok)
+    odd = torch.empty(2, 1, 64, 64, device="meta")
+    with pytest.raises(ValueError, match="head dim 64"):
+        ha._check_per_head(odd, odd, odd)
+
+
 def test_schedule_tables_match():
     # both sides round the same float64 tables to float32: exact
     j = JSchedule.create(timesteps=1000, linear_start=0.00085,
@@ -250,3 +287,51 @@ def test_kernel_wrappers_take_the_path_head_dims(d, ok):
     else:
         with pytest.raises(ValueError, match="does not split"):
             ha._check_packed(q, q, q, heads)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_per_head_kernel_matches_plain(dtype):
+    """The per-head kernel against its plain version on the card at the SD
+    VAE's shape and layout, its launch count, and the missing backward."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    gen = torch.Generator("cuda").manual_seed(0)
+    q, k, v = (torch.randn((2, 512, 1024), generator=gen, device="cuda")
+               .to(dtype)[:, None].transpose(2, 3) for _ in range(3))
+    before = ha.LAUNCHES["attn_fwd"]
+    out = multi_head_attention(q, k, v)
+    ref = ha.attention_reference(q, k, v, 512**-0.5)
+    torch.cuda.synchronize()
+    assert ha.LAUNCHES["attn_fwd"] == before + 1
+    assert out.dtype == dtype and out.stride() == q.stride()
+    # chip_smoke.py's limits for this kernel
+    max_tol, rms_tol = {torch.float32: (1.5e-5, 1e-6),
+                        torch.bfloat16: (0.06, 4e-4)}[dtype]
+    o, r = out.float(), ref.float()
+    rms = float(r.square().mean().sqrt())
+    assert float((o - r).abs().max()) <= max_tol * rms
+    assert float((o - r).square().mean().sqrt()) <= rms_tol * rms
+    with pytest.raises(NotImplementedError, match="_attn_bwd_kernel"):
+        multi_head_attention(q.requires_grad_(True), k, v)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["tokens", "rows"])
+def test_cuda_per_head_kernel_ragged_lengths(layout):
+    """Lq 200 and Lk 72, neither a multiple of the 32-row tiles, at the
+    tiny VAE's head dim, in both layouts the wrapper takes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    gen = torch.Generator("cuda").manual_seed(2)
+    make = lambda l: (torch.randn((2, 3, 32, l), generator=gen,
+                                  device="cuda").transpose(2, 3)
+                      if layout == "tokens" else
+                      torch.randn((2, 3, l, 32), generator=gen,
+                                  device="cuda"))
+    q, k, v = make(200), make(72), make(72)
+    out = ha.attention_fwd(q, k, v, 32**-0.5)
+    ref = ha.attention_reference(q, k, v, 32**-0.5)
+    torch.cuda.synchronize()
+    rms = float(ref.square().mean().sqrt())
+    assert float((out - ref).abs().max()) <= 1.5e-5 * rms

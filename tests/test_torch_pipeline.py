@@ -27,7 +27,8 @@ from diff_foley_tpu_torch.diffusion import latent_diffusion as tld
 from diff_foley_tpu_torch.models import unet as tu
 from diff_foley_tpu_torch.models import vae as tv
 from diff_foley_tpu_torch.ops import hopper_attention as ha
-from diff_foley_tpu_torch.utils.convert import from_jax_params, vae_decoder_state
+from diff_foley_tpu_torch.ops import hopper_groupnorm as hg
+from diff_foley_tpu_torch.utils.convert import from_jax_params
 from diff_foley_tpu_torch.utils.init import random_flax_params
 from diff_foley_tpu_torch.utils.wav import write_wav
 
@@ -66,7 +67,7 @@ def _tiny_pair():
         cond_embed_dim=24))
     ldm_t.unet.load_state_dict(from_jax_params(params["unet"]), strict=True)
     ldm_t.cond.load_state_dict(from_jax_params(params["cond"]), strict=True)
-    ldm_t.vae.load_state_dict(vae_decoder_state(vae_params), strict=True)
+    ldm_t.vae.load_state_dict(from_jax_params(vae_params), strict=True)
     clf_t = tu.ClassifierBackbone(tu.UNetConfig(**CLF_KW))
     clf_t.load_state_dict(from_jax_params(clf_params), strict=True)
     pipe_j = jpipe.DiffFoleyPipeline(ldm_j, params, vae_params,
@@ -158,11 +159,22 @@ def test_no_gpu_default_device_raises_and_cpu_never_launches():
     with pytest.raises(RuntimeError, match="CUDA"):
         tpipe.DiffFoleyPipeline(tiny)
     ha.reset_launch_counts()
+    hg.reset_launch_counts()
     q = torch.randn(1, 20, 64, requires_grad=True)
     kv = torch.randn(1, 12, 64)
     ha.FlashAttentionPacked.apply(q, kv, kv, 0.25, 4).sum().backward()
     ha.attention_packed_bwd(q.detach(), kv, kv, q.detach(), 0.25, 4)
+    ha.attention_fwd(q.detach()[None], kv[None], kv[None], 0.25)
+    x = torch.randn(2, 64, 4, 8, requires_grad=True)
+    gamma, beta = torch.ones(64), torch.zeros(64)
+    hg.fused_group_norm(x, gamma, beta, 32, 1e-6, "silu").sum().backward()
+    hg.group_norm_stream(x.detach(), gamma, beta, 32, 1e-6)
     meta = torch.empty(1, 20, 64, device="meta")
     with pytest.raises(ValueError):
         ha.attention_packed_fwd(meta, meta, meta, 0.25, 4)
-    assert ha.LAUNCHES == {"attn_packed_fwd": 0, "attn_packed_bwd": 0}
+    with pytest.raises(ValueError):
+        hg.group_norm_block(meta[None], gamma, beta, 1, 1e-6)
+    assert ha.LAUNCHES == {"attn_packed_fwd": 0, "attn_packed_bwd": 0,
+                           "attn_fwd": 0}
+    assert hg.LAUNCHES == {"gn_block": 0, "gn_stream_stats": 0,
+                           "gn_stream_apply": 0}

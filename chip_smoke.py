@@ -1,8 +1,9 @@
 """Drive the PyTorch port's main paths on one NVIDIA GPU and check them.
 
-    python3 chip_smoke.py            # build, kernels, pipelines, agreement
+    python3 chip_smoke.py            # build, kernels, pipelines, trainer,
+                                     # agreement
     python3 chip_smoke.py --profile  # also torch.profiler over two steps
-                                     # of each sampler
+                                     # of each sampler and of the trainer
 
 1. Build the CUDA kernels from ``diff_foley_tpu_torch/csrc`` (in parallel).
 2. Kernel phase: each kernel against its plain PyTorch version at every
@@ -19,11 +20,20 @@
    window are kept. Stage times, the distance to the canvas's VAE
    roundtrip per region, and the contract check (a fully known canvas
    lands ten times closer to the roundtrip than free generation).
-   Before each main-path run (3 and 4) the launch counts are reset; read
-   just after, they must equal what the model structure predicts.
-5. Agreement: tiny ``generate`` and ``inpaint`` in float32 on the GPU
-   (kernels) against the same pipeline on the CPU (plain versions), shared
-   noise and phase.
+   Before each main-path run (3, 4 and 5) the launch counts are reset;
+   read just after, they must equal what the model structure predicts.
+5. ``cli.train_vae`` at the full width of ``SD_VAE`` in float32: seeded mel
+   ``.npy`` files in a temporary directory, batch 4, ``--disc-start 0`` (the
+   GAN term, the adaptive weight and the discriminator step all run), a
+   raised learning rate. Every metric finite, ``nll_loss`` falls,
+   ``d_weight`` ≥ 0, launch counts as predicted (the per-head attention
+   forward and backward twice a step each), the checkpoint resumes at the
+   saved step. First-step and warm seconds per step, split generator /
+   discriminator, peak memory, the plain GroupNorm backward's cost, and one
+   step with the LPIPS hook on (random weights).
+6. Agreement: tiny ``generate`` and ``inpaint`` and a tiny VAE train step
+   in float32 on the GPU (kernels) against the same on the CPU (plain
+   versions), shared noise and phase.
 
 The last line is {"ok": true, "device": {...}}; any failure exits non-zero
 before it. With no GPU it exits non-zero and prints no result.
@@ -34,8 +44,10 @@ import collections
 import copy
 import dataclasses
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -43,6 +55,8 @@ import torch
 import torch.nn.functional as F
 
 from diff_foley_tpu_torch.audio.transforms import mel_to_wav
+from diff_foley_tpu_torch.cli import train_vae as train_vae_cli
+from diff_foley_tpu_torch.data.ldm_dataset import SpecDataset
 from diff_foley_tpu_torch.diffusion.latent_diffusion import (LatentDiffusion,
                                                               LDMConfig)
 from diff_foley_tpu_torch.models.attention import SpatialTransformer
@@ -60,6 +74,9 @@ from diff_foley_tpu_torch.pipeline import (LATENT_HW, SPEC_HW, WINDOW_FEATS,
                                            GenerationConfig,
                                            continuation_mask,
                                            spec_mask_to_latent)
+from diff_foley_tpu_torch.train.perceptual import LPIPS, make_lpips_fn
+from diff_foley_tpu_torch.train.vae import VAETrainConfig, VAETrainer
+from diff_foley_tpu_torch.train.vae_losses import VAELossConfig
 from diff_foley_tpu_torch.utils.init import randomize_
 
 PEAK_BF16 = 989e12    # H100 SXM dense bf16 tensor-core FLOP/s
@@ -67,25 +84,31 @@ PEAK_FP32 = 67e12     # H100 SXM fp32 FLOP/s outside the tensor cores
 HBM_BYTES_S = 3.35e12
 WINDOWS, SAMPLES, STEPS = 2, 2, 25
 KEEP_FRAMES = 256     # inpaint keeps the first 256 frames of each window
+# the trainer: batch, steps of the main-path call, and a learning rate
+# raised from the shipped 4.5e-6 so that six steps show nll_loss falling
+TRAIN_BATCH, TRAIN_STEPS, TRAIN_LR = 4, 6, 1e-4
 # Agreement with the plain version, per output tensor, against the size of
 # the plain output: max|Δ| ≤ MAX_TOL·rms(plain) and rms(Δ) ≤ RMS_TOL·rms(plain).
 # The max catches a local fault (a tile, an edge), the rms a small fault
 # spread over every element. Each limit is a few times the largest ratio
 # the kernels reach at the path's shapes; a planted fault per kernel must
 # exceed them (see FAULTS). Kinds: packed forward and backward, per-head
-# forward, GroupNorm block, stream stats (fp32 partial sums) and apply.
+# forward and backward, GroupNorm block, stream stats (fp32 partial sums)
+# and apply.
 BF16, FP32 = torch.bfloat16, torch.float32
 # The apply kernel repeats the plain version's fp32 operations and roundings
 # exactly (measured Δ 0); its limits allow one bf16 rounding step.
 MAX_TOL = {("fwd", BF16): 0.06, ("fwd", FP32): 5e-6,
            ("bwd", BF16): 0.25, ("bwd", FP32): 1e-5,
            ("head", BF16): 0.06, ("head", FP32): 1.5e-5,
+           ("head_bwd", BF16): 0.25, ("head_bwd", FP32): 2e-5,
            ("gn", BF16): 0.15, ("gn", FP32): 1e-5,
            ("stats", BF16): 1e-6, ("stats", FP32): 1e-6,
            ("apply", BF16): 0.02, ("apply", FP32): 1e-6}
 RMS_TOL = {("fwd", BF16): 4e-4, ("fwd", FP32): 3e-7,
            ("bwd", BF16): 0.015, ("bwd", FP32): 5e-7,
            ("head", BF16): 4e-4, ("head", FP32): 1e-6,
+           ("head_bwd", BF16): 0.015, ("head_bwd", FP32): 1.5e-6,
            ("gn", BF16): 2e-4, ("gn", FP32): 4e-7,
            ("stats", BF16): 3e-7, ("stats", FP32): 3e-7,
            ("apply", BF16): 1e-4, ("apply", FP32): 1e-7}
@@ -96,6 +119,8 @@ KERNELS = {
                         "diff_foley_tpu/ops/pallas_attention.py:400"),
     "attn_fwd": ("diff_foley_tpu_torch/csrc/attention_head_fwd.cu",
                  "diff_foley_tpu/ops/pallas_attention.py:58"),
+    "attn_bwd": ("diff_foley_tpu_torch/csrc/attention_head_bwd.cu",
+                 "diff_foley_tpu/ops/pallas_attention.py:142"),
     "gn_block": ("diff_foley_tpu_torch/csrc/groupnorm.cu",
                  "diff_foley_tpu/ops/pallas_groupnorm.py:78"),
     "gn_stream_stats": ("diff_foley_tpu_torch/csrc/groupnorm.cu",
@@ -103,7 +128,12 @@ KERNELS = {
     "gn_stream_apply": ("diff_foley_tpu_torch/csrc/groupnorm.cu",
                         "diff_foley_tpu/ops/pallas_groupnorm.py:212"),
 }
-RUNS = ("generate", "inpaint")
+RUNS = ("generate", "inpaint", "train_vae")
+
+
+def calls(generate: int = 0, inpaint: int = 0, train_vae: int = 0) -> dict:
+    """Calls of one kernel shape in each main-path run."""
+    return {"generate": generate, "inpaint": inpaint, "train_vae": train_vae}
 
 
 def log(*a):
@@ -182,18 +212,26 @@ def gn_kernels(channels: int, h: int, w: int, itemsize: int):
 
 
 def gn_path(pipe, n: int, steps: int):
-    """{(model, batch, channels, h, w, eps, act): {run: calls}} of every
-    GroupNorm32 call in one generate and one inpaint run."""
-    models = (("unet", pipe.ldm.unet, LATENT_HW, 2 * n, steps, steps),
-              ("clf", pipe.classifier, LATENT_HW, n, steps, steps),
-              ("vae-dec", pipe.ldm.vae.decoder, LATENT_HW, n, 1, 1),
-              ("vae-enc", pipe.ldm.vae.encoder, SPEC_HW, WINDOWS, 0, 1))
-    out = collections.defaultdict(lambda: dict.fromkeys(RUNS, 0))
-    for name, model, hw, batch, per_gen, per_inp in models:
+    """{(model, batch, channels, h, w, eps, act, dtype): {run: calls}} of
+    every GroupNorm32 call in one generate, one inpaint and one train_vae
+    run. The trainer's VAE has the pipeline's structure, in float32; only
+    its forward launches GroupNorm kernels."""
+    vae = pipe.ldm.vae
+    models = (("unet", pipe.ldm.unet, LATENT_HW, 2 * n, BF16,
+               calls(steps, steps)),
+              ("clf", pipe.classifier, LATENT_HW, n, BF16, calls(steps, steps)),
+              ("vae-dec", vae.decoder, LATENT_HW, n, BF16, calls(1, 1)),
+              ("vae-enc", vae.encoder, SPEC_HW, WINDOWS, BF16, calls(0, 1)),
+              ("train-enc", vae.encoder, SPEC_HW, TRAIN_BATCH, FP32,
+               calls(train_vae=TRAIN_STEPS)),
+              ("train-dec", vae.decoder, LATENT_HW, TRAIN_BATCH, FP32,
+               calls(train_vae=TRAIN_STEPS)))
+    out = collections.defaultdict(calls)
+    for name, model, hw, batch, dtype, per_run in models:
         for site in gn_sites(model, hw):
-            calls = out[(name, batch, *site)]
-            calls["generate"] += per_gen
-            calls["inpaint"] += per_inp
+            total = out[(name, batch, *site, dtype)]
+            for run in RUNS:
+                total[run] += per_run[run]
     return out
 
 
@@ -205,22 +243,30 @@ def predicted_launches(pipe, steps: int):
                           if isinstance(x, SpatialTransformer))
     unet, clf = count(pipe.ldm.unet), count(pipe.classifier)
     pred = {run: dict.fromkeys(KERNELS, 0) for run in RUNS}
-    for run in RUNS:
+    for run in ("generate", "inpaint"):
         pred[run]["attn_packed_fwd"] = steps * (unet + clf)
         pred[run]["attn_packed_bwd"] = steps * clf
         # the VAE's mid attention: the decoder, and in inpaint the encoder
         pred[run]["attn_fwd"] = 1 if run == "generate" else 2
-    for (_, _, c, h, w, _, _), calls in gn_path(
+    # a train step: the encoder's and the decoder's mid attention, forward
+    # and backward once each. The two autograd.grad probes of the adaptive
+    # weight stop at the decoder's last kernel and add none.
+    pred["train_vae"]["attn_fwd"] = pred["train_vae"]["attn_bwd"] = \
+        2 * TRAIN_STEPS
+    for (_, _, c, h, w, _, _, dtype), per_run in gn_path(
             pipe, WINDOWS * SAMPLES, steps).items():
-        for k in gn_kernels(c, h, w, 2):
+        for k in gn_kernels(c, h, w, dtype.itemsize):
             for run in RUNS:
-                pred[run][k] += calls[run]
+                pred[run][k] += per_run[run]
     return pred
 
 
 # ---- the kernel phase ---------------------------------------------------------
 
 def bound_ms(kind: str, b, lq, lk, hd, itemsize: int, peak: float):
+    """The attention bound: two products forward (4·B·Lq·Lk·H·D operations
+    on (2·Lq + 2·Lk)·B·H·D elements), five backward (10·B·Lq·Lk·H·D on
+    (3·Lq + 4·Lk)·B·H·D)."""
     prods = 2 if kind == "fwd" else 5
     flops = prods * 2 * b * lq * lk * hd
     tensors = (2 * b * lq * hd + 2 * b * lk * hd if kind == "fwd"
@@ -265,17 +311,22 @@ def fault_fwd_neighbour_head(q, k, v, scale, heads):
                                           heads),)
 
 
+def fault_head_bwd_no_delta(q, k, v, g, scale):
+    """Planted fault: the plain backward over (B, H, L, D) with
+    dS = P∘(g·Vᵀ), the row term δ = Σ(g·Vᵀ∘P) left out."""
+    p = torch.softmax(torch.einsum("bhqd,bhkd->bhqk", q.float(),
+                                   k.float()) * scale, dim=-1)
+    gv = torch.einsum("bhqk,bhqd->bhkd", p.to(g.dtype), g)
+    ds = (p * torch.einsum("bhqd,bhkd->bhqk", g, v).float()).to(q.dtype)
+    gq = torch.einsum("bhqk,bhkd->bhqd", ds, k) * scale
+    gk = torch.einsum("bhqk,bhqd->bhkd", ds, q) * scale
+    return gq, gk, gv
+
+
 def fault_bwd_no_delta(q, k, v, g, scale, heads):
-    """Planted fault: the plain backward with dS = P∘(g·Vᵀ), the row term
-    δ = Σ(g·Vᵀ∘P) left out."""
-    qh, kh, vh, gh = (ha.split_heads(t, heads) for t in (q, k, v, g))
-    p = torch.softmax(torch.einsum("bhqd,bhkd->bhqk", qh.float(),
-                                   kh.float()) * scale, dim=-1)
-    gv = torch.einsum("bhqk,bhqd->bhkd", p.to(g.dtype), gh)
-    ds = (p * torch.einsum("bhqd,bhkd->bhqk", gh, vh).float()).to(q.dtype)
-    gq = torch.einsum("bhqk,bhkd->bhqd", ds, kh) * scale
-    gk = torch.einsum("bhqk,bhqd->bhkd", ds, qh) * scale
-    return tuple(ha.merge_heads(t) for t in (gq, gk, gv))
+    """The same fault on packed (B, L, H·D) operands."""
+    return tuple(ha.merge_heads(t) for t in fault_head_bwd_no_delta(
+        *(ha.split_heads(t, heads) for t in (q, k, v, g)), scale))
 
 
 def fault_head_shifted_keys(q, k, v, scale):
@@ -303,7 +354,8 @@ def fault_apply_neighbour_affine(x, a, b, act):
 
 
 FAULTS = {"fwd": fault_fwd_neighbour_head, "bwd": fault_bwd_no_delta,
-          "head": fault_head_shifted_keys, "gn": fault_gn_neighbour_gamma,
+          "head": fault_head_shifted_keys,
+          "head_bwd": fault_head_bwd_no_delta, "gn": fault_gn_neighbour_gamma,
           "stats": fault_stats_chunk_dropped,
           "apply": fault_apply_neighbour_affine}
 
@@ -382,6 +434,25 @@ def check_head(tag, b, l, d, dtype, gen):
     return {"shape": tag, "B": b, "Lq": l, "Lk": l, "HD": d, "D": d, **row}
 
 
+def check_head_bwd(tag, b, lq, lk, d, dtype, gen):
+    """The per-head backward on the VAE's layout: q, k, v and the output
+    gradient as (B, 1, L, C) token views of NCHW maps."""
+    q, k, v, g = (torch.randn((b, d, n), generator=gen, device="cuda")
+                  .to(dtype)[:, None].transpose(2, 3)
+                  for n in (lq, lk, lk, lq))
+    scale = d**-0.5
+    peak = PEAK_BF16 if dtype == BF16 else PEAK_FP32
+    ql, kl, vl = (t.detach().requires_grad_(True) for t in (q, k, v))
+    o = F.scaled_dot_product_attention(ql, kl, vl, scale=scale)
+    row = run_check(
+        "head_bwd", dtype, lambda: ha.attention_bwd(q, k, v, g, scale),
+        lambda: ha.attention_backward_reference(q, k, v, g, scale),
+        fault_head_bwd_no_delta(q, k, v, g, scale),
+        lambda: torch.autograd.grad(o, (ql, kl, vl), g, retain_graph=True),
+        bound_ms("bwd", b, lq, lk, d, q.element_size(), peak))
+    return {"shape": tag, "B": b, "Lq": lq, "Lk": lk, "HD": d, "D": d, **row}
+
+
 def check_gn(tag, b, c, h, w, eps, act, dtype, gen):
     """The GroupNorm kernels one call at this map launches: the block
     kernel, or the stats and apply pair (one row each)."""
@@ -419,43 +490,53 @@ def check_gn(tag, b, c, h, w, eps, act, dtype, gen):
 
 
 def kernel_phase(pipe):
-    """Every kernel at every shape of the two main paths (bf16, with its
-    calls per run), and once in fp32."""
+    """Every kernel at every shape of the main paths (bf16 in ``generate``
+    and ``inpaint``, fp32 in ``train_vae``), with its calls per run; the
+    kernels of the bf16 paths also once in fp32, the per-head backward also
+    once in bf16 and at ragged lengths."""
     n = WINDOWS * SAMPLES
     gen = torch.Generator("cuda").manual_seed(0)
     rows = []
     for tag, b, lq, lk, hd, heads, per_step in path_shapes(n, WINDOW_FEATS):
-        calls = dict.fromkeys(RUNS, STEPS * per_step)
+        per_run = calls(STEPS * per_step, STEPS * per_step)
         rows.append(("attn_packed_fwd", {**check_packed(
-            "fwd", tag, b, lq, lk, hd, heads, BF16, gen), "calls": calls}))
+            "fwd", tag, b, lq, lk, hd, heads, BF16, gen), "calls": per_run}))
         if tag.startswith("clf"):
             rows.append(("attn_packed_bwd", {**check_packed(
                 "bwd", tag, b, lq, lk, hd, heads, BF16, gen),
-                "calls": calls}))
+                "calls": per_run}))
     d = SD_VAE.ch * SD_VAE.ch_mult[-1]
     l = LATENT_HW[0] * LATENT_HW[1]
     rows.append(("attn_fwd", {**check_head("vae-enc-mid", WINDOWS, l, d,
                                            BF16, gen),
-                              "calls": {"generate": 0, "inpaint": 1}}))
+                              "calls": calls(0, 1)}))
     rows.append(("attn_fwd", {**check_head("vae-dec-mid", n, l, d, BF16,
                                            gen),
-                              "calls": {"generate": 1, "inpaint": 1}}))
-    for (model, b, c, h, w, eps, act), calls in gn_path(pipe, n,
-                                                         STEPS).items():
+                              "calls": calls(1, 1)}))
+    # the train step's mid attention, encoder and decoder alike: forward
+    # and backward in fp32 at the train batch
+    both = calls(train_vae=2 * TRAIN_STEPS)
+    rows.append(("attn_fwd", {**check_head("train-mid", TRAIN_BATCH, l, d,
+                                           FP32, gen), "calls": both}))
+    rows.append(("attn_bwd", {**check_head_bwd("train-mid", TRAIN_BATCH, l, l,
+                                               d, FP32, gen), "calls": both}))
+    rows.append(("attn_bwd", check_head_bwd("train-mid", TRAIN_BATCH, l, l, d,
+                                            BF16, gen)))
+    rows.append(("attn_bwd", check_head_bwd("ragged", 2, 1000, 936, d, FP32,
+                                            gen)))
+    for (model, b, c, h, w, eps, act, dtype), per_run in gn_path(
+            pipe, n, STEPS).items():
         tag = f"{model}-{c}x{h}x{w}"
-        for name, r in check_gn(tag, b, c, h, w, eps, act, BF16, gen):
-            rows.append((name, {**r, "calls": calls}))
-    # once in fp32: the UNet's level-0 cross shape, the classifier's
-    # level-1 self shape, the decoder's mid attention, a UNet level-0 norm
-    # and the decoder's full-resolution norm
+        for name, r in check_gn(tag, b, c, h, w, eps, act, dtype, gen):
+            rows.append((name, {**r, "calls": per_run}))
+    # the bf16 paths' kernels once in fp32: the UNet's level-0 cross shape,
+    # the classifier's level-1 self shape and a UNet level-0 norm (the
+    # per-head forward and the VAE's norms have the trainer's fp32 rows)
     rows.append(("attn_packed_fwd", check_packed(
         "fwd", "unet-0-cross", 2 * n, 1024, WINDOW_FEATS, 320, 8, FP32, gen)))
     rows.append(("attn_packed_bwd", check_packed(
         "bwd", "clf-1-self", n, 256, 256, 256, 8, FP32, gen)))
-    rows.append(("attn_fwd", check_head("vae-dec-mid", n, l, d, FP32, gen)))
     rows += check_gn("unet-320x16x64", 2 * n, 320, 16, 64, 1e-5, "silu",
-                     FP32, gen)
-    rows += check_gn("vae-dec-128x128x512", n, 128, 128, 512, 1e-6, "silu",
                      FP32, gen)
     # reset after the comparisons: they are not the main paths' launches
     reset_counts()
@@ -481,30 +562,40 @@ def kernel_phase(pipe):
 
 
 def summarize(rows, launches):
-    """One entry per kernel: its bf16 path shapes summed over their calls in
-    the generate and the inpaint run (ms, plain_ms, library_ms, bound_ms),
-    its largest error, and its launches in the two main-path runs."""
+    """One entry per kernel: its path shapes summed over their calls in the
+    generate, the inpaint and the train_vae run (ms, plain_ms, library_ms,
+    bound_ms; each also per run), its largest error, and its launches in
+    the main-path runs. A sum is null where nothing was measured: no call
+    of the kernel in that run, or a shape without a library call."""
     out = []
     for name, (source, replaces) in KERNELS.items():
         rs = [r for k, r in rows if k == name and "calls" in r]
-        tot = lambda key, run: sum((r[key] or 0.0) * r["calls"][run]
-                                   for r in rs)
-        both = lambda key: tot(key, "generate") + tot(key, "inpaint")
+
+        def total(key, runs=RUNS):
+            used = [(r[key], sum(r["calls"][run] for run in runs))
+                    for r in rs]
+            used = [(v, n) for v, n in used if n]
+            if not used or any(v is None for v, _ in used):
+                return None
+            return sum(v * n for v, n in used)
+
         t_ops = sum(r["bound_ms"] * sum(r["calls"].values()) for r in rs
                     if r["bound_by"] == "operations")
-        has_lib = any(r["library_ms"] is not None for r in rs)
         out.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
             "launches": sum(launches[run][name] for run in RUNS),
             "max_abs_err": max(r["max_abs_err"] for k, r in rows if k == name),
-            "ms": both("kernel_ms"), "plain_ms": both("plain_ms"),
-            "bound_ms": both("bound_ms"),
-            "bound_by": "operations" if t_ops >= both("bound_ms") / 2
+            "ms": total("kernel_ms"), "plain_ms": total("plain_ms"),
+            "bound_ms": total("bound_ms"),
+            "bound_by": "operations" if t_ops >= total("bound_ms") / 2
             else "bytes",
-            "library_ms": both("library_ms") if has_lib else None,
+            "library_ms": total("library_ms"),
             **{f"launches_{run}": launches[run][name] for run in RUNS},
-            **{f"ms_{run}": tot("kernel_ms", run) for run in RUNS},
+            **{f"{key}_{run}": total(
+                f"{'kernel_' if key == 'ms' else ''}{key}", (run,))
+               for key in ("ms", "plain_ms", "bound_ms", "library_ms")
+               for run in RUNS},
         })
     return out
 
@@ -692,14 +783,15 @@ def inpaint_phase(pipe, feats, spec, expect, profile: bool):
                       "contract_free": float(err_free)}
 
 
-def profile_steps(what: str, run, steps: int = 2):
-    """torch.profiler over a warm sampler run of two steps: device busy
-    time per step (the union of the kernels' intervals), the idle share of
-    the wall time, and the kernels that take the most."""
+def profile_steps(what: str, run, steps: int = 2, grad: bool = False):
+    """torch.profiler over a warm run of two steps (of a sampler, or with
+    ``grad`` of the trainer): device busy time per step (the union of the
+    kernels' intervals), the idle share of the wall time, and the kernels
+    that take the most."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with torch.no_grad():
+    with torch.enable_grad() if grad else torch.no_grad():
         run()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -727,6 +819,324 @@ def profile_steps(what: str, run, steps: int = 2):
         "kernels_per_step": len(kernels) / steps,
         "top": [{"name": n[:90], "ms_per_step": t / 1e3 / steps,
                  "calls_per_step": c / steps} for n, (t, c) in top]}))
+
+
+# ---- the trainer ------------------------------------------------------------------
+
+def write_specs(root: str, n: int = 6, frames: int = 600, seed: int = 0):
+    """Seeded mel specs (128, frames) in [0, 1], stationary in time (a
+    smooth profile over the mel bins plus a little noise), so that the
+    random crops of different steps are alike and nll_loss is comparable
+    from step to step."""
+    rng = np.random.default_rng(seed)
+    mel = np.linspace(0.0, 1.0, 128, dtype=np.float32)[:, None]
+    for i in range(n):
+        profile = 0.5 + 0.3 * np.sin(2 * np.pi * (i + 1) * mel + i)
+        spec = profile + 0.05 * rng.standard_normal((128, frames))
+        np.save(os.path.join(root, f"clip{i}_mel.npy"),
+                np.clip(spec, 0.0, 1.0).astype(np.float32))
+
+
+def random_lpips(seed: int) -> LPIPS:
+    """LPIPS with seeded random trunk weights, non-negative heads (as the
+    trained ones) and the scaling layer's constants, frozen, on the card."""
+    model = LPIPS()
+    consts = {k: v.clone() for k, v in model.state_dict().items()
+              if k in ("shift", "scale")}
+    randomize_(model, seed)
+    with torch.no_grad():
+        for k in range(5):
+            getattr(model, f"lin{k}").weight.abs_()
+    model.load_state_dict(consts, strict=False)
+    return model.to("cuda").requires_grad_(False)
+
+
+def gn_backward_cost(pipe):
+    """The plain GroupNorm backward (``FusedGroupNorm.backward`` recomputes
+    the formula under autograd) at each of the VAE's maps at the train
+    batch in fp32: ms per train step summed over the sites, beside the
+    forward kernels', and the memory one backward takes at the largest map."""
+    gen = torch.Generator("cuda").manual_seed(6)
+    total_bwd = total_fwd = 0.0
+    worst = (0, None, 0.0)
+    for (model, b, c, h, w, eps, act, dtype), per_run in gn_path(
+            pipe, WINDOWS * SAMPLES, STEPS).items():
+        per_step = per_run["train_vae"] // TRAIN_STEPS
+        if not per_step:
+            continue
+        x = torch.randn((b, c, h, w), generator=gen, device="cuda",
+                        dtype=dtype).requires_grad_(True)
+        gamma = torch.ones(c, device="cuda", requires_grad=True)
+        beta = torch.zeros(c, device="cuda", requires_grad=True)
+        y = hg.fused_group_norm(x, gamma, beta, 32, eps, act)
+        g = torch.randn_like(y)
+        bwd = lambda: torch.autograd.grad(y, (x, gamma, beta), g,
+                                          retain_graph=True)
+        total_bwd += per_step * time_ms(bwd, iters=3, warmup=1)
+        with torch.no_grad():
+            total_fwd += per_step * time_ms(lambda: hg.fused_group_norm(
+                x, gamma, beta, 32, eps, act), iters=3, warmup=1)
+        if x.numel() > worst[0]:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            bwd()
+            torch.cuda.synchronize()
+            worst = (x.numel(), f"{model}-{c}x{h}x{w}",
+                     (torch.cuda.max_memory_allocated() - base) / 2**30)
+    reset_counts()
+    return {"gn_backward_ms_per_step": total_bwd,
+            "gn_forward_kernels_ms_per_step": total_fwd,
+            "largest_map": worst[1],
+            "largest_map_GiB": worst[0] * 4 / 2**30,
+            "backward_extra_GiB_at_largest_map": worst[2]}
+
+
+def train_phase(pipe, expect, profile: bool):
+    """``cli.train_vae`` at SD_VAE's full width: the main-path call of
+    TRAIN_STEPS steps, the resume, then warm steps split into the generator
+    and the discriminator step, the GroupNorm backward's cost and one step
+    with the LPIPS hook on."""
+    with tempfile.TemporaryDirectory() as tmp:
+        spec_dir, logdir = os.path.join(tmp, "specs"), os.path.join(tmp, "log")
+        os.makedirs(spec_dir)
+        write_specs(spec_dir)
+        args = ["--spec-dir", spec_dir, "--logdir", logdir, "--batch-size",
+                str(TRAIN_BATCH), "--lr", str(TRAIN_LR), "--disc-start", "0",
+                "--log-every", "1", "--save-every", "1000000"]
+        log(f"train_vae SD_VAE fp32 batch {TRAIN_BATCH} lr {TRAIN_LR} "
+            f"{TRAIN_STEPS} steps, disc_start 0")
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state = train_vae_cli.main(args + ["--max-steps", str(TRAIN_STEPS)])
+        torch.cuda.synchronize()
+        call_s = time.perf_counter() - t0
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        read_rows = lambda: [json.loads(line) for line in open(
+            os.path.join(logdir, "metrics.jsonl"))]
+        main_rows = rows = read_rows()
+        log("train_vae metrics " + json.dumps(rows))
+        log(f"train_vae {call_s:.3f} s (main-path call: set-up, "
+            f"{TRAIN_STEPS} steps, checkpoint) peak_mem_GiB {peak:.3f}")
+        check_launches("train_vae", launches, expect)
+        if [r["step"] for r in rows] != list(range(1, TRAIN_STEPS + 1)):
+            raise AssertionError("train_vae did not log every step")
+        for r in rows:
+            if not np.isfinite(list(r.values())).all():
+                raise AssertionError(f"train_vae metrics not finite: {r}")
+            if not (r["train/d_weight"] >= 0 and r["train/disc_loss"] > 0):
+                raise AssertionError(f"the GAN term is off or negative: {r}")
+        nll = [r["train/nll_loss"] for r in rows]
+        if not nll[-1] < nll[0]:
+            raise AssertionError(f"nll_loss did not fall: {nll}")
+        n_params = sum(p.numel() for p in state.vae.parameters())
+        del state
+
+        # the checkpoint reloads and the run continues at the saved step
+        resumed = train_vae_cli.main(
+            args + ["--max-steps", str(TRAIN_STEPS + 1), "--resume"])
+        rows = read_rows()
+        adam_steps = int(next(iter(resumed.opt.state.values()))["step"])
+        log(f"train_vae resume: step {resumed.step}, Adam step {adam_steps}, "
+            f"nll {rows[-1]['train/nll_loss']:.4f}")
+        if not (resumed.step == adam_steps == rows[-1]["step"]
+                == TRAIN_STEPS + 1 and len(rows) == TRAIN_STEPS + 1
+                and np.isfinite(rows[-1]["train/nll_loss"])):
+            raise AssertionError("the resumed run did not continue at the "
+                                 "saved step")
+
+        data = SpecDataset.from_dir(spec_dir)
+        x = torch.from_numpy(np.stack(
+            [data[i]["spec"] for i in range(TRAIN_BATCH)])).to("cuda")
+    state = resumed
+    tcfg = VAETrainConfig(lr=TRAIN_LR, loss=VAELossConfig(disc_start=0))
+    trainer = VAETrainer(SD_VAE, tcfg)
+    gen = torch.Generator("cuda").manual_seed(9)
+    warm = []
+    for _ in range(3):
+        stages = {}
+        _, rec = timed(stages, "generator_s", lambda: trainer.generator_step(
+            state, x, generator=gen))
+        timed(stages, "discriminator_s",
+              lambda: trainer.discriminator_step(state, x, rec))
+        state.step += 1
+        warm.append(stages)
+    log("train_vae warm steps " + json.dumps(warm))
+    gn_cost = gn_backward_cost(pipe)
+    log("train_vae GroupNorm backward " + json.dumps(gn_cost))
+
+    # one step with the LPIPS hook on: the perceptual branch of the
+    # reconstruction term and of the adaptive weight's probe
+    hooked = VAETrainer(SD_VAE, dataclasses.replace(
+        tcfg, loss=VAELossConfig(disc_start=0, perceptual_weight=1.0)),
+        perceptual_fn=make_lpips_fn(random_lpips(7)))
+    stages = {}
+    m = timed(stages, "lpips_step_s",
+              lambda: hooked.train_step(state, x, generator=gen))
+    m = {k: float(v) for k, v in m.items()}
+    log(f"train_vae step with the LPIPS hook {stages['lpips_step_s']:.3f} s "
+        + json.dumps(m))
+    if not np.isfinite(list(m.values())).all():
+        raise AssertionError(f"LPIPS step not finite: {m}")
+    if profile:
+        profile_steps("train_vae", lambda: [trainer.train_step(
+            state, x, generator=gen) for _ in range(2)], grad=True)
+    best = min(warm, key=lambda w: w["generator_s"] + w["discriminator_s"])
+    return launches, {
+        "batch": TRAIN_BATCH, "vae_params": n_params,
+        "main_call_s": call_s, "first_step_s": main_rows[0]["step_s"],
+        "cli_step_s": [r["step_s"] for r in main_rows],
+        "warm_generator_s": best["generator_s"],
+        "warm_discriminator_s": best["discriminator_s"],
+        "warm_step_s": best["generator_s"] + best["discriminator_s"],
+        "peak_mem_GiB": peak, "nll_first": nll[0], "nll_last": nll[-1],
+        "lpips_step_s": stages["lpips_step_s"], **gn_cost}
+
+
+def _rms(t: torch.Tensor) -> float:
+    return float(t.double().square().mean().sqrt())
+
+
+def noise_gradients(grads: dict) -> set:
+    """The biases whose gradient is analytically zero, picked out on the
+    reference gradients: rms below 1e-4 of the sibling weight's. A bias in
+    front of a GroupNorm whose groups hold one channel (every norm of a
+    ch 32 VAE) is removed with the group's mean, and the softmax does not
+    see the k projection's bias: in fp32 such a gradient is rounding noise,
+    1e-6 of the weight's or less, where every other bias has 1e-2 or more."""
+    return {k for k, g in grads.items()
+            if k.endswith(".bias") and f"{k[:-5]}.weight" in grads
+            and _rms(g) <= 1e-4 * _rms(grads[f"{k[:-5]}.weight"]) > 0.0}
+
+
+def gradient_agreement(out: dict, ref: dict, noise: set, max_tol: float,
+                       rms_tol: float):
+    """The gradients of one train step, leaf by leaf as the kernel phase
+    holds a kernel: max|Δ| ≤ max_tol·rms(ref) and rms(Δ) ≤ rms_tol·rms(ref).
+    A leaf in ``noise`` must be noise here too (under 1e-4 of its weight's
+    gradient). Returns the worst (max ratio, rms ratio, leaf)."""
+    worst = (0.0, 0.0, "")
+    for k, r in ref.items():
+        o, r = out[k].double().cpu(), r.double().cpu()
+        if k in noise:
+            if _rms(o) > 1e-4 * _rms(out[f"{k[:-5]}.weight"]):
+                raise AssertionError(f"{k}: a zero gradient came out as "
+                                     f"rms {_rms(o)}")
+            continue
+        rms = _rms(r)
+        if rms == 0.0:   # the discriminator while its loss is gated off
+            if _rms(o) != 0.0:
+                raise AssertionError(f"{k}: gradient of a gated loss")
+            continue
+        ratios = (float((o - r).abs().max()) / rms, _rms(o - r) / rms)
+        if ratios[0] > max_tol or ratios[1] > rms_tol:
+            raise AssertionError(f"{k}: gradient off by max {ratios[0]:.3e} "
+                                 f"rms {ratios[1]:.3e} of rms(ref)")
+        worst = max(worst, (*ratios, k))
+    return worst
+
+
+def leaf_agreement(out: dict, ref: dict, noise: set, lr: float, steps: int,
+                   tol: float):
+    """Updated leaves of two runs of the same train steps, element by
+    element against tol·max(1, max|ref|). Adam's first step is
+    lr·g/(|g| + ε), nearly lr·sign(g): an element whose gradient lies
+    within rounding of zero steps either way on either device, and the two
+    then differ by up to 2·lr a step, which bounds every leaf. The leaves
+    in ``noise`` are held to that bound only. In any other leaf at most
+    2 + 2·numel/10³ elements may be off (a wrong gradient would move most
+    of a leaf; runs on an H100 gave at most 5 of a leaf of 9216 and 3 to
+    66 of all 3.1 million). Returns (elements off, elements compared,
+    rms(Δ) over them against steps·lr, the leaf nearest its limit)."""
+    off_all, total, sq, nearest = 0, 0, 0.0, (0.0, "")
+    for k, r in ref.items():
+        o, r = out[k].float().cpu(), r.float().cpu()
+        delta = (o - r).abs() / max(1.0, float(r.abs().max()))
+        if float(delta.max()) > 2 * steps * lr * 1.01:
+            raise AssertionError(f"{k}: max|Δ| {float(delta.max())}")
+        if k in noise:
+            continue
+        off = int((delta > tol).sum())
+        limit = 2 + 2e-3 * delta.numel()
+        if off > limit:
+            raise AssertionError(f"{k}: {off} of {delta.numel()} elements off")
+        nearest = max(nearest, (off / limit, f"{k}: {off} of {delta.numel()}"))
+        off_all, total = off_all + off, total + delta.numel()
+        sq += float(delta.square().sum())
+    return off_all, total, (sq / total) ** 0.5 / (steps * lr), nearest[1]
+
+
+# Gradients of the tiny train step, GPU against CPU, per leaf against
+# rms(CPU): (max|Δ|, rms(Δ)). Five runs on an H100 reached 1.05e-4 and
+# 2.9e-5, at the first step (equal parameters) and the second alike; a
+# gradient wrong by 1% of a leaf is a hundred times the rms limit.
+GRAD_TOL = (5e-4, 1e-4)
+
+
+def agreement_train_phase():
+    """Two fp32 train steps of a tiny VAE (ch 32: the D 32 instance of the
+    per-head kernels, 8·17 = 136 tokens, ragged against their tiles) and
+    the discriminator on the GPU (kernels) against the same steps on the
+    CPU (plain versions): shared initial state, batch and posterior noise;
+    the GAN term gated off in the first step and on in the second.
+    ``logvar_init`` 4 keeps the adaptive weight under its clip, so that the
+    value of the two gradient probes is what the metrics compare. Held:
+    the metrics, each step's gradients of both models before Adam sees
+    them, and the updated leaves."""
+    lr, steps = 1e-4, 2
+    trainer = VAETrainer(
+        VAEConfig(ch=32, ch_mult=(1, 1, 1, 1), num_res_blocks=1),
+        VAETrainConfig(lr=lr, loss=VAELossConfig(disc_start=1,
+                                                 logvar_init=4.0)))
+    rng = np.random.default_rng(8)
+    x = torch.as_tensor(rng.uniform(size=(2, 64, 136, 3)), dtype=torch.float32)
+    noise = torch.as_tensor(rng.standard_normal((steps, 2, 8, 17, 4)),
+                            dtype=torch.float32)
+    named = lambda state, what: {
+        f"{m}.{k}": v.detach().clone()
+        for m, module in (("vae", state.vae), ("disc", state.disc))
+        for k, v in what(module)}
+    metrics, grads, leaves = {}, {}, {}
+    for device in ("cpu", "cuda"):
+        reset_counts()
+        state = trainer.init_train_state(3, device)
+        metrics[device], grads[device] = [], []
+        for i in range(steps):
+            m = trainer.train_step(state, x.to(device),
+                                   noise=noise[i].to(device))
+            metrics[device].append({k: float(v) for k, v in m.items()})
+            grads[device].append(named(state, lambda module: (
+                (k, p.grad) for k, p in module.named_parameters())))
+        leaves[device] = named(state,
+                               lambda module: module.state_dict().items())
+        if device == "cuda" and not (ha.LAUNCHES["attn_bwd"] == 2 * steps
+                                     and ha.LAUNCHES["attn_fwd"] == 2 * steps):
+            raise AssertionError(f"tiny train step launches {ha.LAUNCHES}")
+    worst = 0.0
+    for cpu, gpu in zip(metrics["cpu"], metrics["cuda"]):
+        for k, ref in cpu.items():
+            worst = max(worst, abs(gpu[k] - ref) / max(abs(ref), 1e-3))
+    # the discriminator's first gradient is the second step's
+    zero = set().union(*(noise_gradients(g) for g in grads["cpu"]))
+    grad_worst = [gradient_agreement(grads["cuda"][i], grads["cpu"][i], zero,
+                                     *GRAD_TOL) for i in range(steps)]
+    off, total, rms, nearest = leaf_agreement(leaves["cuda"], leaves["cpu"],
+                                              zero, lr, steps, 2e-5)
+    log(f"agreement tiny fp32 train_vae gpu-vs-cpu, {steps} steps: metrics "
+        f"worst relative Δ {worst:.3e} (tol 1e-3); gradients per leaf, worst "
+        f"(max|Δ|, rms(Δ)) / rms(cpu) by step "
+        f"{json.dumps([list(w) for w in grad_worst])} (limits "
+        f"{list(GRAD_TOL)}), "
+        f"{len(zero)} biases with zero gradients are noise on both; "
+        f"{len(leaves['cpu'])} updated leaves: {off} of {total} elements "
+        f"beyond 2e-5·max(1, max|ref|) (a tenth of two Adam steps; limit "
+        f"2 + 2 in 10³ of a leaf; nearest its limit {nearest}), rms(Δ) "
+        f"{rms:.3e} of the steps' size; cpu metrics "
+        f"{json.dumps(metrics['cpu'])}")
+    if not worst <= 1e-3:
+        raise AssertionError("GPU train step metrics disagree with the CPU's")
 
 
 def agreement_phase():
@@ -765,7 +1175,7 @@ def agreement_phase():
         outs[("inpaint", device)] = pipe.inpaint(
             feats, known, mask, gen=gen_in, x_T=x_T.to(device),
             mask_noise=mask_noise.to(device), gl_phase=phase.to(device))
-    for run in RUNS:
+    for run in ("generate", "inpaint"):
         cpu, gpu = outs[(run, "cpu")], outs[(run, "cuda")]
         d_spec = float(np.abs(cpu["spec"] - gpu["spec"]).max())
         d_wav = float(np.abs(cpu["wav"] - gpu["wav"]).max())
@@ -817,8 +1227,12 @@ def main(argv):
     launches["inpaint"], times = inpaint_phase(
         pipe, feats, spec, expect["inpaint"], profile)
     log("inpaint times " + json.dumps(times))
+    launches["train_vae"], times = train_phase(
+        pipe, expect["train_vae"], profile)
+    log("train_vae times " + json.dumps(times))
     del pipe
     agreement_phase()
+    agreement_train_phase()
     log(json.dumps({"kernels": summarize(rows, launches)}))
     log(card)
     print(json.dumps({"ok": True, "device": {

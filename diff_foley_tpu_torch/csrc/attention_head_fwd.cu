@@ -17,107 +17,26 @@
 // (BK), and its 256 threads split the output as 32 rows × 8 column groups:
 // D/8 fp32 accumulators each (64 at D 512). Q, K and V tiles (fp32) and the
 // (BQ, BK) P tile take 197 KB of shared memory at D 512: one block per SM.
-// Tiles are read with float4 loads (leading dimension D + 4: the 16 key
-// rows a half-warp reads start 4 banks apart, so a 128-bit phase is
-// conflict-free).
-//
-// Operands may have any strides: the VAE's tokens are an NCHW map seen as
-// (B, 1, h·w, C), stride 1 along the tokens and h·w along D. Tile loads
-// and the output store walk the stride-1 axis with consecutive threads, so
-// both layouts read and write coalesced and no transpose surrounds a call.
+// Tile staging, strides and the score product are attention_head_common.cuh's,
+// shared with the backward (attention_head_bwd.cu).
 //
 // Bound on this card: 4·B·H·Lq·Lk·D operations against (2·Lq + 2·Lk)·B·H·D
 // operand elements: at L 1024, D 512 in bf16, 8.6 GFLOP over 8 MB for
 // B 4, operation-bound on the tensor cores (~10 µs) and far from that
 // with fp32 FMAs from shared memory, which this first kernel uses. Tensor
 // cores (mma/wgmma) and a single online pass are later work.
-#include "common.cuh"
+#include "attention_head_common.cuh"
 
 namespace dft {
 
-constexpr int HQ = 32;         // query rows per block
 constexpr int HK = 32;         // key rows per tile
-constexpr int HNT = 256;       // threads per block
 constexpr int HSLD = HK + 1;   // leading dimension of the P tile
 
+// Q and K tiles (leading dimension D + 4), the V tile and the P tile
 template <int D>
-struct HeadTile {
-  static constexpr int LD = D + 4;  // float4-aligned, rows 4 banks apart
-  static constexpr size_t smem_bytes() {
-    return sizeof(float) * ((size_t)(HQ + HK) * LD + (size_t)HK * D +
-                            (size_t)HQ * HSLD);
-  }
-};
-
-// Rows [row0, row0 + rows) of one (b, h) operand as fp32 into dst (leading
-// dimension ld); rows at or past L are zero. The stride-1 axis goes to
-// consecutive threads.
-template <typename T, int D>
-__device__ __forceinline__ void load_rows(float* dst, int ld, const T* src,
-                                          long long sl, long long sd,
-                                          int row0, int rows, int L) {
-  if (sd == 1) {
-    for (int idx = threadIdx.x; idx < rows * D; idx += HNT) {
-      const int r = idx / D;
-      const int c = idx - r * D;
-      const int gr = row0 + r;
-      dst[r * ld + c] = gr < L ? to_f<T>(src[gr * sl + c]) : 0.f;
-    }
-  } else {
-    for (int idx = threadIdx.x; idx < rows * D; idx += HNT) {
-      const int c = idx / rows;
-      const int r = idx - c * rows;
-      const int gr = row0 + r;
-      dst[r * ld + c] = gr < L ? to_f<T>(src[gr * sl + c * sd]) : 0.f;
-    }
-  }
-}
-
-// s[a][b] = Q(ty + 16a) · K(tx + 16b) for the thread's 2x2 share of a
-// (32, 32) score tile; ty = t / 16, tx = t % 16.
-template <int D>
-__device__ __forceinline__ void head_scores(const float* Qs, const float* Ks,
-                                            float s[2][2]) {
-  constexpr int LD = HeadTile<D>::LD;
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-#pragma unroll
-  for (int a = 0; a < 2; ++a)
-#pragma unroll
-    for (int b = 0; b < 2; ++b) s[a][b] = 0.f;
-#pragma unroll 4
-  for (int k = 0; k < D; k += 4) {
-    float4 qa[2], kb[2];
-#pragma unroll
-    for (int a = 0; a < 2; ++a)
-      qa[a] = *reinterpret_cast<const float4*>(Qs + (ty + 16 * a) * LD + k);
-#pragma unroll
-    for (int b = 0; b < 2; ++b)
-      kb[b] = *reinterpret_cast<const float4*>(Ks + (tx + 16 * b) * LD + k);
-#pragma unroll
-    for (int a = 0; a < 2; ++a)
-#pragma unroll
-      for (int b = 0; b < 2; ++b) {
-        s[a][b] = fmaf(qa[a].x, kb[b].x, s[a][b]);
-        s[a][b] = fmaf(qa[a].y, kb[b].y, s[a][b]);
-        s[a][b] = fmaf(qa[a].z, kb[b].z, s[a][b]);
-        s[a][b] = fmaf(qa[a].w, kb[b].w, s[a][b]);
-      }
-  }
-}
-
-// reductions over the 16 lanes that share a score row
-__device__ __forceinline__ float half_warp_max(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float half_warp_sum(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+constexpr size_t head_fwd_smem_bytes() {
+  return sizeof(float) * ((size_t)(HQ + HK) * HeadTile<D>::LD +
+                          (size_t)HK * D + (size_t)HQ * HSLD);
 }
 
 // grid (ceil(Lq / HQ), H, B), HNT threads. q and o share strides (qs*),
@@ -154,7 +73,7 @@ __global__ void __launch_bounds__(HNT)
     load_rows<T, D>(Ks, LD, kb, ksl, ksd, k0, HK, lk);
     __syncthreads();
     float s[2][2];
-    head_scores<D>(Qs, Ks, s);
+    head_scores<D, 2>(Qs, Ks, s);
 #pragma unroll
     for (int a = 0; a < 2; ++a) {
       float mx = -INFINITY;
@@ -186,7 +105,7 @@ __global__ void __launch_bounds__(HNT)
     load_rows<T, D>(Vs, D, vb, ksl, ksd, k0, HK, lk);
     __syncthreads();
     float s[2][2];
-    head_scores<D>(Qs, Ks, s);
+    head_scores<D, 2>(Qs, Ks, s);
 #pragma unroll
     for (int a = 0; a < 2; ++a)
 #pragma unroll
@@ -220,20 +139,7 @@ __global__ void __launch_bounds__(HNT)
     *reinterpret_cast<float4*>(Qs + r * LD + 4 * (cg + 8 * u)) = acc[u];
   __syncthreads();
   const int rows = lq - q0 < HQ ? lq - q0 : HQ;
-  T* orow0 = ob + q0 * qsl;
-  if (qsd == 1) {
-    for (int idx = threadIdx.x; idx < rows * D; idx += HNT) {
-      const int rr = idx / D;
-      const int c = idx - rr * D;
-      orow0[rr * qsl + c] = from_f<T>(Qs[rr * LD + c]);
-    }
-  } else {
-    for (int idx = threadIdx.x; idx < rows * D; idx += HNT) {
-      const int c = idx / rows;
-      const int rr = idx - c * rows;
-      orow0[rr * qsl + c * qsd] = from_f<T>(Qs[rr * LD + c]);
-    }
-  }
+  store_rows<T, D>(ob + q0 * qsl, qsl, qsd, Qs, LD, rows);
 }
 
 template <typename T, int D>
@@ -242,7 +148,7 @@ static cudaError_t launch_head_fwd(const void* q, const void* k,
                                    int lq, int lk, const long long* qs,
                                    const long long* ks, float scale,
                                    cudaStream_t stream) {
-  const size_t smem = HeadTile<D>::smem_bytes();
+  const size_t smem = head_fwd_smem_bytes<D>();
   auto kernel = attn_head_fwd_kernel<T, D>;
   static SmemLimit limit;
   cudaError_t err = limit.raise(kernel, smem);

@@ -46,13 +46,14 @@ class Dense(nn.Module):
 
 
 class Conv2d(nn.Module):
-    """flax nn.Conv over NCHW maps: weight OIHW, symmetric padding."""
+    """flax nn.Conv over NCHW maps: weight OIHW, symmetric padding,
+    optional bias."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int = 1,
-                 padding: int = 0):
+                 padding: int = 0, bias: bool = True):
         super().__init__()
         self.weight = nn.Parameter(torch.zeros(out_ch, in_ch, kernel, kernel))
-        self.bias = nn.Parameter(torch.zeros(out_ch))
+        self.bias = nn.Parameter(torch.zeros(out_ch)) if bias else None
         self.stride, self.padding = stride, padding
 
     def forward(self, x):

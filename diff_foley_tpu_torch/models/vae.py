@@ -12,6 +12,7 @@ Children are registered in the order the forward runs them.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Sequence
 
 import torch
@@ -159,21 +160,56 @@ class Decoder(nn.Module):
 
 
 class DiagonalGaussian:
-    """The posterior N(mean, diag σ²) over NHWC latents, at inference:
-    ``mode`` only (sampling, KL and NLL wait for training)."""
+    """The posterior N(mean, diag σ²) over NHWC latents, the log-variance
+    clipped to [−30, 20]."""
 
     def __init__(self, params: torch.Tensor):
         self.mean, logvar = params.chunk(2, dim=-1)
         self.logvar = torch.clamp(logvar, -30.0, 20.0)
 
+    @property
+    def std(self) -> torch.Tensor:
+        return torch.exp(0.5 * self.logvar)
+
+    @property
+    def var(self) -> torch.Tensor:
+        return torch.exp(self.logvar)
+
+    def sample(self, generator: torch.Generator | None = None,
+               noise: torch.Tensor | None = None) -> torch.Tensor:
+        """mean + σ·ε, with ε drawn from ``generator`` or given as ``noise``
+        (the mean's shape)."""
+        if noise is None:
+            noise = torch.randn(self.mean.shape, generator=generator,
+                                dtype=self.mean.dtype, device=self.mean.device)
+        return self.mean + self.std * noise
+
     def mode(self) -> torch.Tensor:
         return self.mean
 
+    def kl(self, other: "DiagonalGaussian | None" = None) -> torch.Tensor:
+        """KL to the standard normal, or to ``other``, summed over all but
+        the batch axis."""
+        dims = tuple(range(1, self.mean.dim()))
+        if other is None:
+            return 0.5 * torch.sum(
+                self.mean**2 + self.var - 1.0 - self.logvar, dim=dims)
+        return 0.5 * torch.sum(
+            (self.mean - other.mean) ** 2 / other.var + self.var / other.var
+            - 1.0 - self.logvar + other.logvar, dim=dims)
+
+    def nll(self, sample: torch.Tensor) -> torch.Tensor:
+        dims = tuple(range(1, self.mean.dim()))
+        return 0.5 * torch.sum(
+            math.log(2.0 * math.pi) + self.logvar
+            + (sample - self.mean) ** 2 / self.var, dim=dims)
+
 
 class AutoencoderKL(nn.Module):
-    """The frozen first stage: ``encode`` maps NHWC images to a posterior,
+    """The first stage: ``encode`` maps NHWC images to a posterior,
     ``decode`` NHWC latents to NHWC images, in the parameters' type. Maps
-    are contiguous NCHW inside, as the GroupNorm kernels take them."""
+    are contiguous NCHW inside, as the GroupNorm kernels take them. It has
+    no dropout (the shipped rate is 0), so train and eval modes agree."""
 
     def __init__(self, cfg: VAEConfig = SD_VAE):
         super().__init__()
@@ -192,3 +228,13 @@ class AutoencoderKL(nn.Module):
         h = self.decoder(self.post_quant_conv(
             z.permute(0, 3, 1, 2).contiguous()))
         return h.permute(0, 2, 3, 1)
+
+    def forward(self, x: torch.Tensor, noise: torch.Tensor | None = None,
+                sample_posterior: bool = False,
+                generator: torch.Generator | None = None):
+        """(reconstruction, posterior) of NHWC images: decodes a posterior
+        sample (``noise`` or ``generator`` gives its ε) or the mode."""
+        posterior = self.encode(x)
+        z = (posterior.sample(generator, noise) if sample_posterior
+             else posterior.mode())
+        return self.decode(z), posterior

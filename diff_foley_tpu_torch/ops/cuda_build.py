@@ -29,7 +29,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("attention_fwd", "attention_bwd", "attention_head_fwd",
-           "groupnorm")
+           "attention_head_bwd", "groupnorm")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -1,5 +1,5 @@
 """Softmax attention as CUDA kernels: packed heads forward and backward,
-and the per-head forward.
+and the per-head forward and backward.
 
 Counterpart of ``diff_foley_tpu/ops/pallas_attention.py``. Packed operands
 stay ``(B, L, H·D)``, exactly as the to_q/to_k/to_v Linear layers emit
@@ -15,16 +15,22 @@ transpose or copy surrounds a call.
 - :func:`attention_fwd` launches ``csrc/attention_head_fwd.cu``, which
   replaces ``_attn_kernel`` (``_pallas_forward``, entry
   ``flash_attention``) over (B, H, L, D) operands of any dense strides: the
-  VAE's single-head mid attention at D 512. Its backward
-  (``_attn_bwd_kernel``) is not ported yet.
+  VAE's single-head mid attention at D 512.
+- :func:`attention_bwd` launches ``csrc/attention_head_bwd.cu``, which
+  replaces ``_attn_bwd_kernel`` (``_pallas_backward``): dQ, dK and dV in
+  q's, k's and v's strides, so the 1×1 convolutions behind them see
+  contiguous NCHW gradients.
+- :class:`FlashAttention` is the ``custom_vjp`` of ``flash_attention``: it
+  saves exactly q, k and v.
 
 Bound on the H100 (989 TFLOP/s bf16 tensor-core peak, 3.35 TB/s): the
 forward does 4·B·Lq·Lk·H·D operations on (2·Lq + 2·Lk)·B·H·D operand
 elements, the backward 10·B·Lq·Lk·H·D on (3·Lq + 4·Lk)·B·H·D. Against
 the card's ~295 bf16 operations per byte that makes the forward at
-Lq = Lk = 1024 (the UNet's level-0 self-attention) operation-bound, and
-every other path shape, and every backward shape, byte-bound. These first
-kernels use fp32 FMAs from shared memory; tensor-core tiles are later work.
+Lq = Lk = 1024 (the UNet's level-0 self-attention, the VAE's mid attention)
+and the VAE's backward there operation-bound, and every other path shape,
+the packed backward's included, byte-bound. These first kernels use fp32
+FMAs from shared memory; tensor-core tiles are later work.
 
 Each wrapper runs its kernel's plain version when its tensors lie on the
 CPU, launches the kernel when they lie on a CUDA device, and raises
@@ -40,7 +46,8 @@ from . import cuda_build
 from .cuda_build import DTYPE_CODES as _DTYPE_CODES, ptr as _ptr, \
     stream as _stream
 
-LAUNCHES = {"attn_packed_fwd": 0, "attn_packed_bwd": 0, "attn_fwd": 0}
+LAUNCHES = {"attn_packed_fwd": 0, "attn_packed_bwd": 0, "attn_fwd": 0,
+            "attn_bwd": 0}
 
 # the path's head dims; csrc/attention_common.cuh instantiates these only
 _HEAD_DIMS = (32, 40, 80, 160)
@@ -135,6 +142,9 @@ _ENTRIES = {   # C entry: (csrc source, argument types)
     "dft_attn_fwd": ("attention_head_fwd", [ctypes.c_void_p] * 4
                      + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 8
                      + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]),
+    "dft_attn_bwd": ("attention_head_bwd", [ctypes.c_void_p] * 8
+                     + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 16
+                     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]),
 }
 
 
@@ -198,6 +208,12 @@ class FlashAttentionPacked(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
+def _dense_per_head(t: torch.Tensor) -> bool:
+    """Row-major (B, H, L, D), or the token view of an NCHW map: D the
+    slowest axis inside a head, L the fastest."""
+    return t.is_contiguous() or t.transpose(2, 3).is_contiguous()
+
+
 def _check_per_head(q, k, v) -> int:
     for t in (q, k, v):
         if t.dtype not in _DTYPE_CODES or t.dtype != q.dtype:
@@ -205,30 +221,75 @@ def _check_per_head(q, k, v) -> int:
                             f"{list(_DTYPE_CODES)}, got {t.dtype}")
         if t.dim() != 4 or t.device != q.device:
             raise ValueError("operands must be (B, H, L, D) on one device")
-        # row-major (B, H, L, D), or the token view of an NCHW map: D the
-        # slowest axis inside a head, L the fastest
-        if not (t.is_contiguous() or t.transpose(2, 3).is_contiguous()):
+        if not _dense_per_head(t):
             raise ValueError(f"operand strides {t.stride()} are neither "
                              f"(B, H, L, D) nor (B, H, D, L) dense")
     b, h, _, d = q.shape
-    if k.shape != v.shape or k.stride() != v.stride() or (
-            k.shape[0], k.shape[1], k.shape[3]) != (b, h, d):
+    if k.shape != v.shape or (k.shape[0], k.shape[1], k.shape[3]) != (b, h, d):
         raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} must match "
-                         f"q {tuple(q.shape)} in B, H and D and share strides")
+                         f"q {tuple(q.shape)} in B, H and D")
     if d not in _HEAD_DIMS_PER_HEAD:
         raise ValueError(f"head dim {d} is not one of {_HEAD_DIMS_PER_HEAD}")
     return d
 
 
+def _empty_strided_like(t: torch.Tensor) -> torch.Tensor:
+    """An uninitialised tensor with exactly t's strides (t is dense)."""
+    return torch.empty_strided(t.shape, t.stride(), dtype=t.dtype,
+                               device=t.device)
+
+
 def attention_fwd(q, k, v, scale: float):
     """softmax(Q Kᵀ·scale) V per (batch, head) over (B, H, L, D); the output
-    has q's strides."""
+    has q's strides. The kernel reads k and v through one set of strides:
+    a v laid out otherwise is copied into k's layout first."""
     if _on_cpu(q, k, v):
         return attention_reference(q, k, v, scale)
     d = _check_per_head(q, k, v)
+    if v.stride() != k.stride():
+        v = _empty_strided_like(k).copy_(v)
     b, h, lq, _ = q.shape
-    o = torch.empty_like(q)   # dense q: the same strides
+    o = _empty_strided_like(q)
     _launch("dft_attn_fwd", "attn_fwd", _ptr(q), _ptr(k), _ptr(v), _ptr(o),
             b, h, lq, k.shape[2], d, *q.stride(), *k.stride(), float(scale),
             _DTYPE_CODES[q.dtype], _stream(q), device=q.device)
     return o
+
+
+def attention_bwd(q, k, v, g, scale: float):
+    """(dQ, dK, dV) of :func:`attention_fwd` for output gradient g, in the
+    operand type and in q's, k's and v's strides. One call launches two
+    grids: dQ per query tile, then dK/dV per key tile. A gradient that is
+    dense in neither layout is made contiguous first."""
+    if _on_cpu(q, k, v, g):
+        return attention_backward_reference(q, k, v, g, scale)
+    d = _check_per_head(q, k, v)
+    if g.shape != q.shape or g.dtype != q.dtype or g.device != q.device:
+        raise ValueError(f"g {tuple(g.shape)} {g.dtype} must match q "
+                         f"{tuple(q.shape)} {q.dtype} on its device")
+    if not _dense_per_head(g):
+        g = g.contiguous()
+    b, h, lq, _ = q.shape
+    dq, dk, dv = (_empty_strided_like(t) for t in (q, k, v))
+    stats = torch.empty((3, b, h, lq), dtype=torch.float32, device=q.device)
+    _launch("dft_attn_bwd", "attn_bwd", _ptr(q), _ptr(k), _ptr(v), _ptr(g),
+            _ptr(dq), _ptr(dk), _ptr(dv), _ptr(stats), b, h, lq, k.shape[2],
+            d, *q.stride(), *k.stride(), *v.stride(), *g.stride(),
+            float(scale), _DTYPE_CODES[q.dtype], _stream(q), device=q.device)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Per-head attention with the backward kernel as its gradient; saves
+    q, k and v and recomputes the softmax in the backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale: float):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
+        return attention_fwd(q, k, v, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        dq, dk, dv = attention_bwd(*ctx.saved_tensors, g, ctx.scale)
+        return dq, dk, dv, None

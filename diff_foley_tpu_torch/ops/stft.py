@@ -28,6 +28,13 @@ def stft(x: torch.Tensor, n_fft: int = 1024,
     return torch.fft.rfft(frames, n=n_fft, dim=-1).transpose(-1, -2)
 
 
+def stft_magnitude(x: torch.Tensor, n_fft: int = 1024,
+                   hop_length: int = 256, power: float = 1.0) -> torch.Tensor:
+    """|STFT|^power of (..., n_samples) → (..., n_freq, n_frames)."""
+    mag = stft(x, n_fft=n_fft, hop_length=hop_length).abs()
+    return mag if power == 1.0 else mag**power
+
+
 def istft(spec: torch.Tensor, n_fft: int = 1024, hop_length: int = 256,
           length: int | None = None) -> torch.Tensor:
     """Inverse of :func:`stft`, (..., n_freq, n_frames) → (..., n_samples).

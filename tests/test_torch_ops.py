@@ -147,11 +147,78 @@ def test_per_head_wrapper_takes_the_path_layouts():
     gapped = torch.empty(2, 1, 64, 1024, device="meta")[..., ::2]
     with pytest.raises(ValueError, match="neither"):
         ha._check_per_head(gapped, meta, meta)
-    with pytest.raises(ValueError, match="share strides"):
-        ha._check_per_head(meta, meta, tok)
+    # q, k and v may each lie in either layout, forward and backward alike
+    assert ha._check_per_head(meta, meta, tok) == 512
+    assert ha._check_per_head(tok, meta, meta) == 512
     odd = torch.empty(2, 1, 64, 64, device="meta")
     with pytest.raises(ValueError, match="head dim 64"):
         ha._check_per_head(odd, odd, odd)
+
+
+def _token_view(a):
+    """(B, H, L, D) numpy → the same values as the token view of an NCHW
+    map: D the slow axis, stride 1 along L."""
+    return _t(a.transpose(0, 1, 3, 2).copy()).transpose(2, 3)
+
+
+# (b, heads, lq, lk, d, layout): Pallas' own gradient shape, Lq ≠ Lk at the
+# tiny VAE's head dim in the VAE's NCHW-token strides, and a ragged shape
+PER_HEAD_GRAD_SHAPES = [(1, 2, 32, 16, 40, "rows"),
+                        (2, 1, 64, 24, 32, "tokens"),
+                        (2, 2, 100, 30, 16, "tokens")]
+
+
+@pytest.mark.parametrize("b,heads,lq,lk,d,layout", PER_HEAD_GRAD_SHAPES)
+def test_per_head_attention_grad_matches_pallas(interpret_mode, b, heads, lq,
+                                                lk, d, layout):
+    # ∇ of Σ w·attn(q, k, v) through flash_attention's vjp (interpret mode)
+    # against the port's FlashAttention; fp32, 1e-4 as Pallas' own
+    # gradient test
+    rng = np.random.default_rng(20)
+    q, k, v = (rng.standard_normal((b, heads, n, d)).astype(np.float32)
+               for n in (lq, lk, lk))
+    w = rng.standard_normal((b, heads, lq, d)).astype(np.float32)
+    loss = lambda q_, k_, v_: jnp.sum(
+        pa.flash_attention(q_, k_, v_, d**-0.5) * w)
+    refs = jax.grad(loss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    view = _token_view if layout == "tokens" else _t
+    qt, kt, vt = (view(a).requires_grad_(True) for a in (q, k, v))
+    out = multi_head_attention(qt, kt, vt)
+    grads = torch.autograd.grad((out * _t(w)).sum(), (qt, kt, vt))
+    for name, g, r in zip("qkv", grads, refs):
+        _close(g, r, 1e-4, f"d{name}")
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 2e-4), ("bfloat16", 6e-2)])
+def test_per_head_backward_reference_matches_pallas_backward(interpret_mode,
+                                                             dtype, tol):
+    # the plain backward against the TPU kernel itself, two query chunks
+    # (Lq 1024 → chunks of 512), Lq ≠ Lk; the limits of Pallas' own
+    # backward tests: fp32 2e-4, bf16 6e-2
+    rng = np.random.default_rng(21)
+    b, heads, lq, lk, d = 1, 2, 1024, 64, 32
+    q, k, v, g = (rng.standard_normal((b, heads, n, d)).astype(np.float32)
+                  for n in (lq, lk, lk, lq))
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    refs = pa._pallas_backward(*(jnp.asarray(a, jd) for a in (q, k, v, g)),
+                               d**-0.5)
+    outs = ha.attention_bwd(*(_t(a).to(td) for a in (q, k, v, g)), d**-0.5)
+    for name, o, r in zip("qkv", outs, refs):
+        assert o.dtype == td
+        _close(o.float(), np.asarray(r.astype(jnp.float32)), tol, f"d{name}")
+
+
+def test_per_head_backward_wrapper_checks():
+    # k and v may differ in layout for the backward; a tensor that lies
+    # neither on the CPU nor on a CUDA device raises
+    meta = torch.empty(2, 1, 64, 512, device="meta")
+    tok = torch.empty(2, 1, 512, 64, device="meta").transpose(2, 3)
+    assert ha._check_per_head(meta, tok, meta) == 512
+    gapped = torch.empty(2, 1, 64, 1024, device="meta")[..., ::2]
+    with pytest.raises(ValueError, match="neither"):
+        ha._check_per_head(meta, tok, gapped)
+    with pytest.raises(ValueError, match="CPU or all on"):
+        ha.attention_bwd(meta, meta, meta, meta, 1.0)
 
 
 def test_schedule_tables_match():
@@ -293,7 +360,7 @@ def test_kernel_wrappers_take_the_path_head_dims(d, ok):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_per_head_kernel_matches_plain(dtype):
     """The per-head kernel against its plain version on the card at the SD
-    VAE's shape and layout, its launch count, and the missing backward."""
+    VAE's shape and layout, and its launch count."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     gen = torch.Generator("cuda").manual_seed(0)
@@ -312,26 +379,84 @@ def test_cuda_per_head_kernel_matches_plain(dtype):
     rms = float(r.square().mean().sqrt())
     assert float((o - r).abs().max()) <= max_tol * rms
     assert float((o - r).square().mean().sqrt()) <= rms_tol * rms
-    with pytest.raises(NotImplementedError, match="_attn_bwd_kernel"):
-        multi_head_attention(q.requires_grad_(True), k, v)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("layout", ["tokens", "rows"])
+@pytest.mark.parametrize("layout", ["tokens", "rows", "mixed"])
 def test_cuda_per_head_kernel_ragged_lengths(layout):
     """Lq 200 and Lk 72, neither a multiple of the 32-row tiles, at the
-    tiny VAE's head dim, in both layouts the wrapper takes."""
+    tiny VAE's head dim, in both layouts the wrapper takes, and with k and
+    v in different ones ("mixed": v is copied into k's layout)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     gen = torch.Generator("cuda").manual_seed(2)
-    make = lambda l: (torch.randn((2, 3, 32, l), generator=gen,
-                                  device="cuda").transpose(2, 3)
-                      if layout == "tokens" else
-                      torch.randn((2, 3, l, 32), generator=gen,
-                                  device="cuda"))
-    q, k, v = make(200), make(72), make(72)
+    tokens = lambda l: torch.randn((2, 3, 32, l), generator=gen,
+                                   device="cuda").transpose(2, 3)
+    rows = lambda l: torch.randn((2, 3, l, 32), generator=gen, device="cuda")
+    if layout == "mixed":
+        q, k, v = tokens(200), rows(72), tokens(72)
+    else:
+        make = tokens if layout == "tokens" else rows
+        q, k, v = make(200), make(72), make(72)
     out = ha.attention_fwd(q, k, v, 32**-0.5)
     ref = ha.attention_reference(q, k, v, 32**-0.5)
     torch.cuda.synchronize()
     rms = float(ref.square().mean().sqrt())
     assert float((out - ref).abs().max()) <= 1.5e-5 * rms
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_per_head_backward_matches_plain(dtype):
+    """The per-head backward kernel through ``multi_head_attention``'s
+    gradient, against its plain version on the card at the SD VAE's shape
+    and layout; its launch count and the strides of what it returns."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    gen = torch.Generator("cuda").manual_seed(0)
+    q, k, v, g = (torch.randn((2, 512, 1024), generator=gen, device="cuda")
+                  .to(dtype)[:, None].transpose(2, 3) for _ in range(4))
+    before = dict(ha.LAUNCHES)
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    grads = torch.autograd.grad(multi_head_attention(*leaves), leaves, g)
+    refs = ha.attention_backward_reference(q, k, v, g, 512**-0.5)
+    torch.cuda.synchronize()
+    assert ha.LAUNCHES["attn_bwd"] == before["attn_bwd"] + 1
+    assert ha.LAUNCHES["attn_fwd"] == before["attn_fwd"] + 1
+    # chip_smoke.py's limits for this kernel
+    max_tol, rms_tol = {torch.float32: (2e-5, 1.5e-6),
+                        torch.bfloat16: (0.25, 0.015)}[dtype]
+    for o, r, t in zip(grads, refs, (q, k, v)):
+        assert o.dtype == dtype and o.stride() == t.stride()
+        o, r = o.float(), r.float()
+        rms = float(r.square().mean().sqrt())
+        assert float((o - r).abs().max()) <= max_tol * rms
+        assert float((o - r).square().mean().sqrt()) <= rms_tol * rms
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["tokens", "rows", "mixed"])
+def test_cuda_per_head_backward_ragged_lengths(layout):
+    """Lq 200 and Lk 72, neither a multiple of the tiles, at the tiny VAE's
+    head dim: both layouts, k and v in different ones ("mixed"), and a
+    gradient that is dense in neither (made contiguous by the wrapper)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    gen = torch.Generator("cuda").manual_seed(3)
+    tokens = lambda l: torch.randn((2, 3, 32, l), generator=gen,
+                                   device="cuda").transpose(2, 3)
+    rows = lambda l: torch.randn((2, 3, l, 32), generator=gen, device="cuda")
+    if layout == "mixed":
+        q, k, v = tokens(200), rows(72), tokens(72)
+        g = torch.randn((2, 3, 200, 64), generator=gen,
+                        device="cuda")[..., ::2]
+    else:
+        make = tokens if layout == "tokens" else rows
+        q, k, v, g = make(200), make(72), make(72), make(200)
+    outs = ha.attention_bwd(q, k, v, g, 32**-0.5)
+    refs = ha.attention_backward_reference(q, k, v, g, 32**-0.5)
+    torch.cuda.synchronize()
+    for o, r, t in zip(outs, refs, (q, k, v)):
+        assert o.stride() == t.stride()
+        rms = float(r.square().mean().sqrt())
+        assert float((o - r).abs().max()) <= 2e-5 * rms

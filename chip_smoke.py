@@ -5,12 +5,19 @@
     python3 chip_smoke.py --profile  # also torch.profiler over two steps
                                      # of each sampler and of the trainer
 
-1. Build the CUDA kernels from ``diff_foley_tpu_torch/csrc`` (in parallel).
+1. Build the CUDA kernels from ``diff_foley_tpu_torch/csrc`` (in parallel);
+   ``ptxas -v`` lines and the HMMA (tensor-core) instruction count of each
+   kernel's SASS (``cuobjdump -sass``): the rebuilt attention kernels must
+   hold some.
 2. Kernel phase: each kernel against its plain PyTorch version at every
    shape of the main paths, in bf16 and once in fp32, with times beside the
    plain version's, one PyTorch call for the same function (SDPA,
    F.group_norm then F.silu: yardsticks the port never calls) and the
-   card's bound. A planted fault per kernel must fail the same check.
+   card's bound. Every planted fault of a kernel (two for the per-head
+   backward) must fail the same check. The fp32 per-head backward sums on
+   the tensor cores in another order than cuBLAS's fp32 products in its
+   plain version, whose own error exceeds the limit: it is held to the
+   plain version on float64 copies of its operands, at the same limits.
 3. ``DiffFoleyPipeline.generate`` at full width (the 860M LDM UNet and the
    alignment classifier in bf16, the SD VAE in bf16, seeded random
    weights), 2 windows × 2 samples, 25 DPM-Solver++ steps, CFG 4.5,
@@ -81,6 +88,9 @@ from diff_foley_tpu_torch.utils.init import randomize_
 
 PEAK_BF16 = 989e12    # H100 SXM dense bf16 tensor-core FLOP/s
 PEAK_FP32 = 67e12     # H100 SXM fp32 FLOP/s outside the tensor cores
+# the fastest fp32-accurate product rate: 3xTF32, three TF32 tensor-core
+# products (495 TFLOP/s dense) per fp32 product
+PEAK_FP32_PRODUCTS = 495e12 / 3
 HBM_BYTES_S = 3.35e12
 WINDOWS, SAMPLES, STEPS = 2, 2, 25
 KEEP_FRAMES = 256     # inpaint keeps the first 256 frames of each window
@@ -263,10 +273,47 @@ def predicted_launches(pipe, steps: int):
 
 # ---- the kernel phase ---------------------------------------------------------
 
+# kernels that must run on the tensor cores: their SASS holds HMMA
+TENSOR_CORE_KERNELS = {"attention_fwd": ("attn_packed_fwd_mma_kernel",),
+                       "attention_head_bwd": ("head_bwd_scores_kernel",
+                                              "head_bwd_products_kernel")}
+
+
+def sass_hmma() -> dict:
+    """{source: {kernel symbol: HMMA instructions}} from ``cuobjdump -sass``
+    of each built library; fails unless every instantiation of the
+    tensor-core kernels holds some."""
+    tool = os.path.join(os.path.dirname(cuda_build.nvcc()), "cuobjdump")
+    out = {}
+    for name in cuda_build.SOURCES:
+        sass = subprocess.run([tool, "-sass", str(cuda_build.library_path(
+            name))], capture_output=True, text=True, check=True).stdout
+        counts, fn = {}, None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                fn = line.split("Function :")[1].strip()
+                counts[fn] = 0
+            elif fn is not None and "HMMA" in line:
+                counts[fn] += 1
+        out[name] = counts
+        for kernel in TENSOR_CORE_KERNELS.get(name, ()):
+            found = {f: n for f, n in counts.items() if kernel in f}
+            if not found or not all(found.values()):
+                raise AssertionError(f"{kernel}: no HMMA in its SASS {found}")
+    return out
+
+def attn_peak(dtype) -> float:
+    """The product rate that bounds an attention kernel: the bf16 tensor
+    cores, or for fp32 the fastest fp32-accurate products on the card,
+    3xTF32 at 495/3 TFLOP/s (not the 67 TFLOP/s of fp32 FMAs, which a
+    3xTF32 kernel can beat)."""
+    return PEAK_BF16 if dtype == BF16 else PEAK_FP32_PRODUCTS
+
+
 def bound_ms(kind: str, b, lq, lk, hd, itemsize: int, peak: float):
     """The attention bound: two products forward (4·B·Lq·Lk·H·D operations
     on (2·Lq + 2·Lk)·B·H·D elements), five backward (10·B·Lq·Lk·H·D on
-    (3·Lq + 4·Lk)·B·H·D)."""
+    (3·Lq + 4·Lk)·B·H·D), operations at ``attn_peak``."""
     prods = 2 if kind == "fwd" else 5
     flops = prods * 2 * b * lq * lk * hd
     tensors = (2 * b * lq * hd + 2 * b * lk * hd if kind == "fwd"
@@ -292,7 +339,7 @@ def agreement(outs, refs, kind: str, dtype):
     worst over the output tensors."""
     ok, err, max_r, rms_r = True, 0.0, 0.0, 0.0
     for a, r in zip(outs, refs):
-        a, r = a.float(), r.float()
+        a, r = a.double(), r.double()
         delta = (a - r).abs()
         scale = float(r.square().mean().sqrt())
         e = float(delta.max())
@@ -320,6 +367,21 @@ def fault_head_bwd_no_delta(q, k, v, g, scale):
     ds = (p * torch.einsum("bhqd,bhkd->bhqk", g, v).float()).to(q.dtype)
     gq = torch.einsum("bhqk,bhkd->bhqd", ds, k) * scale
     gk = torch.einsum("bhqk,bhqd->bhkd", ds, q) * scale
+    return gq, gk, gv
+
+
+def fault_head_bwd_shifted_key_tile(q, k, v, g, scale):
+    """Planted fault: dQ = dS·K reads the keys of the second 64-row tile in
+    place of the first, as a product kernel with a wrong k-tile offset
+    would; dK and dV are right."""
+    gq, gk, gv = ha.attention_backward_reference(q, k, v, g, scale)
+    p = torch.softmax(torch.einsum("bhqd,bhkd->bhqk", q.float(),
+                                   k.float()) * scale, dim=-1)
+    gp = torch.einsum("bhqd,bhkd->bhqk", g, v).float()
+    ds = (p * (gp - (gp * p).sum(-1, keepdim=True))).to(q.dtype)
+    shifted = k.clone()
+    shifted[:, :, :64] = k[:, :, 64:128]
+    gq = torch.einsum("bhqk,bhkd->bhqd", ds, shifted) * scale
     return gq, gk, gv
 
 
@@ -353,30 +415,52 @@ def fault_apply_neighbour_affine(x, a, b, act):
                                       b.roll(1, dims=1), act),)
 
 
-FAULTS = {"fwd": fault_fwd_neighbour_head, "bwd": fault_bwd_no_delta,
-          "head": fault_head_shifted_keys,
-          "head_bwd": fault_head_bwd_no_delta, "gn": fault_gn_neighbour_gamma,
-          "stats": fault_stats_chunk_dropped,
-          "apply": fault_apply_neighbour_affine}
+FAULTS = {"fwd": (fault_fwd_neighbour_head,), "bwd": (fault_bwd_no_delta,),
+          "head": (fault_head_shifted_keys,),
+          "head_bwd": (fault_head_bwd_no_delta,
+                       fault_head_bwd_shifted_key_tile),
+          "gn": (fault_gn_neighbour_gamma,),
+          "stats": (fault_stats_chunk_dropped,),
+          "apply": (fault_apply_neighbour_affine,)}
 
 
-def run_check(kind, dtype, kern, plain, faulty, lib, bound):
-    """Agreement of kern with plain, the fault's, and the three times."""
-    outs, refs = kern(), plain()
-    outs = outs if isinstance(outs, tuple) else (outs,)
-    refs = refs if isinstance(refs, tuple) else (refs,)
+def planted(kind: str, *args) -> dict:
+    """{fault name: its outputs} of every planted fault of a kind."""
+    return {f.__name__: f(*args) for f in FAULTS[kind]}
+
+
+def run_check(kind, dtype, kern, plain, faults, lib, bound, exact=None):
+    """Agreement of kern with plain, each planted fault's (every one must
+    break the limits), and the three times. With ``exact`` (the plain
+    version on float64 copies of the operands) the limits hold against it
+    instead, and the ratios to the plain version in the operand type are
+    recorded beside them."""
+    tup = lambda x: x if isinstance(x, tuple) else (x,)
+    outs, refs = tup(kern()), tup(plain() if exact is None else exact())
     torch.cuda.synchronize()
     ok, err, max_r, rms_r = agreement(outs, refs, kind, dtype)
-    fault_ok, _, fault_max_r, fault_rms_r = agreement(faulty, refs, kind,
-                                                      dtype)
+    fault_ratios, caught = {}, True
+    for name, faulty in faults.items():
+        fault_ok, _, fault_max_r, fault_rms_r = agreement(faulty, refs, kind,
+                                                          dtype)
+        fault_ratios[name] = [fault_max_r, fault_rms_r]
+        caught &= not fault_ok
     row = {"dtype": str(dtype).split(".")[-1], "max_abs_err": err,
            "max_ratio": max_r, "rms_ratio": rms_r,
            "tol": [MAX_TOL[(kind, dtype)], RMS_TOL[(kind, dtype)]],
-           "ok": ok, "fault": FAULTS[kind].__name__,
-           "fault_ratios": [fault_max_r, fault_rms_r],
-           "fault_caught": not fault_ok, "kernel_ms": time_ms(kern),
+           "ok": ok, "fault_ratios": fault_ratios,
+           "fault_caught": caught, "kernel_ms": time_ms(kern),
            "plain_ms": time_ms(plain), "bound_ms": bound[0],
            "bound_by": bound[1]}
+    if exact is not None:
+        # the kernel against the plain version in the operand type, and
+        # that plain version's own error (against float64)
+        plain_outs = tup(plain())
+        row["reference"] = "plain in float64"
+        row["plain_ratios"] = list(agreement(outs, plain_outs, kind,
+                                             dtype)[2:])
+        row["plain_error_ratios"] = list(agreement(plain_outs, refs, kind,
+                                                   dtype)[2:])
     if lib is None:
         row["library_ms"] = None
     else:
@@ -400,7 +484,7 @@ def check_packed(kind: str, tag, b, lq, lk, hd, heads, dtype, gen):
         kern = lambda: ha.attention_packed_fwd(q, k, v, scale, heads)
         plain = lambda: ha.attention_packed_reference(q, k, v, scale, heads)
         lib = lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale)
-        faulty = FAULTS[kind](q, k, v, scale, heads)
+        faulty = planted(kind, q, k, v, scale, heads)
     else:
         kern = lambda: ha.attention_packed_bwd(q, k, v, g, scale, heads)
         plain = lambda: ha.attention_packed_backward_reference(
@@ -410,8 +494,8 @@ def check_packed(kind: str, tag, b, lq, lk, hd, heads, dtype, gen):
         gh = ha.split_heads(g, heads)
         lib = lambda: torch.autograd.grad(o, (ql, kl, vl), gh,
                                           retain_graph=True)
-        faulty = FAULTS[kind](q, k, v, g, scale, heads)
-    peak = PEAK_BF16 if dtype == BF16 else PEAK_FP32
+        faulty = planted(kind, q, k, v, g, scale, heads)
+    peak = attn_peak(dtype)
     row = run_check(kind, dtype, kern, plain, faulty, lib,
                     bound_ms(kind, b, lq, lk, hd, q.element_size(), peak))
     return {"shape": tag, "B": b, "Lq": lq, "Lk": lk, "HD": hd, "D": d,
@@ -424,11 +508,11 @@ def check_head(tag, b, l, d, dtype, gen):
     q, k, v = (torch.randn((b, d, l), generator=gen, device="cuda")
                .to(dtype)[:, None].transpose(2, 3) for _ in range(3))
     scale = d**-0.5
-    peak = PEAK_BF16 if dtype == BF16 else PEAK_FP32
+    peak = attn_peak(dtype)
     row = run_check(
         "head", dtype, lambda: ha.attention_fwd(q, k, v, scale),
         lambda: ha.attention_reference(q, k, v, scale),
-        fault_head_shifted_keys(q, k, v, scale),
+        planted("head", q, k, v, scale),
         lambda: F.scaled_dot_product_attention(q, k, v, scale=scale),
         bound_ms("fwd", b, l, l, d, q.element_size(), peak))
     return {"shape": tag, "B": b, "Lq": l, "Lk": l, "HD": d, "D": d, **row}
@@ -441,15 +525,22 @@ def check_head_bwd(tag, b, lq, lk, d, dtype, gen):
                   .to(dtype)[:, None].transpose(2, 3)
                   for n in (lq, lk, lk, lq))
     scale = d**-0.5
-    peak = PEAK_BF16 if dtype == BF16 else PEAK_FP32
+    peak = attn_peak(dtype)
     ql, kl, vl = (t.detach().requires_grad_(True) for t in (q, k, v))
     o = F.scaled_dot_product_attention(ql, kl, vl, scale=scale)
+    # fp32 sums on the tensor cores run in another order than cuBLAS's
+    # fp32 products in the plain version, whose own error reaches 2.5e-5 of
+    # rms at this shape (max|Δ| to float64): fp32 is held against the plain
+    # version on float64 copies, at the same limits
+    exact = None if dtype == BF16 else (
+        lambda: ha.attention_backward_reference(
+            *(t.double() for t in (q, k, v, g)), scale))
     row = run_check(
         "head_bwd", dtype, lambda: ha.attention_bwd(q, k, v, g, scale),
         lambda: ha.attention_backward_reference(q, k, v, g, scale),
-        fault_head_bwd_no_delta(q, k, v, g, scale),
+        planted("head_bwd", q, k, v, g, scale),
         lambda: torch.autograd.grad(o, (ql, kl, vl), g, retain_graph=True),
-        bound_ms("bwd", b, lq, lk, d, q.element_size(), peak))
+        bound_ms("bwd", b, lq, lk, d, q.element_size(), peak), exact)
     return {"shape": tag, "B": b, "Lq": lq, "Lk": lk, "HD": d, "D": d, **row}
 
 
@@ -470,7 +561,7 @@ def check_gn(tag, b, c, h, w, eps, act, dtype, gen):
             "gn", dtype,
             lambda: hg.group_norm_block(x, gamma, beta, 32, eps, act),
             lambda: hg.group_norm_reference(x, gamma, beta, 32, eps, act),
-            fault_gn_neighbour_gamma(x, gamma, beta, eps, act), lib,
+            planted("gn", x, gamma, beta, eps, act), lib,
             gn_bound_ms("gn", n, itemsize))})]
     partial = hg.stream_stats_reference(x, 32)
     a, bb = hg.fold_stats(partial, gamma, beta, n // b // 32, eps)
@@ -480,12 +571,12 @@ def check_gn(tag, b, c, h, w, eps, act, dtype, gen):
         ("gn_stream_stats", {**info, **run_check(
             "stats", dtype, lambda: hg.stream_stats(x, 32),
             lambda: hg.stream_stats_reference(x, 32),
-            fault_stats_chunk_dropped(x), None,
+            planted("stats", x), None,
             gn_bound_ms("stats", n, itemsize))}),
         ("gn_stream_apply", {**info, **run_check(
             "apply", dtype, lambda: hg.stream_apply(x, a, bb, act),
             lambda: hg.stream_apply_reference(x, a, bb, act),
-            fault_apply_neighbour_affine(x, a, bb, act), lib,
+            planted("apply", x, a, bb, act), lib,
             gn_bound_ms("apply", n, itemsize))})]
 
 
@@ -522,8 +613,9 @@ def kernel_phase(pipe):
                                                d, FP32, gen), "calls": both}))
     rows.append(("attn_bwd", check_head_bwd("train-mid", TRAIN_BATCH, l, l, d,
                                             BF16, gen)))
-    rows.append(("attn_bwd", check_head_bwd("ragged", 2, 1000, 936, d, FP32,
-                                            gen)))
+    for dtype in (FP32, BF16):
+        rows.append(("attn_bwd", check_head_bwd("ragged", 2, 1000, 936, d,
+                                                dtype, gen)))
     for (model, b, c, h, w, eps, act, dtype), per_run in gn_path(
             pipe, n, STEPS).items():
         tag = f"{model}-{c}x{h}x{w}"
@@ -545,18 +637,21 @@ def kernel_phase(pipe):
            for k, r in rows if not r["ok"]]
     if bad:
         raise AssertionError(f"kernel disagrees with its plain version: {bad}")
-    missed = [(k, r["shape"], r["dtype"], r["fault"]) for k, r in rows
+    missed = [(k, r["shape"], r["dtype"], r["fault_ratios"]) for k, r in rows
               if not r["fault_caught"]]
     if missed:
         raise AssertionError(f"the comparison passes a planted fault: {missed}")
-    worst = collections.defaultdict(lambda: [0.0, 0.0, float("inf")])
+    # per kernel and dtype: the worst agreement ratios, and for each planted
+    # fault the least factor by which it breaks the limits
+    worst = collections.defaultdict(lambda: [0.0, 0.0, {}])
     for k, r in rows:
         wr = worst[(k, r["dtype"])]
         wr[0] = max(wr[0], r["max_ratio"])
         wr[1] = max(wr[1], r["rms_ratio"])
-        wr[2] = min(wr[2], max(r["fault_ratios"][0] / r["tol"][0],
-                               r["fault_ratios"][1] / r["tol"][1]))
-    log("kernel worst ratios (max, rms, fault/limit) " + json.dumps(
+        for name, (fm, fr) in r["fault_ratios"].items():
+            wr[2][name] = min(wr[2].get(name, float("inf")),
+                              max(fm / r["tol"][0], fr / r["tol"][1]))
+    log("kernel worst ratios (max, rms, {fault: fault/limit}) " + json.dumps(
         {f"{k}/{dt}": v for (k, dt), v in worst.items()}))
     return rows
 
@@ -1206,8 +1301,11 @@ def main(argv):
         + json.dumps({k: round(v["seconds"], 3) for k, v in report.items()}))
     for name, r in report.items():
         for line in r["ptxas"].splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("Compiling", "registers", "spill")):
                 log(f"ptxas {name}: {line.strip()}")
+    for name, counts in sass_hmma().items():
+        log(f"sass HMMA {name} " + json.dumps(
+            {f: n for f, n in counts.items() if n}))
 
     t0 = time.perf_counter()
     pipe = build_flagship()

@@ -1,5 +1,6 @@
-// Shared pieces of the per-head attention kernels (attention_head_fwd.cu,
-// attention_head_bwd.cu) over (B, H, L, D) operands of any dense strides.
+// Tile code of the per-head attention forward (attention_head_fwd.cu) over
+// (B, H, L, D) operands of any dense strides. (The per-head backward,
+// attention_head_bwd.cu, runs on the tensor cores: mma.cuh.)
 //
 // A block of 256 threads owns 32 query rows (HQ) of one (batch, head) and
 // streams key tiles. Tiles are staged in shared memory as fp32, whatever

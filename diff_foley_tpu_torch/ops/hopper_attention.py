@@ -23,14 +23,17 @@ transpose or copy surrounds a call.
 - :class:`FlashAttention` is the ``custom_vjp`` of ``flash_attention``: it
   saves exactly q, k and v.
 
-Bound on the H100 (989 TFLOP/s bf16 tensor-core peak, 3.35 TB/s): the
-forward does 4·B·Lq·Lk·H·D operations on (2·Lq + 2·Lk)·B·H·D operand
-elements, the backward 10·B·Lq·Lk·H·D on (3·Lq + 4·Lk)·B·H·D. Against
-the card's ~295 bf16 operations per byte that makes the forward at
-Lq = Lk = 1024 (the UNet's level-0 self-attention, the VAE's mid attention)
-and the VAE's backward there operation-bound, and every other path shape,
-the packed backward's included, byte-bound. These first kernels use fp32
-FMAs from shared memory; tensor-core tiles are later work.
+Bound on the H100 (989 TFLOP/s bf16 tensor-core peak, 495/3 = 165
+TFLOP/s for fp32-accurate 3xTF32 products, 3.35 TB/s): the forward does
+4·B·Lq·Lk·H·D operations on (2·Lq + 2·Lk)·B·H·D operand elements, the
+backward 10·B·Lq·Lk·H·D on (3·Lq + 4·Lk)·B·H·D. Against the card's ~295
+bf16 operations per byte that makes the forward at Lq = Lk = 1024 (the
+UNet's level-0 self-attention, the VAE's mid attention) and the VAE's
+backward there operation-bound, and every other path shape, the packed
+backward's included, byte-bound. The packed forward in bf16 and the
+per-head backward run on the tensor cores (mma.sync, 3xTF32 for fp32);
+the packed backward and the per-head forward still use fp32 FMAs from
+shared memory.
 
 Each wrapper runs its kernel's plain version when its tensors lie on the
 CPU, launches the kernel when they lie on a CUDA device, and raises
@@ -82,11 +85,15 @@ def attention_reference(q, k, v, scale: float):
 
 
 def attention_backward_reference(q, k, v, g, scale: float):
-    """Recompute backward over (B, H, L, D) (``pallas_attention.py::_xla_bwd``)."""
-    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    """Recompute backward over (B, H, L, D)
+    (``pallas_attention.py::_xla_bwd``). Scores and softmax in fp32 for fp32
+    and bf16 operands; float64 operands keep float64 throughout (an exact
+    yardstick for fp32)."""
+    ct = torch.promote_types(q.dtype, torch.float32)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.to(ct), k.to(ct)) * scale
     p = torch.softmax(logits, dim=-1)
     gv = torch.einsum("bhqk,bhqd->bhkd", p.to(g.dtype), g)
-    gp = torch.einsum("bhqd,bhkd->bhqk", g, v).float()
+    gp = torch.einsum("bhqd,bhkd->bhqk", g, v).to(ct)
     ds = (p * (gp - (gp * p).sum(-1, keepdim=True))).to(q.dtype)
     gq = torch.einsum("bhqk,bhkd->bhqd", ds, k) * scale
     gk = torch.einsum("bhqk,bhqd->bhkd", ds, q) * scale
@@ -148,6 +155,16 @@ _ENTRIES = {   # C entry: (csrc source, argument types)
 }
 
 
+def _cp_async_ready(t: torch.Tensor) -> bool:
+    """True when the kernels' 16-byte copies can read t in place: its
+    address and each stride other than 1 (over an axis longer than 1) are
+    multiples of 16 bytes."""
+    size = t.element_size()
+    return t.data_ptr() % 16 == 0 and all(
+        s * size % 16 == 0 for s, n in zip(t.stride(), t.shape)
+        if s != 1 and n > 1)
+
+
 def _launch(fn: str, key: str, *args, device):
     name, argtypes = _ENTRIES[fn]
     cuda_build.launch(name, fn, argtypes, *args, device=device)
@@ -159,6 +176,12 @@ def attention_packed_fwd(q3, k3, v3, scale: float, heads: int):
     if _on_cpu(q3, k3, v3):
         return attention_packed_reference(q3, k3, v3, scale, heads)
     d = _check_packed(q3, k3, v3, heads)
+    if q3.dtype == torch.bfloat16:
+        # the tensor-core kernel copies 16-byte chunks: an operand that
+        # starts off a 16-byte boundary is copied (its rows, H·D bf16 with
+        # D a multiple of 8, keep the alignment)
+        q3, k3, v3 = (t if t.data_ptr() % 16 == 0 else t.clone()
+                      for t in (q3, k3, v3))
     b, lq, _ = q3.shape
     lk = k3.shape[1]
     o3 = torch.empty_like(q3)
@@ -256,11 +279,31 @@ def attention_fwd(q, k, v, scale: float):
     return o
 
 
+def scratch_ld(lk: int) -> int:
+    """Row stride of the per-head backward's score scratch: Lk rounded up to
+    8 elements, so that every row starts 16-byte aligned."""
+    return -(-lk // 8) * 8
+
+
+def head_bwd_scratch(b: int, h: int, lq: int, lk: int, dtype,
+                     device) -> torch.Tensor:
+    """The per-head backward's scratch as one fp32 buffer: S = Q·Kᵀ and
+    dP = g·Vᵀ in fp32, then P̃ and dS in the operand type, each
+    (B·H, Lq, scratch_ld(Lk))."""
+    plane = b * h * lq * scratch_ld(lk)
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    return torch.empty(plane * (8 + 2 * itemsize) // 4, dtype=torch.float32,
+                       device=device)
+
+
 def attention_bwd(q, k, v, g, scale: float):
     """(dQ, dK, dV) of :func:`attention_fwd` for output gradient g, in the
-    operand type and in q's, k's and v's strides. One call launches two
-    grids: dQ per query tile, then dK/dV per key tile. A gradient that is
-    dense in neither layout is made contiguous first."""
+    operand type and in q's, k's and v's strides. One call launches three
+    grids: the scores S and g·Vᵀ into a scratch, the softmax rows (P̃, dS),
+    then the three products. A gradient that is dense in neither layout is
+    made contiguous first, and so is an operand whose address or strides
+    the 16-byte copies cannot take (its gradient then comes out
+    contiguous)."""
     if _on_cpu(q, k, v, g):
         return attention_backward_reference(q, k, v, g, scale)
     d = _check_per_head(q, k, v)
@@ -269,11 +312,13 @@ def attention_bwd(q, k, v, g, scale: float):
                          f"{tuple(q.shape)} {q.dtype} on its device")
     if not _dense_per_head(g):
         g = g.contiguous()
+    q, k, v, g = (t if _cp_async_ready(t) else t.contiguous()
+                  for t in (q, k, v, g))
     b, h, lq, _ = q.shape
     dq, dk, dv = (_empty_strided_like(t) for t in (q, k, v))
-    stats = torch.empty((3, b, h, lq), dtype=torch.float32, device=q.device)
+    scratch = head_bwd_scratch(b, h, lq, k.shape[2], q.dtype, q.device)
     _launch("dft_attn_bwd", "attn_bwd", _ptr(q), _ptr(k), _ptr(v), _ptr(g),
-            _ptr(dq), _ptr(dk), _ptr(dv), _ptr(stats), b, h, lq, k.shape[2],
+            _ptr(dq), _ptr(dk), _ptr(dv), _ptr(scratch), b, h, lq, k.shape[2],
             d, *q.stride(), *k.stride(), *v.stride(), *g.stride(),
             float(scale), _DTYPE_CODES[q.dtype], _stream(q), device=q.device)
     return dq, dk, dv

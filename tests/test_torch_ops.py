@@ -356,6 +356,221 @@ def test_kernel_wrappers_take_the_path_head_dims(d, ok):
             ha._check_packed(q, q, q, heads)
 
 
+# ---- the arithmetic of the tensor-core kernels, modelled on the CPU ---------
+#
+# csrc/attention_head_bwd.cu computes fp32 products on the TF32 tensor cores
+# by 3xTF32: x = big + small, big = x rounded to nearest (ties away from
+# zero, as PTX cvt.rna.tf32.f32) onto TF32's 10 mantissa bits, small =
+# x − big (exact in fp32), which the tensor cores read truncated to TF32;
+# each product is small·big + big·small + big·big. A product of two TF32
+# values is exact in fp32, and the kernel sums each 32-deep k-tile in fp32
+# before adding it into its fp32 accumulator. The model below repeats
+# exactly that in numpy: the roundings by bit operations on the int32
+# view, the products in fp32, the k-tile sums and their accumulation in
+# fp32.
+
+
+def _tf32_rna(x):
+    """x (float32) rounded to nearest, ties away from zero, onto 10 mantissa
+    bits: the low 13 bits of the magnitude rounded off."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(np.float32)
+
+
+def _tf32_trunc(x):
+    """x (float32) as the tensor cores read it: the low 13 bits dropped."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.int32)
+    return (bits & ~0x1FFF).view(np.float32)
+
+
+def _split_tf32(x):
+    big = _tf32_rna(x)
+    return big, _tf32_trunc((x - big).astype(np.float32))
+
+
+def _tf32_matmul(a, b, terms: int):
+    """a (M, K) · b (K, N) as the kernel computes it: 3xTF32 (terms 3) or a
+    single TF32 product (terms 1), fp32 sums of 32-deep k-tiles accumulated
+    in fp32."""
+    ab, asm = _split_tf32(a)
+    bb, bsm = _split_tf32(b)
+    pairs = ([(asm, bb), (ab, bsm), (ab, bb)] if terms == 3 else
+             [(ab, bb)])
+    acc = np.zeros((a.shape[0], b.shape[1]), np.float32)
+    for k0 in range(0, a.shape[1], 32):
+        part = np.zeros_like(acc)
+        for x, y in pairs:
+            part += (x[:, k0:k0 + 32, None] * y[None, k0:k0 + 32]).sum(
+                1, dtype=np.float32)
+        acc += part
+    return acc
+
+
+def test_tf32_split_rebuilds_fp32():
+    # big + small (as read) carries x to 2⁻²¹ of |x| and to ~2⁻²² in the
+    # mean; big alone to 2⁻¹¹ only
+    x = np.random.default_rng(30).standard_normal(1 << 16).astype(np.float32)
+    big, small = _split_tf32(x)
+    assert np.all(_tf32_trunc(big) == big)
+    assert np.all(_tf32_trunc(small) == small)
+    rel = lambda y: np.abs(y - x.astype(np.float64)) / np.abs(x)
+    assert rel(big.astype(np.float64)).max() <= 2.0**-11
+    assert rel(big.astype(np.float64)).max() > 2.0**-13
+    both = rel(big.astype(np.float64) + small)
+    assert both.max() <= 2.0**-21 and both.mean() <= 2.0**-22
+
+
+@pytest.mark.parametrize("depth", [512, 1024])
+def test_3xtf32_products_hold_the_fp32_limits(depth):
+    """3-term TF32 products of the backward's depths (D 512 for the scores,
+    L 1024 for dQ, dK, dV) agree with fp64 well inside the fp32 limits the
+    smoke holds the per-head backward to (max|Δ| 2e-5 and rms(Δ) 1.5e-6 of
+    rms(ref)), as closely as fp32 products summed the same way (within
+    1.25×; both reach ~1.5e-7 rms); one TF32 product does not."""
+    rng = np.random.default_rng(31)
+    a = rng.standard_normal((32, depth)).astype(np.float32)
+    b = rng.standard_normal((depth, 32)).astype(np.float32)
+    ref = a.astype(np.float64) @ b.astype(np.float64)
+    rms = np.sqrt((ref**2).mean())
+
+    def ratios(out):
+        d = np.abs(out - ref)
+        return d.max() / rms, np.sqrt((d**2).mean()) / rms
+
+    fp32 = np.zeros((32, 32), np.float32)
+    for k0 in range(0, depth, 32):
+        fp32 += (a[:, k0:k0 + 32, None] * b[None, k0:k0 + 32]).sum(
+            1, dtype=np.float32)
+    max3, rms3 = ratios(_tf32_matmul(a, b, 3))
+    assert max3 <= 2e-5 / 5 and rms3 <= 1.5e-6 / 5, (max3, rms3)
+    assert rms3 <= 1.25 * ratios(fp32)[1], (rms3, ratios(fp32))
+    max1, rms1 = ratios(_tf32_matmul(a, b, 1))
+    assert max1 > 2e-5 and rms1 > 1.5e-6, (max1, rms1)
+
+
+@pytest.mark.parametrize("dtype,lk,lds,mib", [
+    (torch.float32, 1024, 1024, 64.0), (torch.bfloat16, 1024, 1024, 48.0),
+    (torch.float32, 936, 936, 64.0 * 936 / 1024), (torch.float32, 30, 32,
+                                                   2.0)])
+def test_per_head_backward_scratch(dtype, lk, lds, mib):
+    # S and g·Vᵀ in fp32, P̃ and dS in the operand type, rows of lds
+    # elements (Lk rounded up to 8: 16-byte aligned in both types)
+    assert ha.scratch_ld(lk) == lds
+    t = ha.head_bwd_scratch(4, 1, 1024, lk, dtype, "meta")
+    assert t.dtype == torch.float32 and t.dim() == 1
+    assert t.numel() * 4 == 4 * 1024 * lds * (8 + 2 * dtype.itemsize)
+    assert t.numel() * 4 / 2**20 == mib
+
+
+def test_cp_async_ready_operands():
+    # the 16-byte copies need the address and every stride other than 1
+    # (over an axis longer than 1) on 16-byte multiples; the VAE's token
+    # views at L 1024 and 936 qualify in both types, L 100 in bf16 does not
+    for dtype in (torch.float32, torch.bfloat16):
+        for l in (1024, 936):
+            tok = torch.zeros((2, 512, l), dtype=dtype)[:, None]
+            assert ha._cp_async_ready(tok.transpose(2, 3))
+        assert ha._cp_async_ready(torch.zeros((2, 1, 72, 32), dtype=dtype))
+    odd = torch.zeros((2, 32, 100), dtype=torch.bfloat16)[:, None]
+    assert not ha._cp_async_ready(odd.transpose(2, 3))
+    assert ha._cp_async_ready(odd.float().transpose(2, 3))
+    assert not ha._cp_async_ready(torch.zeros(4 * 2 * 320 + 1)[1:])
+
+
+@pytest.mark.parametrize("d,ok", [(32, True), (512, True), (40, False),
+                                  (64, False), (128, False)])
+def test_per_head_wrappers_take_head_dims_32_and_512(d, ok):
+    # csrc/attention_head_{fwd,bwd}.cu take the VAE's 512 and the tiny
+    # VAE's 32 only
+    t = torch.empty(1, 1, 64, d, device="meta")
+    if ok:
+        assert ha._check_per_head(t, t, t) == d
+    else:
+        with pytest.raises(ValueError, match=f"head dim {d}"):
+            ha._check_per_head(t, t, t)
+
+
+def test_wrappers_reject_mismatched_shapes():
+    # k and v must match q in B, H and D (per head) or in B and H·D
+    # (packed); the kernels take no other shapes
+    q = torch.empty(2, 1, 64, 512, device="meta")
+    for k in (torch.empty(2, 1, 64, 32, device="meta"),
+              torch.empty(1, 1, 64, 512, device="meta")):
+        with pytest.raises(ValueError, match="must match"):
+            ha._check_per_head(q, k, k)
+    q3 = torch.zeros((1, 4, 2 * 40))
+    with pytest.raises(ValueError, match="do not match"):
+        ha._check_packed(q3, torch.zeros((1, 4, 2 * 32)), q3, 2)
+
+
+def _backward_yardstick(q, k, v, g, scale):
+    """What the per-head backward kernel is held to on the card: the plain
+    version in bf16; for fp32 the plain version on float64 copies. The
+    kernel's fp32 sums run on the tensor cores in another order than
+    cuBLAS's fp32 products in the plain version, whose own error reaches
+    2.5e-5 of rms at the VAE's shape, beyond the limit."""
+    if q.dtype == torch.float32:
+        q, k, v, g = (t.double() for t in (q, k, v, g))
+    return ha.attention_backward_reference(q, k, v, g, scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [32, 40, 80, 160])
+@pytest.mark.parametrize("lq,lk", [(200, 72), (130, 32)])
+def test_cuda_packed_forward_bf16_head_dims(d, lq, lk):
+    """The bf16 tensor-core forward at each path head dim, with Lq and Lk
+    off the 64-row tiles and the cross-attention's single key tile (Lk 32),
+    against its plain version, at chip_smoke.py's limits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    gen = torch.Generator("cuda").manual_seed(d + lk)
+    heads = 4
+    q, k, v = (torch.randn((2, n, heads * d), generator=gen, device="cuda")
+               .to(torch.bfloat16) for n in (lq, lk, lk))
+    out = ha.attention_packed_fwd(q, k, v, d**-0.5, heads)
+    ref = ha.attention_packed_reference(q, k, v, d**-0.5, heads)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    o, r = out.float(), ref.float()
+    rms = float(r.square().mean().sqrt())
+    assert float((o - r).abs().max()) <= 0.06 * rms
+    assert float((o - r).square().mean().sqrt()) <= 4e-4 * rms
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["tokens", "rows", "mixed"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_per_head_backward_ragged_vae(dtype, layout):
+    """The per-head backward at the VAE's head dim with Lq 1000 and Lk 936,
+    off the 64-row tiles: both layouts, and k, v and a gradient dense in
+    neither layout mixed ("mixed"), at chip_smoke.py's limits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    gen = torch.Generator("cuda").manual_seed(4)
+    tokens = lambda l: torch.randn((2, 1, 512, l), generator=gen,
+                                   device="cuda").to(dtype).transpose(2, 3)
+    rows = lambda l: torch.randn((2, 1, l, 512), generator=gen,
+                                 device="cuda").to(dtype)
+    if layout == "mixed":
+        q, k, v = tokens(1000), rows(936), tokens(936)
+        g = torch.randn((2, 1, 1000, 1024), generator=gen,
+                        device="cuda").to(dtype)[..., ::2]
+    else:
+        make = tokens if layout == "tokens" else rows
+        q, k, v, g = make(1000), make(936), make(936), make(1000)
+    outs = ha.attention_bwd(q, k, v, g, 512**-0.5)
+    refs = _backward_yardstick(q, k, v, g, 512**-0.5)
+    torch.cuda.synchronize()
+    max_tol, rms_tol = {torch.float32: (2e-5, 1.5e-6),
+                        torch.bfloat16: (0.25, 0.015)}[dtype]
+    for o, r, t in zip(outs, refs, (q, k, v)):
+        assert o.dtype == dtype and o.stride() == t.stride()
+        o, r = o.double(), r.double()
+        rms = float(r.square().mean().sqrt())
+        assert float((o - r).abs().max()) <= max_tol * rms
+        assert float((o - r).square().mean().sqrt()) <= rms_tol * rms
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_per_head_kernel_matches_plain(dtype):
@@ -419,7 +634,7 @@ def test_cuda_per_head_backward_matches_plain(dtype):
     before = dict(ha.LAUNCHES)
     leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
     grads = torch.autograd.grad(multi_head_attention(*leaves), leaves, g)
-    refs = ha.attention_backward_reference(q, k, v, g, 512**-0.5)
+    refs = _backward_yardstick(q, k, v, g, 512**-0.5)
     torch.cuda.synchronize()
     assert ha.LAUNCHES["attn_bwd"] == before["attn_bwd"] + 1
     assert ha.LAUNCHES["attn_fwd"] == before["attn_fwd"] + 1
@@ -428,7 +643,7 @@ def test_cuda_per_head_backward_matches_plain(dtype):
                         torch.bfloat16: (0.25, 0.015)}[dtype]
     for o, r, t in zip(grads, refs, (q, k, v)):
         assert o.dtype == dtype and o.stride() == t.stride()
-        o, r = o.float(), r.float()
+        o, r = o.double(), r.double()
         rms = float(r.square().mean().sqrt())
         assert float((o - r).abs().max()) <= max_tol * rms
         assert float((o - r).square().mean().sqrt()) <= rms_tol * rms
@@ -454,7 +669,7 @@ def test_cuda_per_head_backward_ragged_lengths(layout):
         make = tokens if layout == "tokens" else rows
         q, k, v, g = make(200), make(72), make(72), make(200)
     outs = ha.attention_bwd(q, k, v, g, 32**-0.5)
-    refs = ha.attention_backward_reference(q, k, v, g, 32**-0.5)
+    refs = _backward_yardstick(q, k, v, g, 32**-0.5)
     torch.cuda.synchronize()
     for o, r, t in zip(outs, refs, (q, k, v)):
         assert o.stride() == t.stride()

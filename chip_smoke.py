@@ -13,11 +13,13 @@
    shape of the main paths, in bf16 and once in fp32, with times beside the
    plain version's, one PyTorch call for the same function (SDPA,
    F.group_norm then F.silu: yardsticks the port never calls) and the
-   card's bound. Every planted fault of a kernel (two for the per-head
-   backward) must fail the same check. The fp32 per-head backward sums on
-   the tensor cores in another order than cuBLAS's fp32 products in its
-   plain version, whose own error exceeds the limit: it is held to the
-   plain version on float64 copies of its operands, at the same limits.
+   card's bound; beside the event time of back-to-back calls, the device
+   time of the kernel's own symbols (torch.profiler). Every planted fault
+   of a kernel (two for each per-head kernel) must fail the same check.
+   The fp32 per-head kernels sum on the tensor cores in another order than
+   cuBLAS's fp32 products in their plain versions, whose own error may
+   exceed the limit: they are held to the plain version on float64 copies
+   of their operands, at the same limits.
 3. ``DiffFoleyPipeline.generate`` at full width (the 860M LDM UNet and the
    alignment classifier in bf16, the SD VAE in bf16, seeded random
    weights), 2 windows × 2 samples, 25 DPM-Solver++ steps, CFG 4.5,
@@ -138,6 +140,11 @@ KERNELS = {
     "gn_stream_apply": ("diff_foley_tpu_torch/csrc/groupnorm.cu",
                         "diff_foley_tpu/ops/pallas_groupnorm.py:212"),
 }
+# the symbols of each kind's kernels, as the profiler names them
+SYMBOLS = {"fwd": ("attn_packed_fwd",), "bwd": ("attn_packed_bwd",),
+           "head": ("head_fwd_",), "head_bwd": ("head_bwd_",),
+           "gn": ("gn_block_kernel",), "stats": ("gn_stream_stats_kernel",),
+           "apply": ("gn_stream_apply_kernel",)}
 RUNS = ("generate", "inpaint", "train_vae")
 
 
@@ -161,6 +168,32 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, symbols=None, iters: int = 10) -> float:
+    """Device time per call of fn: torch.profiler's CUDA events over
+    ``iters`` calls, only those whose names hold one of ``symbols`` (all
+    when None), summed and divided by the calls. One profiler trace came
+    back without device events (the first row of a run; the same row
+    traced in other runs): up to three are tried before it fails."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        us = [e.time_range.elapsed_us() for e in events
+              if symbols is None or any(s in e.name for s in symbols)]
+        if us:
+            return sum(us) / 1e3 / iters
+    raise AssertionError(f"torch.profiler shows no device time for "
+                         f"{symbols or 'any kernel'} (device events: "
+                         f"{sorted({e.name[:60] for e in events})[:5]})")
 
 
 def reset_counts():
@@ -275,6 +308,8 @@ def predicted_launches(pipe, steps: int):
 
 # kernels that must run on the tensor cores: their SASS holds HMMA
 TENSOR_CORE_KERNELS = {"attention_fwd": ("attn_packed_fwd_mma_kernel",),
+                       "attention_head_fwd": ("head_fwd_scores_kernel",
+                                              "head_fwd_products_kernel"),
                        "attention_head_bwd": ("head_bwd_scores_kernel",
                                               "head_bwd_products_kernel")}
 
@@ -393,8 +428,17 @@ def fault_bwd_no_delta(q, k, v, g, scale, heads):
 
 def fault_head_shifted_keys(q, k, v, scale):
     """Planted fault: P pairs with the V rows of the next key, as a kernel
-    with a wrong key-tile offset would."""
+    with a wrong key offset would."""
     return (ha.attention_reference(q, k, v.roll(1, dims=2), scale),)
+
+
+def fault_head_shifted_key_tile(q, k, v, scale):
+    """Planted fault: P̃·V reads the V rows of the second 64-key tile in
+    place of the first, as a product kernel with a wrong k-tile offset
+    would."""
+    shifted = v.clone()
+    shifted[:, :, :64] = v[:, :, 64:128]
+    return (ha.attention_reference(q, k, shifted, scale),)
 
 
 def fault_gn_neighbour_gamma(x, gamma, beta, eps, act):
@@ -416,7 +460,7 @@ def fault_apply_neighbour_affine(x, a, b, act):
 
 
 FAULTS = {"fwd": (fault_fwd_neighbour_head,), "bwd": (fault_bwd_no_delta,),
-          "head": (fault_head_shifted_keys,),
+          "head": (fault_head_shifted_keys, fault_head_shifted_key_tile),
           "head_bwd": (fault_head_bwd_no_delta,
                        fault_head_bwd_shifted_key_tile),
           "gn": (fault_gn_neighbour_gamma,),
@@ -431,10 +475,12 @@ def planted(kind: str, *args) -> dict:
 
 def run_check(kind, dtype, kern, plain, faults, lib, bound, exact=None):
     """Agreement of kern with plain, each planted fault's (every one must
-    break the limits), and the three times. With ``exact`` (the plain
-    version on float64 copies of the operands) the limits hold against it
-    instead, and the ratios to the plain version in the operand type are
-    recorded beside them."""
+    break the limits), and the three times; beside the kernel's event time,
+    the device time of its own symbols (``device_ms``) and the library
+    call's whole device time. With ``exact`` (the plain version on float64
+    copies of the operands) the limits hold against it instead, and the
+    ratios to the plain version in the operand type are recorded beside
+    them."""
     tup = lambda x: x if isinstance(x, tuple) else (x,)
     outs, refs = tup(kern()), tup(plain() if exact is None else exact())
     torch.cuda.synchronize()
@@ -450,6 +496,7 @@ def run_check(kind, dtype, kern, plain, faults, lib, bound, exact=None):
            "tol": [MAX_TOL[(kind, dtype)], RMS_TOL[(kind, dtype)]],
            "ok": ok, "fault_ratios": fault_ratios,
            "fault_caught": caught, "kernel_ms": time_ms(kern),
+           "device_ms": device_ms(kern, SYMBOLS[kind]),
            "plain_ms": time_ms(plain), "bound_ms": bound[0],
            "bound_by": bound[1]}
     if exact is not None:
@@ -461,11 +508,11 @@ def run_check(kind, dtype, kern, plain, faults, lib, bound, exact=None):
                                              dtype)[2:])
         row["plain_error_ratios"] = list(agreement(plain_outs, refs, kind,
                                                    dtype)[2:])
-    if lib is None:
-        row["library_ms"] = None
-    else:
+    row["library_ms"] = row["library_device_ms"] = None
+    if lib is not None:
         try:   # the yardstick only: the port never calls it
             row["library_ms"] = time_ms(lib)
+            row["library_device_ms"] = device_ms(lib)
         except RuntimeError as e:
             row["library_ms"] = None
             row["library_error"] = str(e).splitlines()[0][:200]
@@ -502,20 +549,26 @@ def check_packed(kind: str, tag, b, lq, lk, hd, heads, dtype, gen):
             **row}
 
 
-def check_head(tag, b, l, d, dtype, gen):
+def check_head(tag, b, lq, lk, d, dtype, gen):
     """The per-head kernel on the VAE's layout: the (B, 1, h·w, C) token
     view of NCHW projections."""
-    q, k, v = (torch.randn((b, d, l), generator=gen, device="cuda")
-               .to(dtype)[:, None].transpose(2, 3) for _ in range(3))
+    q, k, v = (torch.randn((b, d, n), generator=gen, device="cuda")
+               .to(dtype)[:, None].transpose(2, 3) for n in (lq, lk, lk))
     scale = d**-0.5
     peak = attn_peak(dtype)
+    # as the backward: fp32 sums on the tensor cores are held against the
+    # plain version on float64 copies, at the same limits
+    exact = None if dtype == BF16 else (
+        lambda: ha.attention_reference(*(t.double() for t in (q, k, v)),
+                                       scale))
     row = run_check(
         "head", dtype, lambda: ha.attention_fwd(q, k, v, scale),
         lambda: ha.attention_reference(q, k, v, scale),
         planted("head", q, k, v, scale),
         lambda: F.scaled_dot_product_attention(q, k, v, scale=scale),
-        bound_ms("fwd", b, l, l, d, q.element_size(), peak))
-    return {"shape": tag, "B": b, "Lq": l, "Lk": l, "HD": d, "D": d, **row}
+        bound_ms("fwd", b, lq, lk, d, q.element_size(), peak), exact)
+    return {"shape": tag, "B": b, "Lq": lq, "Lk": lk, "HD": d, "D": d,
+            **row}
 
 
 def check_head_bwd(tag, b, lq, lk, d, dtype, gen):
@@ -584,7 +637,7 @@ def kernel_phase(pipe):
     """Every kernel at every shape of the main paths (bf16 in ``generate``
     and ``inpaint``, fp32 in ``train_vae``), with its calls per run; the
     kernels of the bf16 paths also once in fp32, the per-head backward also
-    once in bf16 and at ragged lengths."""
+    once in bf16, and both per-head kernels at ragged lengths."""
     n = WINDOWS * SAMPLES
     gen = torch.Generator("cuda").manual_seed(0)
     rows = []
@@ -598,22 +651,24 @@ def kernel_phase(pipe):
                 "calls": per_run}))
     d = SD_VAE.ch * SD_VAE.ch_mult[-1]
     l = LATENT_HW[0] * LATENT_HW[1]
-    rows.append(("attn_fwd", {**check_head("vae-enc-mid", WINDOWS, l, d,
+    rows.append(("attn_fwd", {**check_head("vae-enc-mid", WINDOWS, l, l, d,
                                            BF16, gen),
                               "calls": calls(0, 1)}))
-    rows.append(("attn_fwd", {**check_head("vae-dec-mid", n, l, d, BF16,
+    rows.append(("attn_fwd", {**check_head("vae-dec-mid", n, l, l, d, BF16,
                                            gen),
                               "calls": calls(1, 1)}))
     # the train step's mid attention, encoder and decoder alike: forward
     # and backward in fp32 at the train batch
     both = calls(train_vae=2 * TRAIN_STEPS)
-    rows.append(("attn_fwd", {**check_head("train-mid", TRAIN_BATCH, l, d,
+    rows.append(("attn_fwd", {**check_head("train-mid", TRAIN_BATCH, l, l, d,
                                            FP32, gen), "calls": both}))
     rows.append(("attn_bwd", {**check_head_bwd("train-mid", TRAIN_BATCH, l, l,
                                                d, FP32, gen), "calls": both}))
     rows.append(("attn_bwd", check_head_bwd("train-mid", TRAIN_BATCH, l, l, d,
                                             BF16, gen)))
     for dtype in (FP32, BF16):
+        rows.append(("attn_fwd", check_head("ragged", 2, 1000, 936, d, dtype,
+                                            gen)))
         rows.append(("attn_bwd", check_head_bwd("ragged", 2, 1000, 936, d,
                                                 dtype, gen)))
     for (model, b, c, h, w, eps, act, dtype), per_run in gn_path(
@@ -658,9 +713,9 @@ def kernel_phase(pipe):
 
 def summarize(rows, launches):
     """One entry per kernel: its path shapes summed over their calls in the
-    generate, the inpaint and the train_vae run (ms, plain_ms, library_ms,
-    bound_ms; each also per run), its largest error, and its launches in
-    the main-path runs. A sum is null where nothing was measured: no call
+    generate, the inpaint and the train_vae run (ms, device_ms, plain_ms,
+    library_ms, bound_ms, each also per run; library_device_ms), its
+    largest error, and its launches in the main-path runs. A sum is null where nothing was measured: no call
     of the kernel in that run, or a shape without a library call."""
     out = []
     for name, (source, replaces) in KERNELS.items():
@@ -681,15 +736,18 @@ def summarize(rows, launches):
             "replaces": replaces,
             "launches": sum(launches[run][name] for run in RUNS),
             "max_abs_err": max(r["max_abs_err"] for k, r in rows if k == name),
-            "ms": total("kernel_ms"), "plain_ms": total("plain_ms"),
+            "ms": total("kernel_ms"), "device_ms": total("device_ms"),
+            "plain_ms": total("plain_ms"),
             "bound_ms": total("bound_ms"),
             "bound_by": "operations" if t_ops >= total("bound_ms") / 2
             else "bytes",
             "library_ms": total("library_ms"),
+            "library_device_ms": total("library_device_ms"),
             **{f"launches_{run}": launches[run][name] for run in RUNS},
             **{f"{key}_{run}": total(
                 f"{'kernel_' if key == 'ms' else ''}{key}", (run,))
-               for key in ("ms", "plain_ms", "bound_ms", "library_ms")
+               for key in ("ms", "device_ms", "plain_ms", "bound_ms",
+                           "library_ms")
                for run in RUNS},
         })
     return out

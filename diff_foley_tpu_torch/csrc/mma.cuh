@@ -1,7 +1,8 @@
 // Tensor-core building blocks of the attention kernels rebuilt for Hopper
-// (attention_fwd.cu's bf16 path, attention_head_bwd.cu): 16-byte cp.async
-// copies, ldmatrix fragment loads, the mma.sync products, and the 3xTF32
-// split that keeps fp32 accuracy on the TF32 tensor cores.
+// (attention_fwd.cu's bf16 path, head_gemm.cuh's tile GEMM of the per-head
+// forward and backward): 16-byte cp.async copies, ldmatrix fragment loads,
+// the mma.sync products, and the 3xTF32 split that keeps fp32 accuracy on
+// the TF32 tensor cores.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16 / m16n8k8, per lane: g = lane/4,
 // t = lane%4). C and D, 16×8 fp32: c0, c1 at (row g, cols 2t, 2t+1), c2, c3

@@ -31,9 +31,8 @@ bf16 operations per byte that makes the forward at Lq = Lk = 1024 (the
 UNet's level-0 self-attention, the VAE's mid attention) and the VAE's
 backward there operation-bound, and every other path shape, the packed
 backward's included, byte-bound. The packed forward in bf16 and the
-per-head backward run on the tensor cores (mma.sync, 3xTF32 for fp32);
-the packed backward and the per-head forward still use fp32 FMAs from
-shared memory.
+per-head forward and backward run on the tensor cores (mma.sync, 3xTF32
+for fp32); the packed backward still uses fp32 FMAs from shared memory.
 
 Each wrapper runs its kernel's plain version when its tensors lie on the
 CPU, launches the kernel when they lie on a CUDA device, and raises
@@ -78,8 +77,10 @@ def merge_heads(t: torch.Tensor) -> torch.Tensor:
 
 def attention_reference(q, k, v, scale: float):
     """Softmax attention over (B, H, L, D): fp32 scores, softmax cast to the
-    operand type, then P·V (``ops/attention.py::_xla_attention``)."""
-    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
+    operand type, then P·V (``ops/attention.py::_xla_attention``). float64
+    operands keep float64 throughout (an exact yardstick for fp32)."""
+    ct = torch.promote_types(q.dtype, torch.float32)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.to(ct), k.to(ct))
     weights = torch.softmax(logits * scale, dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bhkd->bhqd", weights, v)
 
@@ -146,8 +147,8 @@ _ENTRIES = {   # C entry: (csrc source, argument types)
     "dft_attn_packed_bwd": ("attention_bwd", [ctypes.c_void_p] * 8
                             + [ctypes.c_int] * 5
                             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]),
-    "dft_attn_fwd": ("attention_head_fwd", [ctypes.c_void_p] * 4
-                     + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 8
+    "dft_attn_fwd": ("attention_head_fwd", [ctypes.c_void_p] * 5
+                     + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 16
                      + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]),
     "dft_attn_bwd": ("attention_head_bwd", [ctypes.c_void_p] * 8
                      + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 16
@@ -262,27 +263,39 @@ def _empty_strided_like(t: torch.Tensor) -> torch.Tensor:
                                device=t.device)
 
 
+def scratch_ld(lk: int) -> int:
+    """Row stride of the per-head kernels' score scratch: Lk rounded up to
+    8 elements, so that every row starts 16-byte aligned."""
+    return -(-lk // 8) * 8
+
+
+def head_fwd_scratch(b: int, h: int, lq: int, lk: int,
+                     device) -> torch.Tensor:
+    """The per-head forward's scratch: S = Q·Kᵀ in fp32, (B·H, Lq,
+    scratch_ld(Lk)); the row pass writes P̃ in the operand type over each
+    row's own scores, so one size serves both types."""
+    return torch.empty(b * h * lq * scratch_ld(lk), dtype=torch.float32,
+                       device=device)
+
+
 def attention_fwd(q, k, v, scale: float):
-    """softmax(Q Kᵀ·scale) V per (batch, head) over (B, H, L, D); the output
-    has q's strides. The kernel reads k and v through one set of strides:
-    a v laid out otherwise is copied into k's layout first."""
+    """softmax(Q Kᵀ·scale) V per (batch, head) over (B, H, L, D), in q's
+    strides. One call launches three grids: the scores S into a scratch,
+    the softmax rows (P̃ over S), then P̃·V. An operand whose address or
+    strides the 16-byte copies cannot take is made contiguous first (a q
+    copied so gives a contiguous output)."""
     if _on_cpu(q, k, v):
         return attention_reference(q, k, v, scale)
     d = _check_per_head(q, k, v)
-    if v.stride() != k.stride():
-        v = _empty_strided_like(k).copy_(v)
+    q, k, v = (t if _cp_async_ready(t) else t.contiguous() for t in (q, k, v))
     b, h, lq, _ = q.shape
     o = _empty_strided_like(q)
+    scratch = head_fwd_scratch(b, h, lq, k.shape[2], q.device)
     _launch("dft_attn_fwd", "attn_fwd", _ptr(q), _ptr(k), _ptr(v), _ptr(o),
-            b, h, lq, k.shape[2], d, *q.stride(), *k.stride(), float(scale),
-            _DTYPE_CODES[q.dtype], _stream(q), device=q.device)
+            _ptr(scratch), b, h, lq, k.shape[2], d, *q.stride(), *k.stride(),
+            *v.stride(), *o.stride(), float(scale), _DTYPE_CODES[q.dtype],
+            _stream(q), device=q.device)
     return o
-
-
-def scratch_ld(lk: int) -> int:
-    """Row stride of the per-head backward's score scratch: Lk rounded up to
-    8 elements, so that every row starts 16-byte aligned."""
-    return -(-lk // 8) * 8
 
 
 def head_bwd_scratch(b: int, h: int, lq: int, lk: int, dtype,

@@ -5,7 +5,9 @@ attention kernel module is held against the Pallas kernels themselves, run
 in TPU interpret mode as tests/test_pallas_attention.py runs them; on CPU
 tensors the port's wrappers run their plain versions.
 """
+import ctypes
 import importlib
+import re
 
 import jax
 import jax.numpy as jnp
@@ -22,8 +24,10 @@ from diff_foley_tpu.ops.attention import multi_head_attention as j_mha
 from diff_foley_tpu_torch.audio import transforms as ttr
 from diff_foley_tpu_torch.diffusion.schedule import DiffusionSchedule
 from diff_foley_tpu_torch.diffusion.schedule import timestep_embedding
+from diff_foley_tpu_torch.ops import cuda_build
 from diff_foley_tpu_torch.ops import griffin_lim as tgl
 from diff_foley_tpu_torch.ops import hopper_attention as ha
+from diff_foley_tpu_torch.ops import hopper_groupnorm as hg
 from diff_foley_tpu_torch.ops import mel as tmel
 from diff_foley_tpu_torch.ops import stft as tstft
 from diff_foley_tpu_torch.ops.attention import (multi_head_attention,
@@ -462,6 +466,69 @@ def test_per_head_backward_scratch(dtype, lk, lds, mib):
     assert t.numel() * 4 / 2**20 == mib
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lk,lds,mib", [(1024, 1024, 16.0),
+                                        (936, 936, 16.0 * 936 / 1024),
+                                        (30, 32, 0.5)])
+def test_per_head_forward_scratch(dtype, lk, lds, mib):
+    # S in fp32 with rows of lds elements (Lk rounded up to 8); the row
+    # pass writes P̃ in the operand type over each row's own scores, so one
+    # size serves both types and P̃'s rows, lds·4 bytes apart, start
+    # 16-byte aligned and hold Lk elements
+    t = ha.head_fwd_scratch(4, 1, 1024, lk, "meta")
+    assert t.dtype == torch.float32 and t.dim() == 1
+    assert t.numel() == 4 * 1024 * lds and t.numel() * 4 / 2**20 == mib
+    pt = t.view(dtype).view(4 * 1024, -1)
+    assert pt.stride(0) * dtype.itemsize == lds * 4
+    assert lds * 4 % 16 == 0 and pt.shape[1] >= lk
+
+
+def test_attention_reference_keeps_float64():
+    # float64 operands stay float64 (the exact yardstick of the fp32
+    # kernel on the card) and agree with the fp32 evaluation
+    rng = np.random.default_rng(32)
+    q, k, v = (_t(rng.standard_normal((2, 1, n, 32)).astype(np.float32))
+               for n in (72, 40, 40))
+    ref32 = ha.attention_reference(q, k, v, 32**-0.5)
+    ref64 = ha.attention_reference(q.double(), k.double(), v.double(),
+                                   32**-0.5)
+    assert ref32.dtype == torch.float32 and ref64.dtype == torch.float64
+    rms = float(ref64.square().mean().sqrt())
+    assert float((ref32.double() - ref64).abs().max()) <= 1e-5 * rms
+
+
+def _c_entries():
+    """{name: (source, [argument kinds])} of every ``extern "C" int dft_*``
+    in csrc/*.cu, each parameter a pointer, an int, a long long or a
+    float."""
+    out = {}
+    for path in sorted(cuda_build.CSRC.glob("*.cu")):
+        for name, params in re.findall(r'extern "C" int (dft_\w+)\((.*?)\)',
+                                       path.read_text(), re.S):
+            kinds = []
+            for p in params.split(","):
+                p = " ".join(p.split())
+                kinds.append("ptr" if "*" in p else "longlong"
+                             if p.startswith("long long") else
+                             p.split()[0])
+            out[name] = (path.stem, kinds)
+    return out
+
+
+def test_ctypes_argtypes_match_the_c_entries():
+    # a wrong argtypes cuts a pointer or a long long silently: every C
+    # entry's parameters, by count and kind, against the wrappers' tables
+    kind = {ctypes.c_void_p: "ptr", ctypes.c_int: "int",
+            ctypes.c_longlong: "longlong", ctypes.c_float: "float"}
+    tables = {**ha._ENTRIES, **{fn: ("groupnorm", types)
+                                for fn, types in hg._ARGTYPES.items()}}
+    entries = _c_entries()
+    assert sorted(entries) == sorted(tables)
+    for fn, (source, types) in tables.items():
+        assert entries[fn] == (source, [kind[t] for t in types]), fn
+    assert len(entries["dft_attn_fwd"][1]) == 5 + 5 + 16 + 3
+
+
 def test_cp_async_ready_operands():
     # the 16-byte copies need the address and every stride other than 1
     # (over an axis longer than 1) on 16-byte multiples; the VAE's token
@@ -501,6 +568,15 @@ def test_wrappers_reject_mismatched_shapes():
     q3 = torch.zeros((1, 4, 2 * 40))
     with pytest.raises(ValueError, match="do not match"):
         ha._check_packed(q3, torch.zeros((1, 4, 2 * 32)), q3, 2)
+
+
+def _forward_yardstick(q, k, v, scale):
+    """What the per-head forward kernel is held to on the card: the plain
+    version in bf16; for fp32 the plain version on float64 copies (the
+    kernel sums on the tensor cores in another order than cuBLAS)."""
+    if q.dtype == torch.float32:
+        q, k, v = (t.double() for t in (q, k, v))
+    return ha.attention_reference(q, k, v, scale)
 
 
 def _backward_yardstick(q, k, v, g, scale):
@@ -571,37 +647,71 @@ def test_cuda_per_head_backward_ragged_vae(dtype, layout):
         assert float((o - r).square().mean().sqrt()) <= rms_tol * rms
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cuda_per_head_kernel_matches_plain(dtype):
-    """The per-head kernel against its plain version on the card at the SD
-    VAE's shape and layout, and its launch count."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
-    gen = torch.Generator("cuda").manual_seed(0)
-    q, k, v = (torch.randn((2, 512, 1024), generator=gen, device="cuda")
-               .to(dtype)[:, None].transpose(2, 3) for _ in range(3))
-    before = ha.LAUNCHES["attn_fwd"]
-    out = multi_head_attention(q, k, v)
-    ref = ha.attention_reference(q, k, v, 512**-0.5)
-    torch.cuda.synchronize()
-    assert ha.LAUNCHES["attn_fwd"] == before + 1
-    assert out.dtype == dtype and out.stride() == q.stride()
-    # chip_smoke.py's limits for this kernel
+def _forward_limits(out, ref, dtype):
+    """chip_smoke.py's limits for the per-head forward: max|Δ| and rms(Δ)
+    against rms(yardstick)."""
     max_tol, rms_tol = {torch.float32: (1.5e-5, 1e-6),
                         torch.bfloat16: (0.06, 4e-4)}[dtype]
-    o, r = out.float(), ref.float()
+    o, r = out.double(), ref.double()
     rms = float(r.square().mean().sqrt())
     assert float((o - r).abs().max()) <= max_tol * rms
     assert float((o - r).square().mean().sqrt()) <= rms_tol * rms
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("d,l", [(512, 1024), (32, 136)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_per_head_kernel_matches_plain(dtype, d, l):
+    """The per-head kernel through ``multi_head_attention`` against its
+    plain version on the card in the VAE's layout: the SD VAE's shape, and
+    the tiny agreement VAE's (D 32, 8·17 tokens); its launch count and the
+    strides of what it returns."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    gen = torch.Generator("cuda").manual_seed(0)
+    q, k, v = (torch.randn((2, d, l), generator=gen, device="cuda")
+               .to(dtype)[:, None].transpose(2, 3) for _ in range(3))
+    before = ha.LAUNCHES["attn_fwd"]
+    out = multi_head_attention(q, k, v)
+    ref = _forward_yardstick(q, k, v, d**-0.5)
+    torch.cuda.synchronize()
+    assert ha.LAUNCHES["attn_fwd"] == before + 1
+    assert out.dtype == dtype and out.stride() == q.stride()
+    _forward_limits(out, ref, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["tokens", "rows", "mixed"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_per_head_forward_ragged_vae(dtype, layout):
+    """The per-head forward at the VAE's head dim with Lq 1000 and Lk 936,
+    off the 64-row tiles: both layouts, and q, k and v mixed ("mixed"), at
+    chip_smoke.py's limits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    gen = torch.Generator("cuda").manual_seed(5)
+    tokens = lambda l: torch.randn((2, 1, 512, l), generator=gen,
+                                   device="cuda").to(dtype).transpose(2, 3)
+    rows = lambda l: torch.randn((2, 1, l, 512), generator=gen,
+                                 device="cuda").to(dtype)
+    if layout == "mixed":
+        q, k, v = tokens(1000), rows(936), tokens(936)
+    else:
+        make = tokens if layout == "tokens" else rows
+        q, k, v = make(1000), make(936), make(936)
+    out = ha.attention_fwd(q, k, v, 512**-0.5)
+    ref = _forward_yardstick(q, k, v, 512**-0.5)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.stride() == q.stride()
+    _forward_limits(out, ref, dtype)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("layout", ["tokens", "rows", "mixed"])
 def test_cuda_per_head_kernel_ragged_lengths(layout):
-    """Lq 200 and Lk 72, neither a multiple of the 32-row tiles, at the
+    """Lq 200 and Lk 72, neither a multiple of the 64-row tiles, at the
     tiny VAE's head dim, in both layouts the wrapper takes, and with k and
-    v in different ones ("mixed": v is copied into k's layout)."""
+    v in different ones ("mixed")."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     gen = torch.Generator("cuda").manual_seed(2)
@@ -614,10 +724,10 @@ def test_cuda_per_head_kernel_ragged_lengths(layout):
         make = tokens if layout == "tokens" else rows
         q, k, v = make(200), make(72), make(72)
     out = ha.attention_fwd(q, k, v, 32**-0.5)
-    ref = ha.attention_reference(q, k, v, 32**-0.5)
+    ref = _forward_yardstick(q, k, v, 32**-0.5)
     torch.cuda.synchronize()
-    rms = float(ref.square().mean().sqrt())
-    assert float((out - ref).abs().max()) <= 1.5e-5 * rms
+    assert out.stride() == q.stride()
+    _forward_limits(out, ref, torch.float32)
 
 
 @pytest.mark.gpu

@@ -4,6 +4,9 @@
                                      # agreement
     python3 chip_smoke.py --profile  # also torch.profiler over two steps
                                      # of each sampler and of the trainer
+    python3 chip_smoke.py --train-agreement 40   # build, then only the tiny
+                                     # train-step agreement (phase 6) 40
+                                     # times: failures / runs
 
 1. Build the CUDA kernels from ``diff_foley_tpu_torch/csrc`` (in parallel);
    ``ptxas -v`` lines and the HMMA (tensor-core) instruction count of each
@@ -40,9 +43,11 @@
    saved step. First-step and warm seconds per step, split generator /
    discriminator, peak memory, the plain GroupNorm backward's cost, and one
    step with the LPIPS hook on (random weights).
-6. Agreement: tiny ``generate`` and ``inpaint`` and a tiny VAE train step
-   in float32 on the GPU (kernels) against the same on the CPU (plain
-   versions), shared noise and phase.
+6. Agreement: tiny ``generate`` and ``inpaint`` and two tiny VAE train
+   steps in float32 on the GPU (kernels) against the same on the CPU (plain
+   versions), shared noise and phase. Each train step starts from equal
+   states, and the CPU takes the GPU's branch at every leaky_relu input
+   within rounding of zero; a planted gradient fault must be caught.
 
 The last line is {"ok": true, "device": {...}}; any failure exits non-zero
 before it. With no GPU it exits non-zero and prints no result.
@@ -141,7 +146,7 @@ KERNELS = {
                         "diff_foley_tpu/ops/pallas_groupnorm.py:212"),
 }
 # the symbols of each kind's kernels, as the profiler names them
-SYMBOLS = {"fwd": ("attn_packed_fwd",), "bwd": ("attn_packed_bwd",),
+SYMBOLS = {"fwd": ("attn_packed_fwd",), "bwd": ("head_bwd_",),
            "head": ("head_fwd_",), "head_bwd": ("head_bwd_",),
            "gn": ("gn_block_kernel",), "stats": ("gn_stream_stats_kernel",),
            "apply": ("gn_stream_apply_kernel",)}
@@ -170,12 +175,13 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, symbols=None, iters: int = 10) -> float:
+def device_ms(fn, symbols=None, iters: int = 10, split: bool = False):
     """Device time per call of fn: torch.profiler's CUDA events over
     ``iters`` calls, only those whose names hold one of ``symbols`` (all
-    when None), summed and divided by the calls. One profiler trace came
-    back without device events (the first row of a run; the same row
-    traced in other runs): up to three are tried before it fails."""
+    when None), summed and divided by the calls; with ``split`` also
+    {kernel: ms per call} by kernel name. One profiler trace came back
+    without device events (the first row of a run; the same row traced in
+    other runs): up to three are tried before it fails."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -187,10 +193,17 @@ def device_ms(fn, symbols=None, iters: int = 10) -> float:
                 fn()
             torch.cuda.synchronize()
         events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        us = [e.time_range.elapsed_us() for e in events
-              if symbols is None or any(s in e.name for s in symbols)]
-        if us:
-            return sum(us) / 1e3 / iters
+        mine = [e for e in events
+                if symbols is None or any(s in e.name for s in symbols)]
+        if mine:
+            total = sum(e.time_range.elapsed_us() for e in mine) / 1e3 / iters
+            if not split:
+                return total
+            by = collections.Counter()
+            for e in mine:
+                name = e.name.split("(")[0].split("<")[0].split("::")[-1]
+                by[name] += e.time_range.elapsed_us() / 1e3 / iters
+            return total, dict(by)
     raise AssertionError(f"torch.profiler shows no device time for "
                          f"{symbols or 'any kernel'} (device events: "
                          f"{sorted({e.name[:60] for e in events})[:5]})")
@@ -308,6 +321,8 @@ def predicted_launches(pipe, steps: int):
 
 # kernels that must run on the tensor cores: their SASS holds HMMA
 TENSOR_CORE_KERNELS = {"attention_fwd": ("attn_packed_fwd_mma_kernel",),
+                       "attention_bwd": ("head_bwd_scores_kernel",
+                                         "head_bwd_products_kernel"),
                        "attention_head_fwd": ("head_fwd_scores_kernel",
                                               "head_fwd_products_kernel"),
                        "attention_head_bwd": ("head_bwd_scores_kernel",
@@ -405,25 +420,39 @@ def fault_head_bwd_no_delta(q, k, v, g, scale):
     return gq, gk, gv
 
 
-def fault_head_bwd_shifted_key_tile(q, k, v, g, scale):
-    """Planted fault: dQ = dS·K reads the keys of the second 64-row tile in
-    place of the first, as a product kernel with a wrong k-tile offset
-    would; dK and dV are right."""
-    gq, gk, gv = ha.attention_backward_reference(q, k, v, g, scale)
+def _backward_dq_from(q, k, v, g, scale, keys):
+    """The plain backward over (B, H, L, D), but dQ = dS·keys·scale."""
+    _, gk, gv = ha.attention_backward_reference(q, k, v, g, scale)
     p = torch.softmax(torch.einsum("bhqd,bhkd->bhqk", q.float(),
                                    k.float()) * scale, dim=-1)
     gp = torch.einsum("bhqd,bhkd->bhqk", g, v).float()
     ds = (p * (gp - (gp * p).sum(-1, keepdim=True))).to(q.dtype)
+    return torch.einsum("bhqk,bhkd->bhqd", ds, keys) * scale, gk, gv
+
+
+def fault_head_bwd_shifted_key_tile(q, k, v, g, scale):
+    """Planted fault: dQ = dS·K reads the keys of the second 64-row tile in
+    place of the first, as a product kernel with a wrong k-tile offset
+    would; dK and dV are right."""
     shifted = k.clone()
     shifted[:, :, :64] = k[:, :, 64:128]
-    gq = torch.einsum("bhqk,bhkd->bhqd", ds, shifted) * scale
-    return gq, gk, gv
+    return _backward_dq_from(q, k, v, g, scale, shifted)
 
 
 def fault_bwd_no_delta(q, k, v, g, scale, heads):
     """The same fault on packed (B, L, H·D) operands."""
     return tuple(ha.merge_heads(t) for t in fault_head_bwd_no_delta(
         *(ha.split_heads(t, heads) for t in (q, k, v, g)), scale))
+
+
+def fault_bwd_shifted_keys(q, k, v, g, scale, heads):
+    """Planted fault on packed (B, L, H·D) operands: dQ = dS·K pairs each
+    score with the next key's row, as a product kernel with a key offset
+    one row off would (at every Lk of the path, 32 included); dK and dV
+    are right."""
+    qh, kh, vh, gh = (ha.split_heads(t, heads) for t in (q, k, v, g))
+    return tuple(ha.merge_heads(t) for t in _backward_dq_from(
+        qh, kh, vh, gh, scale, kh.roll(1, dims=2)))
 
 
 def fault_head_shifted_keys(q, k, v, scale):
@@ -459,7 +488,8 @@ def fault_apply_neighbour_affine(x, a, b, act):
                                       b.roll(1, dims=1), act),)
 
 
-FAULTS = {"fwd": (fault_fwd_neighbour_head,), "bwd": (fault_bwd_no_delta,),
+FAULTS = {"fwd": (fault_fwd_neighbour_head,),
+          "bwd": (fault_bwd_no_delta, fault_bwd_shifted_keys),
           "head": (fault_head_shifted_keys, fault_head_shifted_key_tile),
           "head_bwd": (fault_head_bwd_no_delta,
                        fault_head_bwd_shifted_key_tile),
@@ -496,9 +526,11 @@ def run_check(kind, dtype, kern, plain, faults, lib, bound, exact=None):
            "tol": [MAX_TOL[(kind, dtype)], RMS_TOL[(kind, dtype)]],
            "ok": ok, "fault_ratios": fault_ratios,
            "fault_caught": caught, "kernel_ms": time_ms(kern),
-           "device_ms": device_ms(kern, SYMBOLS[kind]),
            "plain_ms": time_ms(plain), "bound_ms": bound[0],
            "bound_by": bound[1]}
+    row["device_ms"], by_kernel = device_ms(kern, SYMBOLS[kind], split=True)
+    if len(by_kernel) > 1:   # the launches of a multi-launch kernel
+        row["device_ms_by_kernel"] = by_kernel
     if exact is not None:
         # the kernel against the plain version in the operand type, and
         # that plain version's own error (against float64)
@@ -542,9 +574,16 @@ def check_packed(kind: str, tag, b, lq, lk, hd, heads, dtype, gen):
         lib = lambda: torch.autograd.grad(o, (ql, kl, vl), gh,
                                           retain_graph=True)
         faulty = planted(kind, q, k, v, g, scale, heads)
+    # the fp32 backward sums on the tensor cores (3xTF32) in another order
+    # than cuBLAS's fp32 products in its plain version: held, as the
+    # per-head kernels, against the plain version on float64 copies
+    exact = None if kind == "fwd" or dtype == BF16 else (
+        lambda: ha.attention_packed_backward_reference(
+            *(t.double() for t in (q, k, v, g)), scale, heads))
     peak = attn_peak(dtype)
     row = run_check(kind, dtype, kern, plain, faulty, lib,
-                    bound_ms(kind, b, lq, lk, hd, q.element_size(), peak))
+                    bound_ms(kind, b, lq, lk, hd, q.element_size(), peak),
+                    exact)
     return {"shape": tag, "B": b, "Lq": lq, "Lk": lk, "HD": hd, "D": d,
             **row}
 
@@ -683,8 +722,23 @@ def kernel_phase(pipe):
         "fwd", "unet-0-cross", 2 * n, 1024, WINDOW_FEATS, 320, 8, FP32, gen)))
     rows.append(("attn_packed_bwd", check_packed(
         "bwd", "clf-1-self", n, 256, 256, 256, 8, FP32, gen)))
+    # the packed backward at the UNet's head dims 40, 80 and 160 (its self
+    # attention at levels 0, 1 and 2), which stage-2 training will run; no
+    # call on today's paths
+    for tag, b, lq, lk, hd, heads, _ in path_shapes(n, WINDOW_FEATS):
+        if tag in ("unet-0-self", "unet-1-self", "unet-2-self"):
+            rows.append(("attn_packed_bwd", check_packed(
+                "bwd", tag, b, lq, lk, hd, heads, BF16, gen)))
     rows += check_gn("unet-320x16x64", 2 * n, 320, 16, 64, 1e-5, "silu",
                      FP32, gen)
+    # the block kernel's branch-free SiLU division, bit for bit __fdiv_rn's
+    # over every fp32 input in its range (the rest go through __fdiv_rn)
+    off, taken = hg.silu_division_check("cuda")
+    log(f"kernel gn_block SiLU division: {off} of {taken} fp32 inputs differ "
+        f"from __fdiv_rn (of 2^32; the others take __fdiv_rn itself)")
+    if off:
+        raise AssertionError("the GroupNorm kernel's SiLU division is not "
+                             "__fdiv_rn's")
     # reset after the comparisons: they are not the main paths' launches
     reset_counts()
     log("kernels " + json.dumps([dict(kernel=k, **r) for k, r in rows]))
@@ -1226,6 +1280,72 @@ def leaf_agreement(out: dict, ref: dict, noise: set, lr: float, steps: int,
 # 2.9e-5, at the first step (equal parameters) and the second alike; a
 # gradient wrong by 1% of a leaf is a hundred times the rms limit.
 GRAD_TOL = (5e-4, 1e-4)
+# The planted fault of the train agreement: this leaf's GPU gradient 1% off
+# (the leaf a kink of the discriminator moved most).
+FAULT_LEAF = "vae.encoder.conv_in.weight"
+
+# A leaky_relu input within KINK_MARGIN·rms(input) of zero lies within the
+# rounding of its own computation: the two devices sum the convolutions in
+# front of it (fan-in up to 4·4·256 = 4096 in the discriminator) in other
+# orders, in fp32, from a reconstruction that already differs by the
+# rounding of the whole VAE. The largest gap between the devices' inputs
+# (``KinkSides.gap``, printed each run) read ~2.5e-5 of rms on an H100;
+# the margin, 2⁻¹² ≈ 2.4e-4, is ten times that. Where the input is that
+# close to zero the two devices may take different branches, with slopes
+# 1 and 0.2, and the adaptive weight (~500) carries the difference into
+# the generator's gradient. A wider margin does not hide a fault: it only
+# lets the CPU take the GPU's branch where both inputs are near zero, and
+# the values that differ still reach the gradients that are compared.
+KINK_MARGIN = 2.0**-12
+
+
+def kinked_leaky_relu(x, slope: float, positive):
+    """F.leaky_relu(x, slope) on the given branches: x where ``positive``,
+    slope·x elsewhere; its gradient is 1 or slope to match. With
+    ``positive = x > 0`` it is F.leaky_relu, value and gradient."""
+    return torch.where(positive, x, x * slope)
+
+
+class KinkSides(torch.overrides.TorchFunctionMode):
+    """``F.leaky_relu`` under this mode, in call order: recorded (each
+    input, detached, kept on the CPU), or, given the record of the same
+    calls on another device, replayed so that every input within
+    ``KINK_MARGIN``·rms(input) of zero takes the recorded input's branch
+    (``kinked_leaky_relu``); every other element takes its own, as in
+    F.leaky_relu. ``flips`` counts the elements whose branch the record
+    changed; ``gap`` is the largest |input − recorded| over the calls in
+    units of the input's rms, the rounding the margin has to cover."""
+
+    def __init__(self, recorded=None):
+        super().__init__()
+        self.recorded, self.inputs = recorded, []
+        self.flips, self.gap = 0, 0.0
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func is not F.leaky_relu:
+            return func(*args, **kwargs)
+        x = args[0]
+        slope = args[1] if len(args) > 1 else kwargs.get("negative_slope",
+                                                         0.01)
+        if kwargs.get("inplace") or len(args) > 2:
+            raise ValueError("KinkSides takes no in-place leaky_relu")
+        if self.recorded is None:
+            self.inputs.append(x.detach().to("cpu", copy=True))
+            return func(*args, **kwargs)
+        ref = self.recorded[len(self.inputs)].to(x.device)
+        self.inputs.append(ref)
+        if ref.shape != x.shape:
+            raise AssertionError(f"leaky_relu call {len(self.inputs)}: "
+                                 f"{tuple(x.shape)} against the record's "
+                                 f"{tuple(ref.shape)}")
+        with torch.no_grad():
+            rms = x.double().square().mean().sqrt()
+            near = x.abs() <= KINK_MARGIN * rms
+            own, theirs = x > 0, ref > 0
+            self.flips += int((near & (own != theirs)).sum())
+            self.gap = max(self.gap, float((x - ref).abs().max() / rms))
+        return kinked_leaky_relu(x, slope, torch.where(near, theirs, own))
 
 
 def agreement_train_phase():
@@ -1237,7 +1357,15 @@ def agreement_train_phase():
     ``logvar_init`` 4 keeps the adaptive weight under its clip, so that the
     value of the two gradient probes is what the metrics compare. Held:
     the metrics, each step's gradients of both models before Adam sees
-    them, and the updated leaves."""
+    them, and the updated leaves after each step.
+
+    The comparison holds one function on both sides: each step starts from
+    equal states (the GPU takes the CPU's parameters, Adam moments and
+    BatchNorm statistics after the step before), and the GPU runs first,
+    recording its leaky_relu inputs; the CPU then takes the GPU's branch
+    wherever its input lies within rounding of zero (``KinkSides``). A
+    planted fault, ``FAULT_LEAF``'s GPU gradient scaled by 1.01, must fail
+    the gradient check at every step."""
     lr, steps = 1e-4, 2
     trainer = VAETrainer(
         VAEConfig(ch=32, ch_mult=(1, 1, 1, 1), num_res_blocks=1),
@@ -1251,22 +1379,35 @@ def agreement_train_phase():
         f"{m}.{k}": v.detach().clone()
         for m, module in (("vae", state.vae), ("disc", state.disc))
         for k, v in what(module)}
-    metrics, grads, leaves = {}, {}, {}
-    for device in ("cpu", "cuda"):
-        reset_counts()
-        state = trainer.init_train_state(3, device)
-        metrics[device], grads[device] = [], []
-        for i in range(steps):
-            m = trainer.train_step(state, x.to(device),
-                                   noise=noise[i].to(device))
+    devices = ("cuda", "cpu")
+    states = {d: trainer.init_train_state(3, d) for d in devices}
+    metrics, grads, leaves = ({d: [] for d in devices} for _ in range(3))
+    kinks = []
+    reset_counts()
+    for i in range(steps):
+        if i:
+            states["cuda"].load_state_dict(
+                copy.deepcopy(states["cpu"].state_dict()))
+        record = KinkSides()
+        replay = KinkSides(record.inputs)
+        for device, mode in (("cuda", record), ("cpu", replay)):
+            state = states[device]
+            with mode:
+                m = trainer.train_step(state, x.to(device),
+                                       noise=noise[i].to(device))
             metrics[device].append({k: float(v) for k, v in m.items()})
             grads[device].append(named(state, lambda module: (
                 (k, p.grad) for k, p in module.named_parameters())))
-        leaves[device] = named(state,
-                               lambda module: module.state_dict().items())
-        if device == "cuda" and not (ha.LAUNCHES["attn_bwd"] == 2 * steps
-                                     and ha.LAUNCHES["attn_fwd"] == 2 * steps):
-            raise AssertionError(f"tiny train step launches {ha.LAUNCHES}")
+            leaves[device].append(named(
+                state, lambda module: module.state_dict().items()))
+        if len(replay.inputs) != len(record.inputs):
+            raise AssertionError(f"leaky_relu calls: cpu {len(replay.inputs)}"
+                                 f", gpu {len(record.inputs)}")
+        kinks.append({"calls": len(record.inputs), "flipped": replay.flips,
+                      "max_gap_of_rms": replay.gap})
+    if not (ha.LAUNCHES["attn_bwd"] == 2 * steps
+            and ha.LAUNCHES["attn_fwd"] == 2 * steps):
+        raise AssertionError(f"tiny train step launches {ha.LAUNCHES}")
     worst = 0.0
     for cpu, gpu in zip(metrics["cpu"], metrics["cuda"]):
         for k, ref in cpu.items():
@@ -1275,21 +1416,36 @@ def agreement_train_phase():
     zero = set().union(*(noise_gradients(g) for g in grads["cpu"]))
     grad_worst = [gradient_agreement(grads["cuda"][i], grads["cpu"][i], zero,
                                      *GRAD_TOL) for i in range(steps)]
-    off, total, rms, nearest = leaf_agreement(leaves["cuda"], leaves["cpu"],
-                                              zero, lr, steps, 2e-5)
-    log(f"agreement tiny fp32 train_vae gpu-vs-cpu, {steps} steps: metrics "
-        f"worst relative Δ {worst:.3e} (tol 1e-3); gradients per leaf, worst "
-        f"(max|Δ|, rms(Δ)) / rms(cpu) by step "
-        f"{json.dumps([list(w) for w in grad_worst])} (limits "
-        f"{list(GRAD_TOL)}), "
-        f"{len(zero)} biases with zero gradients are noise on both; "
-        f"{len(leaves['cpu'])} updated leaves: {off} of {total} elements "
-        f"beyond 2e-5·max(1, max|ref|) (a tenth of two Adam steps; limit "
-        f"2 + 2 in 10³ of a leaf; nearest its limit {nearest}), rms(Δ) "
-        f"{rms:.3e} of the steps' size; cpu metrics "
+    fault_caught = []
+    for i in range(steps):
+        faulty = dict(grads["cuda"][i])
+        faulty[FAULT_LEAF] = faulty[FAULT_LEAF] * 1.01
+        try:
+            gradient_agreement(faulty, grads["cpu"][i], zero, *GRAD_TOL)
+            fault_caught.append(False)
+        except AssertionError:
+            fault_caught.append(True)
+    leaf = [leaf_agreement(leaves["cuda"][i], leaves["cpu"][i], zero, lr,
+                           i + 1, 2e-5) for i in range(steps)]
+    log(f"agreement tiny fp32 train_vae gpu-vs-cpu, {steps} steps from equal "
+        f"states: metrics worst relative Δ {worst:.3e} (tol 1e-3); kinks by "
+        f"step (leaky_relu calls, inputs within {KINK_MARGIN:.3g}·rms of zero "
+        f"whose branch the cpu took from the gpu, largest |Δ input| of rms) "
+        f"{json.dumps(kinks)}; gradients per leaf, worst (max|Δ|, rms(Δ)) / "
+        f"rms(cpu) by step {json.dumps([list(w) for w in grad_worst])} "
+        f"(limits {list(GRAD_TOL)}); planted fault ({FAULT_LEAF} ×1.01) "
+        f"caught by step {fault_caught}; {len(zero)} biases with zero "
+        f"gradients are noise on both; updated leaves by step (elements "
+        f"beyond 2e-5·max(1, max|ref|) of those compared, limit 2 + 2 in 10³ "
+        f"of a leaf; rms(Δ) of the steps' size; nearest its limit) "
+        f"{json.dumps([list(r) for r in leaf])}; cpu metrics "
         f"{json.dumps(metrics['cpu'])}")
     if not worst <= 1e-3:
         raise AssertionError("GPU train step metrics disagree with the CPU's")
+    if not all(fault_caught):
+        raise AssertionError(f"the train agreement passes the planted fault "
+                             f"{FAULT_LEAF} ×1.01: {fault_caught}")
+    return kinks
 
 
 def agreement_phase():
@@ -1340,6 +1496,25 @@ def agreement_phase():
             raise AssertionError(f"GPU {run} disagrees with the CPU's")
 
 
+def train_agreement_runs(runs: int, card: str) -> int:
+    """``agreement_train_phase`` ``runs`` times in one process: each run's
+    flipped kinks by step, and failures / runs. Exits non-zero if any run
+    failed."""
+    failures, flips = [], []
+    for i in range(runs):
+        try:
+            flips.append([k["flipped"] for k in agreement_train_phase()])
+        except AssertionError as e:
+            failures.append({"run": i, "error": str(e)[:300]})
+            log(f"train agreement run {i} failed: {e}")
+    log(card)
+    print(json.dumps({"train_agreement": {
+        "runs": runs, "failures": len(failures), "failed": failures,
+        "flipped_by_step": flips,
+        "device": torch.cuda.get_device_name(0)}}))
+    return 1 if failures else 0
+
+
 def main(argv):
     if not torch.cuda.is_available():
         print("no CUDA device: chip_smoke.py needs one GPU", file=sys.stderr)
@@ -1364,6 +1539,9 @@ def main(argv):
     for name, counts in sass_hmma().items():
         log(f"sass HMMA {name} " + json.dumps(
             {f: n for f, n in counts.items() if n}))
+    if "--train-agreement" in argv:
+        return train_agreement_runs(
+            int(argv[argv.index("--train-agreement") + 1]), card)
 
     t0 = time.perf_counter()
     pipe = build_flagship()

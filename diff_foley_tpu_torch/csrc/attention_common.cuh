@@ -1,5 +1,5 @@
-// Shared pieces of the packed-heads attention kernels (attention_fwd.cu,
-// attention_bwd.cu).
+// The fp32 pieces of the packed-heads attention forward (attention_fwd.cu's
+// fp32 kernel, which only the GPU-vs-CPU agreement of tiny pipelines runs).
 //
 // Operands are the projections exactly as the Linear layers emit them:
 // packed (B, L, H*D), row-major and contiguous. A block owns one
@@ -134,12 +134,6 @@ __device__ __forceinline__ void row_stats(const float* Qs, float* Ks,
       m[a] = mn;
     }
   }
-}
-
-// The path's head dims: 32 in the classifier; 40, 80 and 160 at the
-// UNet's levels 0, 1 and 2 (160 also in its middle block).
-__host__ __device__ constexpr bool supported_head_dim(int d) {
-  return d == 32 || d == 40 || d == 80 || d == 160;
 }
 
 }  // namespace dft

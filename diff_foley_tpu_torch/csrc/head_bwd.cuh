@@ -1,0 +1,202 @@
+// The three launches of the per-head attention backward on Hopper's tensor
+// cores, shared by the per-head entry (attention_head_bwd.cu, the VAE's
+// (B, H, L, D) operands) and the packed entry (attention_bwd.cu, each head
+// of a (B, L, H·D) operand read as the strided view (B, H, L, D) with
+// strides (L·H·D, D, H·D, 1)). Given the saved q, k, v and the output
+// gradient g of one (batch, head):
+//   P  = softmax(Q Kᵀ · scale)                       (recomputed, fp32)
+//   dV = P̃ᵀ g            with P̃ = P cast to g's type
+//   dS = P ∘ (g Vᵀ − Σ_j (g Vᵀ ∘ P))  cast to q's type
+//   dQ = dS K · scale,   dK = dSᵀ Q · scale
+// with fp32 accumulation; dQ, dK and dV are returned in the operand type.
+//
+// The TPU kernels hold a query chunk's whole (Qc, Lk) score matrix in VMEM
+// and run the five products on the MXU. Here the card's 50 MB L2 plays
+// that role: the scores of one call live in a scratch buffer the wrapper
+// allocates (B·H·Lq·Lk fp32 for S and for g Vᵀ, the same count in the
+// operand type for P̃ and dS). Three launches, five products, nothing
+// recomputed:
+//   1. head_bwd_scores_kernel: S = Q Kᵀ and dP = g Vᵀ, one 64×64 tile and
+//      one of the two products per block, fp32 into the scratch.
+//   2. head_bwd_rows_kernel, one warp per query row: m, l, P = e/l in fp32,
+//      δ = Σ_j P·dP (as Σ_j e·dP / l); writes P̃ and dS rounded to the
+//      operand type (the plain version's roundings).
+//   3. head_bwd_products_kernel: dQ = dS·K·scale, dK = dSᵀ·Q·scale and
+//      dV = P̃ᵀ·g, blockIdx.z choosing the product; each output tile is
+//      written once in q's, k's or v's strides. No atomics.
+//
+// Every product is one 64×64 tile of head_gemm.cuh's tile GEMM (mma.sync;
+// fp32 as 3xTF32), shared with the per-head forward. Its 16-byte copies
+// zero-fill depths past D and rows past L, so any D works (a packed head
+// of D 40 reads exactly its 40 columns).
+#pragma once
+
+#include "head_gemm.cuh"
+
+namespace dft {
+
+// grid (ceil(Lk/64), ceil(Lq/64), 2·B·H): z = 2·(b·H + h) + product.
+// S (product 0) and dP (product 1) are (B·H, Lq, lds) fp32 in the scratch.
+template <typename T, bool PRECISE>
+__global__ void __launch_bounds__(GNT) head_bwd_scores_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ g, float* __restrict__ scores, int heads, int lq,
+    int lk, int d, int lds, Strides qs, Strides ks, Strides vs, Strides gs) {
+  extern __shared__ float4 smem[];  // GemmTile<T>::SMEM bytes
+  const int bh = blockIdx.z >> 1, job = blockIdx.z & 1;
+  const int b = bh / heads, h = bh - b * heads;
+  const Strides as = job ? gs : qs, bs = job ? vs : ks;
+  const size_t plane = (size_t)(gridDim.z >> 1) * lq * lds;
+  score_tile<T, PRECISE>(reinterpret_cast<T*>(smem),
+                         (job ? g : q) + b * as.b + h * as.h, as,
+                         (job ? v : k) + b * bs.b + h * bs.h, bs, lq, lk, d,
+                         scores + job * plane + (size_t)bh * lq * lds, lds);
+}
+
+// One warp per query row of the (B·H·Lq, lds) score rows, four columns a
+// lane at a time (lds is a multiple of 8, so every row is 32-byte aligned
+// and the columns from Lk to lds are padding): m = max(s·scale),
+// l = Σ e with e = exp(s·scale − m), δ = Σ e·dP / l (= Σ P·dP); then
+// P = e / l, and P̃ = P and dS = P·(dP − δ), each rounded to T.
+template <typename T>
+__global__ void __launch_bounds__(32 * ROW_WARPS) head_bwd_rows_kernel(
+    const float* __restrict__ scores, T* __restrict__ pt, T* __restrict__ ds,
+    int rows, int lk, int lds, float scale) {
+  const int row = blockIdx.x * ROW_WARPS + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const size_t plane = (size_t)rows * lds;
+  const float4* s4 = reinterpret_cast<const float4*>(scores + (size_t)row * lds);
+  const float4* dp4 = reinterpret_cast<const float4*>(
+      scores + plane + (size_t)row * lds);
+  const int n4 = (lk + 3) >> 2;
+  const float m = row_max(s4, n4, lk, scale);
+  float l = 0.f, edp = 0.f;
+  for (int j4 = lane; j4 < n4; j4 += 32) {
+    const float4 x = scaled4(s4[j4], j4, lk, scale);
+    const float4 d = dp4[j4];
+    const float e0 = expf(x.x - m), e1 = expf(x.y - m), e2 = expf(x.z - m),
+                e3 = expf(x.w - m);
+    l += (e0 + e1) + (e2 + e3);
+    edp += (e0 * d.x + e1 * (e1 > 0.f ? d.y : 0.f)) +
+           (e2 * (e2 > 0.f ? d.z : 0.f) + e3 * (e3 > 0.f ? d.w : 0.f));
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    l += __shfl_xor_sync(0xffffffffu, l, o);
+    edp += __shfl_xor_sync(0xffffffffu, edp, o);
+  }
+  const float delta = edp / l;
+  T* pr = pt + (size_t)row * lds;
+  T* dr = ds + (size_t)row * lds;
+  for (int j4 = lane; j4 < n4; j4 += 32) {
+    const float4 x = scaled4(s4[j4], j4, lk, scale);
+    const float4 d = dp4[j4];
+    const float p[4] = {expf(x.x - m) / l, expf(x.y - m) / l,
+                        expf(x.z - m) / l, expf(x.w - m) / l};
+    const float dd[4] = {d.x, d.y, d.z, d.w};
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {   // the padding columns get 0
+      pr[4 * j4 + u] = from_f<T>(p[u]);
+      dr[4 * j4 + u] = from_f<T>(p[u] > 0.f ? p[u] * (dd[u] - delta) : 0.f);
+    }
+  }
+}
+
+// grid (ceil(D/64), ceil(max(Lq, Lk)/64), 3·B·H): z = 3·(b·H + h) + product,
+// product 0 dQ = dS·K·scale, 1 dK = dSᵀ·Q·scale, 2 dV = P̃ᵀ·g. dS and P̃
+// are (B·H, Lq, lds) in T.
+template <typename T, bool PRECISE>
+__global__ void __launch_bounds__(GNT) head_bwd_products_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ g,
+    const T* __restrict__ pt, const T* __restrict__ ds, T* __restrict__ dq,
+    T* __restrict__ dk, T* __restrict__ dv, int heads, int lq, int lk, int d,
+    int lds, Strides qs, Strides ks, Strides vs, Strides gs, float scale) {
+  extern __shared__ float4 smem[];  // GemmTile<T>::SMEM bytes
+  const int bh = blockIdx.z / 3, job = blockIdx.z - 3 * bh;
+  const int b = bh / heads, h = bh - b * heads;
+  const int M = job ? lk : lq, K = job ? lq : lk;
+  const int m0 = blockIdx.y * GM, n0 = blockIdx.x * GM;
+  if (m0 >= M) return;
+  const size_t at = (size_t)bh * lq * lds;
+  // A (r, k): dS rows (dQ) or columns (dK: dSᵀ, dV: P̃ᵀ) of the scratch
+  const T* a = (job == 2 ? pt : ds) + at;
+  const long long asr = job ? 1 : lds, ask = job ? lds : 1;
+  // B (n = column of D, k): K for dQ, Q for dK, g for dV
+  const Strides bs = job == 0 ? ks : (job == 1 ? qs : gs);
+  const T* bp = (job == 0 ? k : (job == 1 ? q : g)) + b * bs.b + h * bs.h;
+  float acc[2][4][4];
+  gemm_any<T, PRECISE>(reinterpret_cast<T*>(smem), a, asr, ask, M, bp, bs.d,
+                       bs.l, d, K, m0, n0, acc);
+  const Strides os = job == 0 ? qs : (job == 1 ? ks : vs);
+  T* out = (job == 0 ? dq : (job == 1 ? dk : dv)) + b * os.b + h * os.h;
+  const float mult = job == 2 ? 1.f : scale;
+  for_tile(acc, m0, n0, M, d, [&](int r, int c, float x) {
+    out[r * os.l + c * os.d] = from_f<T>(x * mult);
+  });
+}
+
+template <typename T, bool PRECISE>
+static cudaError_t launch_head_bwd(const void* q, const void* k,
+                                   const void* v, const void* g, void* dq,
+                                   void* dk, void* dv, void* scratch, int b,
+                                   int h, int lq, int lk, int d,
+                                   const Strides* st, float scale,
+                                   cudaStream_t stream) {
+  const int bh = b * h, lds = scratch_ld(lk);
+  const size_t plane = (size_t)bh * lq * lds;
+  float* scores = (float*)scratch;  // S, then dP
+  T* pt = (T*)(scores + 2 * plane);
+  T* ds = pt + plane;
+  constexpr int smem = GemmTile<T>::SMEM;
+  static SmemLimit limit_s, limit_p;
+  cudaError_t err = limit_s.raise(head_bwd_scores_kernel<T, PRECISE>, smem);
+  if (err != cudaSuccess) return err;
+  err = limit_p.raise(head_bwd_products_kernel<T, PRECISE>, smem);
+  if (err != cudaSuccess) return err;
+  dim3 g1((lk + GM - 1) / GM, (lq + GM - 1) / GM, 2 * bh);
+  head_bwd_scores_kernel<T, PRECISE><<<g1, GNT, smem, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const T*)g, scores, h, lq, lk, d,
+      lds, st[0], st[1], st[2], st[3]);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int rows = bh * lq;
+  head_bwd_rows_kernel<T><<<(rows + ROW_WARPS - 1) / ROW_WARPS,
+                            32 * ROW_WARPS, 0, stream>>>(scores, pt, ds, rows,
+                                                         lk, lds, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int lmax = lq > lk ? lq : lk;
+  dim3 g3((d + GM - 1) / GM, (lmax + GM - 1) / GM, 3 * bh);
+  head_bwd_products_kernel<T, PRECISE><<<g3, GNT, smem, stream>>>(
+      (const T*)q, (const T*)k, (const T*)g, pt, ds, (T*)dq, (T*)dk, (T*)dv,
+      h, lq, lk, d, lds, st[0], st[1], st[2], st[3], scale);
+  return cudaGetLastError();
+}
+
+// The whole backward for one dtype code: 1 (cudaErrorInvalidValue) for
+// shapes or strides it does not take (each operand with stride 1 along its
+// rows or its columns), else the cudaError_t of the launches. PRECISE: the
+// fp32 products by gemm_tile's precise accumulation.
+template <bool PRECISE>
+static int head_bwd(const void* q, const void* k, const void* v,
+                    const void* g, void* dq, void* dk, void* dv,
+                    void* scratch, int b, int h, int lq, int lk, int d,
+                    const Strides* st, float scale, int dtype,
+                    void* stream) {
+  if (b < 1 || h < 1 || lq < 1 || lk < 1 || d < 1)
+    return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < 4; ++i)
+    if (st[i].l != 1 && st[i].d != 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == DTYPE_F32)
+    return (int)launch_head_bwd<float, PRECISE>(q, k, v, g, dq, dk, dv,
+                                                scratch, b, h, lq, lk, d, st,
+                                                scale, s);
+  if (dtype == DTYPE_BF16)
+    return (int)launch_head_bwd<__nv_bfloat16, PRECISE>(
+        q, k, v, g, dq, dk, dv, scratch, b, h, lq, lk, d, st, scale, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace dft

@@ -1,5 +1,6 @@
 // The tile GEMM of the per-head attention kernels (attention_head_fwd.cu,
-// attention_head_bwd.cu) on Hopper's tensor cores.
+// and head_bwd.cuh's backward of attention_head_bwd.cu and attention_bwd.cu)
+// on Hopper's tensor cores.
 //
 // gemm_tile computes one 64×64 block tile of C = A·Bᵀ over any depth K:
 // 32-deep k-tiles copied global → shared by 16-byte cp.async, GEMM_STAGES
@@ -121,8 +122,11 @@ __device__ __forceinline__ float tile_at(const T* s, int r, int k) {
 // over the tile's 32 depths. The small terms, ~2⁻¹¹ of the big, go to
 // their own accumulators, so the big chain takes one rounding of the
 // tensor cores' accumulation per 8 depths and the small chain's roundings
-// are ~2⁻¹¹ smaller.
-template <bool AKC, bool BKC>
+// are ~2⁻¹¹ smaller. PRECISE takes each 8-deep product into fresh
+// accumulators and adds it into big and small in fp32 round-to-nearest
+// (the tensor cores' own accumulation then never carries a sum), with
+// the small parts rounded onto TF32 (split_tf32<true>).
+template <bool AKC, bool BKC, bool PRECISE>
 __device__ __forceinline__ void ktile_mma(const float* As, const float* Bs,
                                           int wm, int wn, float big[2][4][4],
                                           float small[2][4][4]) {
@@ -135,23 +139,36 @@ __device__ __forceinline__ void ktile_mma(const float* As, const float* Bs,
     for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        split_tf32(tile_at<float, AKC>(As, wm + mt * 16 + g + (e & 1) * 8,
-                                       ks * 8 + t + (e >> 1) * 4),
-                   ab[mt][e], as[mt][e]);
+        split_tf32<PRECISE>(
+            tile_at<float, AKC>(As, wm + mt * 16 + g + (e & 1) * 8,
+                                ks * 8 + t + (e >> 1) * 4),
+            ab[mt][e], as[mt][e]);
 #pragma unroll
     for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
       for (int e = 0; e < 2; ++e)
-        split_tf32(
+        split_tf32<PRECISE>(
             tile_at<float, BKC>(Bs, wn + nt * 8 + g, ks * 8 + t + e * 4),
             bb[nt][e], bs[nt][e]);
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
       for (int nt = 0; nt < 4; ++nt) {
-        mma_tf32(small[mt][nt], as[mt], bb[nt]);
-        mma_tf32(small[mt][nt], ab[mt], bs[nt]);
-        mma_tf32(big[mt][nt], ab[mt], bb[nt]);
+        if constexpr (PRECISE) {
+          float tb[4] = {0.f, 0.f, 0.f, 0.f}, ts[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_tf32(ts, as[mt], bb[nt]);
+          mma_tf32(ts, ab[mt], bs[nt]);
+          mma_tf32(tb, ab[mt], bb[nt]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            big[mt][nt][e] = __fadd_rn(big[mt][nt][e], tb[e]);
+            small[mt][nt][e] = __fadd_rn(small[mt][nt][e], ts[e]);
+          }
+        } else {
+          mma_tf32(small[mt][nt], as[mt], bb[nt]);
+          mma_tf32(small[mt][nt], ab[mt], bs[nt]);
+          mma_tf32(big[mt][nt], ab[mt], bb[nt]);
+        }
       }
   }
 }
@@ -204,8 +221,10 @@ __device__ __forceinline__ void ktile_mma(const __nv_bfloat16* As,
 // and (N × K) B given as element (r, k) at a[r·asr + k·ask] (one of the two
 // strides is 1: AKC when ask is). Thread results in acc[mt][nt][e] at row
 // m0 + wm + 16mt + g + 8(e/2), column n0 + wn + 8nt + 2t + e%2 (the C
-// fragments), wm = 32·(warp / 2), wn = 32·(warp % 2).
-template <typename T, bool AKC, bool BKC>
+// fragments), wm = 32·(warp / 2), wn = 32·(warp % 2). In fp32 with PRECISE
+// (ktile_mma's) the k-tiles' sums are added into acc with a compensation
+// term (Kahan), so acc carries the whole depth to about one rounding.
+template <typename T, bool AKC, bool BKC, bool PRECISE = false>
 __device__ __forceinline__ void gemm_tile(T* smem, const T* a, long long asr,
                                           long long ask, int M, const T* b,
                                           long long bsr, long long bsk, int N,
@@ -222,6 +241,13 @@ __device__ __forceinline__ void gemm_tile(T* smem, const T* a, long long asr,
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
   const int nk = (K + GK - 1) / GK;
+  float comp[2][4][4];   // PRECISE: acc's lost low-order parts
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) comp[mt][nt][e] = 0.f;
   // k-tile kt into stage kt % GEMM_STAGES; one commit group per k-tile
   // (empty past the end), so that wait<GEMM_STAGES − 2> means "kt landed"
   const TileLoader<T, AKC> la(a, asr, ask, M, K, m0);
@@ -253,14 +279,25 @@ __device__ __forceinline__ void gemm_tile(T* smem, const T* a, long long asr,
 #pragma unroll
           for (int e = 0; e < 4; ++e)
             big[mt][nt][e] = small[mt][nt][e] = 0.f;
-      ktile_mma<AKC, BKC>(As, Bs, wm, wn, big, small);
+      ktile_mma<AKC, BKC, PRECISE>(As, Bs, wm, wn, big, small);
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
         for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
-          for (int e = 0; e < 4; ++e)
-            acc[mt][nt][e] += big[mt][nt][e] + small[mt][nt][e];
+          for (int e = 0; e < 4; ++e) {
+            float& a = acc[mt][nt][e];
+            if constexpr (PRECISE) {
+              const float y = __fsub_rn(
+                  __fadd_rn(big[mt][nt][e], small[mt][nt][e]),
+                  comp[mt][nt][e]);
+              const float sum = __fadd_rn(a, y);
+              comp[mt][nt][e] = __fsub_rn(__fsub_rn(sum, a), y);
+              a = sum;
+            } else {
+              a += big[mt][nt][e] + small[mt][nt][e];
+            }
+          }
     } else {
       ktile_mma<AKC, BKC>(As, Bs, wm, wn, acc);
     }
@@ -268,7 +305,7 @@ __device__ __forceinline__ void gemm_tile(T* smem, const T* a, long long asr,
 }
 
 // gemm_tile with the two orientations chosen at run time
-template <typename T>
+template <typename T, bool PRECISE = false>
 __device__ __forceinline__ void gemm_any(T* smem, const T* a, long long asr,
                                          long long ask, int M, const T* b,
                                          long long bsr, long long bsk, int N,
@@ -276,18 +313,18 @@ __device__ __forceinline__ void gemm_any(T* smem, const T* a, long long asr,
                                          float acc[2][4][4]) {
   if (ask == 1) {
     if (bsk == 1)
-      gemm_tile<T, true, true>(smem, a, asr, ask, M, b, bsr, bsk, N, K, m0,
-                               n0, acc);
+      gemm_tile<T, true, true, PRECISE>(smem, a, asr, ask, M, b, bsr, bsk, N,
+                                        K, m0, n0, acc);
     else
-      gemm_tile<T, true, false>(smem, a, asr, ask, M, b, bsr, bsk, N, K, m0,
-                                n0, acc);
+      gemm_tile<T, true, false, PRECISE>(smem, a, asr, ask, M, b, bsr, bsk, N,
+                                         K, m0, n0, acc);
   } else {
     if (bsk == 1)
-      gemm_tile<T, false, true>(smem, a, asr, ask, M, b, bsr, bsk, N, K, m0,
-                                n0, acc);
+      gemm_tile<T, false, true, PRECISE>(smem, a, asr, ask, M, b, bsr, bsk, N,
+                                         K, m0, n0, acc);
     else
-      gemm_tile<T, false, false>(smem, a, asr, ask, M, b, bsr, bsk, N, K, m0,
-                                 n0, acc);
+      gemm_tile<T, false, false, PRECISE>(smem, a, asr, ask, M, b, bsr, bsk,
+                                          N, K, m0, n0, acc);
   }
 }
 
@@ -312,16 +349,32 @@ __device__ __forceinline__ void for_tile(const float acc[2][4][4], int m0,
 // The block's 64×64 tile of S = A·Bᵀ for one (batch, head): A (Lq, D) and
 // B (Lk, D) with their row and column strides, depth D; written in fp32
 // into score rows of lds elements at out. Tile (blockIdx.y, blockIdx.x).
-template <typename T>
+template <typename T, bool PRECISE = false>
 __device__ __forceinline__ void score_tile(T* smem, const T* a, Strides as,
                                            const T* b, Strides bs, int lq,
                                            int lk, int d, float* out,
                                            int lds) {
   const int m0 = blockIdx.y * GM, n0 = blockIdx.x * GM;
   float acc[2][4][4];
-  gemm_any<T>(smem, a, as.l, as.d, lq, b, bs.l, bs.d, lk, d, m0, n0, acc);
-  for_tile(acc, m0, n0, lq, lk,
-           [&](int r, int c, float x) { out[(size_t)r * lds + c] = x; });
+  gemm_any<T, PRECISE>(smem, a, as.l, as.d, lq, b, bs.l, bs.d, lk, d, m0,
+                       n0, acc);
+  // each pair of neighbouring columns as one 8-byte store (lds is a
+  // multiple of 8, so a pair starting before lk ends inside the row; a
+  // column past lk is padding, which every reader masks)
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = m0 + (warp >> 1) * 32 + (lane >> 2);
+  const int c0 = n0 + (warp & 1) * 32 + 2 * (lane & 3);
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = r0 + mt * 16 + h * 8, c = c0 + nt * 8;
+        if (r < lq && c < lk)
+          *reinterpret_cast<float2*>(out + (size_t)r * lds + c) =
+              make_float2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
+      }
 }
 
 // Scores 4·j4 .. 4·j4 + 3 of a row times scale; the columns at or past lk

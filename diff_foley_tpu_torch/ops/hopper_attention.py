@@ -9,7 +9,9 @@ transpose or copy surrounds a call.
 - :func:`attention_packed_fwd` launches ``csrc/attention_fwd.cu``, which
   replaces ``_attn_packed_kernel`` (``_pallas_forward_packed``).
 - :func:`attention_packed_bwd` launches ``csrc/attention_bwd.cu``, which
-  replaces ``_attn_packed_bwd_kernel`` (``_pallas_backward_packed``).
+  replaces ``_attn_packed_bwd_kernel`` (``_pallas_backward_packed``): the
+  per-head backward's three launches (``csrc/head_bwd.cuh``) over each
+  head of the packed operands read as a strided (B, H, L, D) view.
 - :class:`FlashAttentionPacked` is the ``custom_vjp`` of
   ``flash_attention_packed``: it saves exactly q, k and v.
 - :func:`attention_fwd` launches ``csrc/attention_head_fwd.cu``, which
@@ -30,9 +32,9 @@ backward 10·B·Lq·Lk·H·D on (3·Lq + 4·Lk)·B·H·D. Against the card's ~29
 bf16 operations per byte that makes the forward at Lq = Lk = 1024 (the
 UNet's level-0 self-attention, the VAE's mid attention) and the VAE's
 backward there operation-bound, and every other path shape, the packed
-backward's included, byte-bound. The packed forward in bf16 and the
-per-head forward and backward run on the tensor cores (mma.sync, 3xTF32
-for fp32); the packed backward still uses fp32 FMAs from shared memory.
+backward's included, byte-bound. The packed forward in bf16, the packed
+backward and the per-head forward and backward run on the tensor cores
+(mma.sync, 3xTF32 for fp32).
 
 Each wrapper runs its kernel's plain version when its tensors lie on the
 CPU, launches the kernel when they lie on a CUDA device, and raises
@@ -51,7 +53,8 @@ from .cuda_build import DTYPE_CODES as _DTYPE_CODES, ptr as _ptr, \
 LAUNCHES = {"attn_packed_fwd": 0, "attn_packed_bwd": 0, "attn_fwd": 0,
             "attn_bwd": 0}
 
-# the path's head dims; csrc/attention_common.cuh instantiates these only
+# the path's head dims; csrc/common.cuh::supported_head_dim, the packed
+# entries take these only
 _HEAD_DIMS = (32, 40, 80, 160)
 # the per-head kernel's: the SD VAE's mid attention, and the tiny VAE (ch 32)
 # of chip_smoke.py's agreement run
@@ -145,7 +148,7 @@ _ENTRIES = {   # C entry: (csrc source, argument types)
                             + [ctypes.c_int] * 5
                             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]),
     "dft_attn_packed_bwd": ("attention_bwd", [ctypes.c_void_p] * 8
-                            + [ctypes.c_int] * 5
+                            + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 16
                             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]),
     "dft_attn_fwd": ("attention_head_fwd", [ctypes.c_void_p] * 5
                      + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 16
@@ -192,25 +195,39 @@ def attention_packed_fwd(q3, k3, v3, scale: float, heads: int):
     return o3
 
 
+def packed_head_strides(l: int, heads: int, d: int) -> tuple:
+    """Strides (batch, head, row, column) of head h of a contiguous packed
+    (B, L, H·D) operand read as (B, H, L, D): the strides of
+    :func:`split_heads`' view, without making it."""
+    return (l * heads * d, d, heads * d, 1)
+
+
 def attention_packed_bwd(q3, k3, v3, g3, scale: float, heads: int):
     """(dQ, dK, dV) of :func:`attention_packed_fwd` for output gradient g3,
-    in the operand type. One call launches two grids: dQ per query tile,
-    then dK/dV per key tile."""
+    in the operand type and the packed layout. One call launches the
+    per-head backward's three grids (scores, softmax rows, products) over
+    the heads of the packed operands read in place through
+    :func:`packed_head_strides`, with its scratch
+    (:func:`head_bwd_scratch`). An operand that starts off a 16-byte
+    boundary is copied first."""
     if _on_cpu(q3, k3, v3, g3):
         return attention_packed_backward_reference(q3, k3, v3, g3, scale,
                                                    heads)
     d = _check_packed(q3, k3, v3, heads, g3)
     if g3.shape != q3.shape:
         raise ValueError(f"g {tuple(g3.shape)} must match q {tuple(q3.shape)}")
+    q3, k3, v3, g3 = (t if t.data_ptr() % 16 == 0 else t.clone()
+                      for t in (q3, k3, v3, g3))
     b, lq, _ = q3.shape
     lk = k3.shape[1]
     dq, dk, dv = (torch.empty_like(t) for t in (q3, k3, v3))
-    stats = torch.empty((3, b, heads, lq), dtype=torch.float32,
-                        device=q3.device)
+    sq, sk = packed_head_strides(lq, heads, d), packed_head_strides(lk, heads,
+                                                                    d)
+    scratch = head_bwd_scratch(b, heads, lq, lk, q3.dtype, q3.device)
     _launch("dft_attn_packed_bwd", "attn_packed_bwd", _ptr(q3), _ptr(k3),
-            _ptr(v3), _ptr(g3), _ptr(dq), _ptr(dk), _ptr(dv), _ptr(stats), b,
-            lq, lk, heads, d, float(scale), _DTYPE_CODES[q3.dtype],
-            _stream(q3), device=q3.device)
+            _ptr(v3), _ptr(g3), _ptr(dq), _ptr(dk), _ptr(dv), _ptr(scratch),
+            b, heads, lq, lk, d, *sq, *sk, *sk, *sq, float(scale),
+            _DTYPE_CODES[q3.dtype], _stream(q3), device=q3.device)
     return dq, dk, dv
 
 
@@ -304,9 +321,8 @@ def head_bwd_scratch(b: int, h: int, lq: int, lk: int, dtype,
     dP = g·Vᵀ in fp32, then P̃ and dS in the operand type, each
     (B·H, Lq, scratch_ld(Lk))."""
     plane = b * h * lq * scratch_ld(lk)
-    itemsize = torch.empty((), dtype=dtype).element_size()
-    return torch.empty(plane * (8 + 2 * itemsize) // 4, dtype=torch.float32,
-                       device=device)
+    return torch.empty(plane * (8 + 2 * dtype.itemsize) // 4,
+                       dtype=torch.float32, device=device)
 
 
 def attention_bwd(q, k, v, g, scale: float):

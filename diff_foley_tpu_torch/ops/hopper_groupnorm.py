@@ -4,8 +4,11 @@ Maps are NCHW, so each (sample, group) is one contiguous slab of
 (C / G)·H·W elements.
 
 - :func:`group_norm_block` launches ``csrc/groupnorm.cu::gn_block_kernel``,
-  which replaces ``_gn_kernel`` (``_pallas_forward``): one block per slab,
-  staged in shared memory, one read and one write of x.
+  which replaces ``_gn_kernel`` (``_pallas_forward``): each slab held in
+  the registers of a team of threads (a warp for a small slab, several
+  slabs a block; a cluster of blocks for a slab too large for one block
+  or too few slabs to fill the card), 16-byte loads and stores, one read
+  and one write of x.
 - :func:`group_norm_stream` launches ``gn_stream_stats_kernel`` and
   ``gn_stream_apply_kernel``, which replace ``_stream_stats_kernel`` and
   ``_stream_apply_kernel`` (``_streaming_forward``): partial (Σx, Σx²)
@@ -42,7 +45,7 @@ from .cuda_build import DTYPE_CODES as _DTYPE_CODES, ptr as _ptr, \
 
 LAUNCHES = {"gn_block": 0, "gn_stream_stats": 0, "gn_stream_apply": 0}
 
-# the block kernel stages a whole slab in shared memory; larger slabs stream
+# the block kernel holds a whole slab in registers; larger slabs stream
 BLOCK_SLAB_BYTES = 128 * 1024
 STREAM_CHUNK = 16384   # elements of a slab per stats block
 
@@ -150,6 +153,7 @@ _ARGTYPES = {
     + [ctypes.c_void_p],
     "dft_gn_stream_apply": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
     + [ctypes.c_void_p],
+    "dft_gn_silu_check": [ctypes.c_void_p] * 2,
 }
 
 
@@ -159,7 +163,8 @@ def _launch(fn: str, key: str, *args, device):
 
 
 def group_norm_block(x, gamma, beta, groups: int, eps: float, act=None):
-    """GroupNorm(+SiLU) of an NCHW map, one block per (sample, group) slab."""
+    """GroupNorm(+SiLU) of an NCHW map, one launch over every (sample,
+    group) slab, each held in registers."""
     if _on_cpu(x, gamma, beta):
         return group_norm_reference(x, gamma, beta, groups, eps, act)
     _check(x, groups, gamma, beta)
@@ -207,6 +212,19 @@ def stream_apply(x, a, b, act=None):
             int(act == "silu"), _DTYPE_CODES[x.dtype], _stream(x),
             device=x.device)
     return y
+
+
+def silu_division_check(device) -> tuple[int, int]:
+    """The block kernel's branch-free SiLU division against ``__fdiv_rn``
+    over every fp32 input f (divisor 1 + exp(−f)) on a CUDA device: (inputs
+    where the two differ bit for bit, inputs in the branch-free range). The
+    rest go through ``__fdiv_rn`` itself."""
+    counts = torch.zeros(2, dtype=torch.int64, device=device)
+    cuda_build.launch("groupnorm", "dft_gn_silu_check",
+                      _ARGTYPES["dft_gn_silu_check"], _ptr(counts),
+                      _stream(counts), device=counts.device)
+    off, taken = counts.tolist()
+    return off, taken
 
 
 def group_norm_stream(x, gamma, beta, groups: int, eps: float, act=None):

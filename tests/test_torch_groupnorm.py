@@ -233,3 +233,54 @@ def test_cuda_groupnorm_kernels_ragged_shapes(shape):
     for out, ref in pairs:
         rms = float(ref.square().mean().sqrt())
         assert float((out - ref).abs().max()) <= 1e-5 * rms
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,dtype,pdtype,offset", [
+    ((2, 64, 7, 9), torch.bfloat16, None, 0),     # 252-byte slabs
+    ((2, 96, 5, 7), torch.bfloat16, None, 0),     # cg·HW = 105, odd
+    ((3, 32, 3, 5), torch.float32, None, 0),      # cg·HW = 15, odd
+    ((2, 512, 32, 128), torch.bfloat16, None, 0),   # exactly 128 KB
+    ((2, 256, 32, 128), torch.float32, None, 0),    # exactly 128 KB
+    ((2, 512, 32, 128), torch.bfloat16, torch.float32, 0),
+    ((2, 512, 32, 128), torch.bfloat16, None, 1),   # x off 16-byte alignment
+])
+def test_cuda_groupnorm_block_edge_slabs(shape, dtype, pdtype, offset):
+    """The block kernel where its 16-byte units do not fit (a slab that is
+    not a multiple of 16 bytes, odd cg·HW, an x off 16-byte alignment) and
+    at exactly the 128 KB budget (a slab split over a cluster), with γ and
+    β in x's type or fp32, one launch a call, against its plain version at
+    chip_smoke.py's limits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    gen = torch.Generator("cuda").manual_seed(2)
+    x, gamma, beta = _gpu_inputs(shape, dtype, gen)
+    if pdtype is not None:
+        gamma, beta = gamma.to(pdtype), beta.to(pdtype)
+    if offset:
+        flat = torch.empty(x.numel() + offset, dtype=dtype, device="cuda")
+        x = flat[offset:].view(shape).copy_(x)
+        assert x.is_contiguous() and x.data_ptr() % 16
+    assert not hg.uses_stream(shape, 32, x.element_size())
+    before = hg.LAUNCHES["gn_block"]
+    out = hg.group_norm_block(x, gamma, beta, 32, 1e-6, "silu")
+    ref = hg.group_norm_reference(x, gamma, beta, 32, 1e-6, "silu")
+    torch.cuda.synchronize()
+    assert hg.LAUNCHES["gn_block"] == before + 1 and out.dtype == dtype
+    max_tol, rms_tol = (0.15, 2e-4) if dtype == torch.bfloat16 else (1e-5,
+                                                                     4e-7)
+    o, r = out.double(), ref.double()
+    rms = float(r.square().mean().sqrt())
+    assert float((o - r).abs().max()) <= max_tol * rms
+    assert float((o - r).square().mean().sqrt()) <= rms_tol * rms
+
+
+@pytest.mark.gpu
+def test_cuda_silu_division_is_fdiv_rn():
+    """The block kernel's branch-free SiLU division equals __fdiv_rn bit for
+    bit over every fp32 input in its range, and the range holds most of
+    them (the rest go through __fdiv_rn itself)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    off, taken = hg.silu_division_check("cuda")
+    assert off == 0 and taken > 2**31

@@ -328,8 +328,7 @@ def test_cuda_kernels_match_plain(kind, dtype):
         refs = (ha.attention_packed_reference(q, k, v, d**-0.5, heads),)
     else:
         outs = ha.attention_packed_bwd(q, k, v, g, d**-0.5, heads)
-        refs = ha.attention_packed_backward_reference(q, k, v, g, d**-0.5,
-                                                      heads)
+        refs = _packed_backward_yardstick(q, k, v, g, d**-0.5, heads)
     torch.cuda.synchronize()
     assert ha.LAUNCHES[f"attn_packed_{kind}"] == before[
         f"attn_packed_{kind}"] + 1
@@ -341,14 +340,15 @@ def test_cuda_kernels_match_plain(kind, dtype):
         ("bwd", torch.bfloat16): (0.25, 0.015)}[(kind, dtype)]
     for o, r in zip(outs, refs):
         assert o.dtype == dtype
-        o, r = o.float(), r.float()
+        o, r = o.double(), r.double()
         rms = float(r.square().mean().sqrt())
         assert float((o - r).abs().max()) <= max_tol * rms
         assert float((o - r).square().mean().sqrt()) <= rms_tol * rms
 
 
 @pytest.mark.parametrize("d,ok", [(32, True), (40, True), (80, True),
-                                  (160, True), (64, False), (48, False)])
+                                  (160, True), (64, False), (48, False),
+                                  (16, False), (20, False), (512, False)])
 def test_kernel_wrappers_take_the_path_head_dims(d, ok):
     # the CUDA sources instantiate the path's head dims only
     heads = 2
@@ -464,6 +464,32 @@ def test_per_head_backward_scratch(dtype, lk, lds, mib):
     assert t.dtype == torch.float32 and t.dim() == 1
     assert t.numel() * 4 == 4 * 1024 * lds * (8 + 2 * dtype.itemsize)
     assert t.numel() * 4 / 2**20 == mib
+
+
+@pytest.mark.parametrize("d", [32, 40, 80, 160])
+def test_packed_backward_reads_heads_in_place(d):
+    # the packed backward hands each head of a contiguous (B, L, H·D)
+    # operand to csrc/head_bwd.cuh as the view (B, H, L, D) with strides
+    # (L·H·D, D, H·D, 1), no copy; its 16-byte copies take those strides in
+    # both types, and the scratch is the per-head backward's for (B, H, Lq,
+    # Lk): 24 MiB in bf16 at the classifier's (4, 8, 256, 256)
+    b, heads, l = 4, 8, 256
+    for dtype in (torch.float32, torch.bfloat16):
+        t = torch.zeros((b, l, heads * d), dtype=dtype)
+        view = ha.split_heads(t, heads)
+        assert view.shape == (b, heads, l, d)
+        assert view.stride() == ha.packed_head_strides(l, heads, d) == (
+            l * heads * d, d, heads * d, 1)
+        assert view.data_ptr() == t.data_ptr()
+        assert ha._cp_async_ready(view)
+        assert torch.equal(ha.merge_heads(view), t)
+        scratch = ha.head_bwd_scratch(b, heads, l, l, dtype, "meta")
+        assert scratch.numel() * 4 == b * heads * l * l * (8 + 2 * dtype.itemsize)
+    assert ha.head_bwd_scratch(b, heads, l, l, torch.bfloat16,
+                               "meta").numel() * 4 / 2**20 == 24.0
+    # a ragged Lk pads the scratch rows to 8 elements: 72 → 72, 30 → 32
+    assert ha.head_bwd_scratch(2, heads, 200, 30, torch.float32,
+                               "meta").numel() == 2 * heads * 200 * 32 * 4
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -588,6 +614,47 @@ def _backward_yardstick(q, k, v, g, scale):
     if q.dtype == torch.float32:
         q, k, v, g = (t.double() for t in (q, k, v, g))
     return ha.attention_backward_reference(q, k, v, g, scale)
+
+
+def _packed_backward_yardstick(q3, k3, v3, g3, scale, heads):
+    """What the packed backward kernel is held to on the card, as the
+    per-head one (``_backward_yardstick``): the plain version in bf16, for
+    fp32 the plain version on float64 copies."""
+    if q3.dtype == torch.float32:
+        q3, k3, v3, g3 = (t.double() for t in (q3, k3, v3, g3))
+    return ha.attention_packed_backward_reference(q3, k3, v3, g3, scale,
+                                                  heads)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [32, 40, 80, 160])
+@pytest.mark.parametrize("lq,lk", [(200, 72), (130, 32)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_packed_backward_head_dims(dtype, d, lq, lk):
+    """The packed backward (tensor cores, csrc/head_bwd.cuh over the packed
+    heads) at each path head dim, Lq ≠ Lk off the 64-row tiles and the
+    cross-attention's single key tile (Lk 32), one launch a call, against
+    the yardstick at chip_smoke.py's limits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    gen = torch.Generator("cuda").manual_seed(d + lq)
+    heads = 4
+    q, k, v, g = (torch.randn((2, n, heads * d), generator=gen,
+                              device="cuda").to(dtype)
+                  for n in (lq, lk, lk, lq))
+    before = ha.LAUNCHES["attn_packed_bwd"]
+    outs = ha.attention_packed_bwd(q, k, v, g, d**-0.5, heads)
+    refs = _packed_backward_yardstick(q, k, v, g, d**-0.5, heads)
+    torch.cuda.synchronize()
+    assert ha.LAUNCHES["attn_packed_bwd"] == before + 1
+    max_tol, rms_tol = {torch.float32: (1e-5, 5e-7),
+                        torch.bfloat16: (0.25, 0.015)}[dtype]
+    for o, r, t in zip(outs, refs, (q, k, v)):
+        assert o.dtype == dtype and o.shape == t.shape and o.is_contiguous()
+        o, r = o.double(), r.double()
+        rms = float(r.square().mean().sqrt())
+        assert float((o - r).abs().max()) <= max_tol * rms
+        assert float((o - r).square().mean().sqrt()) <= rms_tol * rms
 
 
 @pytest.mark.gpu

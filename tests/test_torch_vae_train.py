@@ -11,11 +11,13 @@ term gated off, the second with it on.
 """
 import json
 
+import chip_smoke
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from diff_foley_tpu.models import vae as jv
 from diff_foley_tpu.train import vae as jtv
@@ -239,3 +241,52 @@ def test_cli_trains_checkpoints_and_resumes_on_cpu(tmp_path):
     if not torch.cuda.is_available():   # the default device is the card
         with pytest.raises(RuntimeError, match="CUDA"):
             cli.main(["--spec-dir", str(specs)])
+
+
+def _kink_inputs():
+    """An input with elements well away from zero, some within
+    chip_smoke.KINK_MARGIN·rms of it, and exact zeros."""
+    x = torch.as_tensor(np.random.default_rng(40).standard_normal((2, 8, 6, 5)),
+                        dtype=torch.float32)
+    rms = float(x.double().square().mean().sqrt())
+    x[0, 0, 0, :3] = torch.tensor([0.3, -0.2, 0.5]) * chip_smoke.KINK_MARGIN * rms
+    x[1, 2, 3, 0] = 0.0
+    return x, float(x.double().square().mean().sqrt())
+
+
+def test_kinked_leaky_relu_is_leaky_relu_on_its_own_branches():
+    # value and gradient equal F.leaky_relu's when the branches are x > 0
+    x, _ = _kink_inputs()
+    a, b = x.clone().requires_grad_(), x.clone().requires_grad_()
+    w = torch.randn(x.shape, generator=torch.Generator().manual_seed(1))
+    ya = chip_smoke.kinked_leaky_relu(a, 0.2, a.detach() > 0)
+    yb = F.leaky_relu(b, 0.2)
+    assert torch.equal(ya, yb)
+    (ya * w).sum().backward()
+    (yb * w).sum().backward()
+    assert torch.equal(a.grad, b.grad)
+
+
+def test_kink_replay_follows_the_record_within_the_margin():
+    # recorded on one side, replayed on the other: inside the margin the
+    # branch is the record's (value x or 0.2·x, gradient 1 or 0.2), every
+    # other element F.leaky_relu's own; the flips are counted
+    x, rms = _kink_inputs()
+    other = x.clone()
+    other[0, 0, 0, :3] = -other[0, 0, 0, :3]    # the other device's side
+    other[0, 1] = -other[0, 1]                  # far from zero: not taken
+    with chip_smoke.KinkSides() as record:
+        F.leaky_relu(other, 0.2)
+    assert len(record.inputs) == 1 and torch.equal(record.inputs[0], other)
+    x.requires_grad_()
+    with chip_smoke.KinkSides(record.inputs) as replay:
+        y = F.leaky_relu(x, 0.2)
+    y.sum().backward()
+    near = x.detach().abs() <= chip_smoke.KINK_MARGIN * rms
+    assert int(near.sum()) == 4   # three near the kink and the zero
+    pos = torch.where(near, other > 0, x.detach() > 0)
+    assert torch.equal(y.detach(), torch.where(pos, x.detach(), 0.2 * x.detach()))
+    assert torch.equal(x.grad, torch.where(pos, 1.0, 0.2))
+    assert torch.equal(y.detach()[~near], F.leaky_relu(x.detach(), 0.2)[~near])
+    assert replay.flips == 3 and replay.gap == pytest.approx(
+        float((x.detach() - other).abs().max()) / rms)

@@ -3,9 +3,10 @@
     python3 chip_smoke.py            # build, kernels, pipelines, trainer,
                                      # agreement
     python3 chip_smoke.py --profile  # also torch.profiler over two steps
-                                     # of each sampler and of the trainer
+                                     # of each sampler (the video run's
+                                     # too) and of the trainer
     python3 chip_smoke.py --train-agreement 40   # build, then only the tiny
-                                     # train-step agreement (phase 6) 40
+                                     # train-step agreement (phase 7) 40
                                      # times: failures / runs
 
 1. Build the CUDA kernels from ``diff_foley_tpu_torch/csrc`` (in parallel);
@@ -13,16 +14,18 @@
    kernel's SASS (``cuobjdump -sass``): the rebuilt attention kernels must
    hold some.
 2. Kernel phase: each kernel against its plain PyTorch version at every
-   shape of the main paths, in bf16 and once in fp32, with times beside the
+   shape of the main paths, in bf16 and fp32, with times beside the
    plain version's, one PyTorch call for the same function (SDPA,
    F.group_norm then F.silu: yardsticks the port never calls) and the
    card's bound; beside the event time of back-to-back calls, the device
    time of the kernel's own symbols (torch.profiler). Every planted fault
    of a kernel (two for each per-head kernel) must fail the same check.
-   The fp32 per-head kernels sum on the tensor cores in another order than
-   cuBLAS's fp32 products in their plain versions, whose own error may
-   exceed the limit: they are held to the plain version on float64 copies
-   of their operands, at the same limits.
+   The fp32 per-head kernels and the fp32 packed backward sum on the
+   tensor cores in another order than cuBLAS's fp32 products in their
+   plain versions, whose own error may exceed the limit: they are held to
+   the plain version on float64 copies of their operands, at the same
+   limits. The fp32 packed forward is held to its plain version in fp32;
+   the distances of both to float64 are printed beside.
 3. ``DiffFoleyPipeline.generate`` at full width (the 860M LDM UNet and the
    alignment classifier in bf16, the SD VAE in bf16, seeded random
    weights), 2 windows × 2 samples, 25 DPM-Solver++ steps, CFG 4.5,
@@ -32,9 +35,20 @@
    window are kept. Stage times, the distance to the canvas's VAE
    roundtrip per region, and the contract check (a fully known canvas
    lands ten times closer to the roundtrip than free generation).
-   Before each main-path run (3, 4 and 5) the launch counts are reset;
-   read just after, they must equal what the model structure predicts.
-5. ``cli.train_vae`` at the full width of ``SD_VAE`` in float32: seeded mel
+5. The video entry, ``DiffFoley.generate_for_video``: a seeded 8.5-s,
+   30-fps, 224×224 MJPG clip (cv2), 1 window × 4 samples, the UNet and the
+   VAE in bf16, the alignment classifier, the cond encoder and the CAVP
+   towers (SlowOnly-R50, CNN14, seeded random weights and BatchNorm
+   statistics) in fp32; first and warm seconds by stage (frame decode,
+   CAVP, sampler, VAE decode, Griffin-Lim) around the main-path call,
+   peak memory, the CAVP tower's device time, its features on the GPU
+   against the CPU's. Then
+   ``cli.generate --random-weights --bf16`` once on the same clip: four
+   int16 16-kHz wavs of 131072 samples and four spec files.
+   Before each main-path run (3, 4, 5, 5's CLI run and 6) the launch
+   counts are reset; read just after, they must equal what the model
+   structure predicts, by kernel and operand dtype.
+6. ``cli.train_vae`` at the full width of ``SD_VAE`` in float32: seeded mel
    ``.npy`` files in a temporary directory, batch 4, ``--disc-start 0`` (the
    GAN term, the adaptive weight and the discriminator step all run), a
    raised learning rate. Every metric finite, ``nll_loss`` falls,
@@ -43,8 +57,9 @@
    saved step. First-step and warm seconds per step, split generator /
    discriminator, peak memory, the plain GroupNorm backward's cost, and one
    step with the LPIPS hook on (random weights).
-6. Agreement: tiny ``generate`` and ``inpaint`` and two tiny VAE train
-   steps in float32 on the GPU (kernels) against the same on the CPU (plain
+7. Agreement: tiny ``generate``, ``inpaint``, ``DiffFoley.extract_features``
+   plus ``generate_from_features``, and two tiny VAE train steps in
+   float32 on the GPU (kernels) against the same on the CPU (plain
    versions), shared noise and phase. Each train step starts from equal
    states, and the CPU takes the GPU's branch at every leaky_relu input
    within rounding of zero; a planted gradient fault must be caught.
@@ -63,17 +78,21 @@ import subprocess
 import sys
 import tempfile
 import time
+import wave
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from diff_foley_tpu_torch.api import DiffFoley
 from diff_foley_tpu_torch.audio.transforms import mel_to_wav
+from diff_foley_tpu_torch.cli import generate as generate_cli
 from diff_foley_tpu_torch.cli import train_vae as train_vae_cli
 from diff_foley_tpu_torch.data.ldm_dataset import SpecDataset
 from diff_foley_tpu_torch.diffusion.latent_diffusion import (LatentDiffusion,
                                                               LDMConfig)
 from diff_foley_tpu_torch.models.attention import SpatialTransformer
+from diff_foley_tpu_torch.models.cavp import CAVPConfig, CAVPModel
 from diff_foley_tpu_torch.models.layers import (Downsample, GroupNorm32,
                                                 Upsample)
 from diff_foley_tpu_torch.models.unet import (CLASSIFIER_BACKBONE, LDM_UNET,
@@ -87,11 +106,13 @@ from diff_foley_tpu_torch.pipeline import (LATENT_HW, SPEC_HW, WINDOW_FEATS,
                                            WINDOW_SAMPLES, DiffFoleyPipeline,
                                            GenerationConfig,
                                            continuation_mask,
-                                           spec_mask_to_latent)
+                                           spec_mask_to_latent,
+                                           window_features)
 from diff_foley_tpu_torch.train.perceptual import LPIPS, make_lpips_fn
 from diff_foley_tpu_torch.train.vae import VAETrainConfig, VAETrainer
 from diff_foley_tpu_torch.train.vae_losses import VAELossConfig
 from diff_foley_tpu_torch.utils.init import randomize_
+from diff_foley_tpu_torch.video.ingest import encode_frames, extract_frames
 
 PEAK_BF16 = 989e12    # H100 SXM dense bf16 tensor-core FLOP/s
 PEAK_FP32 = 67e12     # H100 SXM fp32 FLOP/s outside the tensor cores
@@ -100,6 +121,11 @@ PEAK_FP32 = 67e12     # H100 SXM fp32 FLOP/s outside the tensor cores
 PEAK_FP32_PRODUCTS = 495e12 / 3
 HBM_BYTES_S = 3.35e12
 WINDOWS, SAMPLES, STEPS = 2, 2, 25
+# the video entry: one 8.192-s window of a 30-fps 224×224 clip, 4 samples;
+# its latent batch equals generate's (2 windows × 2 samples), so the two
+# runs share the kernel shapes of the UNet and the VAE decoder
+VIDEO_SAMPLES, VIDEO_SECONDS, VIDEO_FPS, FRAME = 4, 8.5, 30.0, 224
+assert VIDEO_SAMPLES == WINDOWS * SAMPLES
 KEEP_FRAMES = 256     # inpaint keeps the first 256 frames of each window
 # the trainer: batch, steps of the main-path call, and a learning rate
 # raised from the shipped 4.5e-6 so that six steps show nll_loss falling
@@ -150,12 +176,14 @@ SYMBOLS = {"fwd": ("attn_packed_fwd",), "bwd": ("head_bwd_",),
            "head": ("head_fwd_",), "head_bwd": ("head_bwd_",),
            "gn": ("gn_block_kernel",), "stats": ("gn_stream_stats_kernel",),
            "apply": ("gn_stream_apply_kernel",)}
-RUNS = ("generate", "inpaint", "train_vae")
+RUNS = ("generate", "inpaint", "train_vae", "video")
 
 
-def calls(generate: int = 0, inpaint: int = 0, train_vae: int = 0) -> dict:
+def calls(generate: int = 0, inpaint: int = 0, train_vae: int = 0,
+          video: int = 0) -> dict:
     """Calls of one kernel shape in each main-path run."""
-    return {"generate": generate, "inpaint": inpaint, "train_vae": train_vae}
+    return {"generate": generate, "inpaint": inpaint, "train_vae": train_vae,
+            "video": video}
 
 
 def log(*a):
@@ -214,8 +242,16 @@ def reset_counts():
     hg.reset_launch_counts()
 
 
-def read_counts():
-    return {**ha.LAUNCHES, **hg.LAUNCHES}
+def read_counts() -> dict:
+    """{"kernel/dtype": launches} since the last reset."""
+    both = {**ha.LAUNCHES_BY_DTYPE, **hg.LAUNCHES_BY_DTYPE}
+    return {f"{k}/{dt}": n for (k, dt), n in sorted(both.items()) if n}
+
+
+def by_kernel(counts: dict) -> dict:
+    """{kernel: launches} of a ``read_counts`` dict, every kernel listed."""
+    return {name: sum(n for key, n in counts.items()
+                      if key.split("/")[0] == name) for name in KERNELS}
 
 
 # ---- the path's shapes, from the model structure ----------------------------
@@ -269,14 +305,18 @@ def gn_kernels(channels: int, h: int, w: int, itemsize: int):
 
 def gn_path(pipe, n: int, steps: int):
     """{(model, batch, channels, h, w, eps, act, dtype): {run: calls}} of
-    every GroupNorm32 call in one generate, one inpaint and one train_vae
-    run. The trainer's VAE has the pipeline's structure, in float32; only
-    its forward launches GroupNorm kernels."""
+    every GroupNorm32 call in one generate, one inpaint, one train_vae and
+    one video run. The trainer's VAE has the pipeline's structure, in
+    float32, and so has the video run's classifier; only their forwards
+    launch GroupNorm kernels."""
     vae = pipe.ldm.vae
     models = (("unet", pipe.ldm.unet, LATENT_HW, 2 * n, BF16,
-               calls(steps, steps)),
+               calls(steps, steps, video=steps)),
               ("clf", pipe.classifier, LATENT_HW, n, BF16, calls(steps, steps)),
-              ("vae-dec", vae.decoder, LATENT_HW, n, BF16, calls(1, 1)),
+              ("clf", pipe.classifier, LATENT_HW, n, FP32,
+               calls(video=steps)),
+              ("vae-dec", vae.decoder, LATENT_HW, n, BF16,
+               calls(1, 1, video=1)),
               ("vae-enc", vae.encoder, SPEC_HW, WINDOWS, BF16, calls(0, 1)),
               ("train-enc", vae.encoder, SPEC_HW, TRAIN_BATCH, FP32,
                calls(train_vae=TRAIN_STEPS)),
@@ -292,29 +332,35 @@ def gn_path(pipe, n: int, steps: int):
 
 
 def predicted_launches(pipe, steps: int):
-    """{run: {kernel: launches}} from the module structure. The classifier
-    backward recomputes GroupNorm through the plain formula, so only its
-    forward launches GroupNorm kernels."""
+    """{run: {"kernel/dtype": launches}} from the module structure. The
+    UNet and the VAE run bf16 in every sampling run; the classifier bf16 in
+    generate and inpaint, fp32 in the video run (as the JAX package's
+    ``DiffFoley``). The classifier backward recomputes GroupNorm through
+    the plain formula, so only its forward launches GroupNorm kernels."""
     count = lambda m: sum(2 * x.depth for x in m.modules()
                           if isinstance(x, SpatialTransformer))
     unet, clf = count(pipe.ldm.unet), count(pipe.classifier)
-    pred = {run: dict.fromkeys(KERNELS, 0) for run in RUNS}
-    for run in ("generate", "inpaint"):
-        pred[run]["attn_packed_fwd"] = steps * (unet + clf)
-        pred[run]["attn_packed_bwd"] = steps * clf
+    pred = {run: collections.Counter() for run in RUNS}
+    clf_dtype = {"generate": "bfloat16", "inpaint": "bfloat16",
+                 "video": "float32"}
+    for run, dt in clf_dtype.items():
+        pred[run]["attn_packed_fwd/bfloat16"] += steps * unet
+        pred[run][f"attn_packed_fwd/{dt}"] += steps * clf
+        pred[run][f"attn_packed_bwd/{dt}"] += steps * clf
         # the VAE's mid attention: the decoder, and in inpaint the encoder
-        pred[run]["attn_fwd"] = 1 if run == "generate" else 2
+        pred[run]["attn_fwd/bfloat16"] += 2 if run == "inpaint" else 1
     # a train step: the encoder's and the decoder's mid attention, forward
     # and backward once each. The two autograd.grad probes of the adaptive
     # weight stop at the decoder's last kernel and add none.
-    pred["train_vae"]["attn_fwd"] = pred["train_vae"]["attn_bwd"] = \
-        2 * TRAIN_STEPS
+    pred["train_vae"]["attn_fwd/float32"] = 2 * TRAIN_STEPS
+    pred["train_vae"]["attn_bwd/float32"] = 2 * TRAIN_STEPS
     for (_, _, c, h, w, _, _, dtype), per_run in gn_path(
             pipe, WINDOWS * SAMPLES, steps).items():
         for k in gn_kernels(c, h, w, dtype.itemsize):
             for run in RUNS:
-                pred[run][k] += per_run[run]
-    return pred
+                pred[run][f"{k}/{str(dtype).split('.')[-1]}"] += per_run[run]
+    return {run: {k: n for k, n in sorted(c.items()) if n}
+            for run, c in pred.items()}
 
 
 # ---- the kernel phase ---------------------------------------------------------
@@ -584,6 +630,18 @@ def check_packed(kind: str, tag, b, lq, lk, hd, heads, dtype, gen):
     row = run_check(kind, dtype, kern, plain, faulty, lib,
                     bound_ms(kind, b, lq, lk, hd, q.element_size(), peak),
                     exact)
+    if kind == "fwd" and dtype == FP32:
+        # recorded beside, not held: the fp32 forward keeps the plain
+        # version in fp32 as its yardstick. Against float64 the scores'
+        # fp32 rounding alone puts any fp32 forward ~5e-6–1e-5 of rms off
+        # at the classifier's shapes, the plain version too (8.2e-6 at
+        # clf-1-self on an H100, over the 5e-6 limit)
+        ref64 = ha.attention_packed_reference(
+            *(t.double() for t in (q, k, v)), scale, heads)
+        row["float64_ratios"] = list(agreement(
+            (kern(),), (ref64,), kind, dtype)[2:])
+        row["plain_float64_ratios"] = list(agreement(
+            (plain(),), (ref64,), kind, dtype)[2:])
     return {"shape": tag, "B": b, "Lq": lq, "Lk": lk, "HD": hd, "D": d,
             **row}
 
@@ -681,13 +739,24 @@ def kernel_phase(pipe):
     gen = torch.Generator("cuda").manual_seed(0)
     rows = []
     for tag, b, lq, lk, hd, heads, per_step in path_shapes(n, WINDOW_FEATS):
-        per_run = calls(STEPS * per_step, STEPS * per_step)
+        calls_step = STEPS * per_step
+        clf = tag.startswith("clf")
+        # the classifier runs bf16 in generate and inpaint, fp32 in the
+        # video run; the UNet bf16 in all three
+        per_run = calls(calls_step, calls_step,
+                        video=0 if clf else calls_step)
         rows.append(("attn_packed_fwd", {**check_packed(
             "fwd", tag, b, lq, lk, hd, heads, BF16, gen), "calls": per_run}))
-        if tag.startswith("clf"):
+        if clf:
+            video = calls(video=calls_step)
             rows.append(("attn_packed_bwd", {**check_packed(
                 "bwd", tag, b, lq, lk, hd, heads, BF16, gen),
                 "calls": per_run}))
+            for kind, name in (("fwd", "attn_packed_fwd"),
+                               ("bwd", "attn_packed_bwd")):
+                rows.append((name, {**check_packed(
+                    kind, tag, b, lq, lk, hd, heads, FP32, gen),
+                    "calls": video}))
     d = SD_VAE.ch * SD_VAE.ch_mult[-1]
     l = LATENT_HW[0] * LATENT_HW[1]
     rows.append(("attn_fwd", {**check_head("vae-enc-mid", WINDOWS, l, l, d,
@@ -695,7 +764,7 @@ def kernel_phase(pipe):
                               "calls": calls(0, 1)}))
     rows.append(("attn_fwd", {**check_head("vae-dec-mid", n, l, l, d, BF16,
                                            gen),
-                              "calls": calls(1, 1)}))
+                              "calls": calls(1, 1, video=1)}))
     # the train step's mid attention, encoder and decoder alike: forward
     # and backward in fp32 at the train batch
     both = calls(train_vae=2 * TRAIN_STEPS)
@@ -715,13 +784,11 @@ def kernel_phase(pipe):
         tag = f"{model}-{c}x{h}x{w}"
         for name, r in check_gn(tag, b, c, h, w, eps, act, dtype, gen):
             rows.append((name, {**r, "calls": per_run}))
-    # the bf16 paths' kernels once in fp32: the UNet's level-0 cross shape,
-    # the classifier's level-1 self shape and a UNet level-0 norm (the
-    # per-head forward and the VAE's norms have the trainer's fp32 rows)
+    # the bf16-only kernels once in fp32: the UNet's level-0 cross shape and
+    # a UNet level-0 norm (the classifier's have the video run's fp32 rows,
+    # the per-head forward and the VAE's norms the trainer's)
     rows.append(("attn_packed_fwd", check_packed(
         "fwd", "unet-0-cross", 2 * n, 1024, WINDOW_FEATS, 320, 8, FP32, gen)))
-    rows.append(("attn_packed_bwd", check_packed(
-        "bwd", "clf-1-self", n, 256, 256, 256, 8, FP32, gen)))
     # the packed backward at the UNet's head dims 40, 80 and 160 (its self
     # attention at levels 0, 1 and 2), which stage-2 training will run; no
     # call on today's paths
@@ -788,7 +855,7 @@ def summarize(rows, launches):
         out.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": sum(launches[run][name] for run in RUNS),
+            "launches": sum(by_kernel(launches[run])[name] for run in RUNS),
             "max_abs_err": max(r["max_abs_err"] for k, r in rows if k == name),
             "ms": total("kernel_ms"), "device_ms": total("device_ms"),
             "plain_ms": total("plain_ms"),
@@ -797,7 +864,8 @@ def summarize(rows, launches):
             else "bytes",
             "library_ms": total("library_ms"),
             "library_device_ms": total("library_device_ms"),
-            **{f"launches_{run}": launches[run][name] for run in RUNS},
+            **{f"launches_{run}": by_kernel(launches[run])[name]
+               for run in RUNS},
             **{f"{key}_{run}": total(
                 f"{'kernel_' if key == 'ms' else ''}{key}", (run,))
                for key in ("ms", "device_ms", "plain_ms", "bound_ms",
@@ -827,11 +895,12 @@ def check_launches(run: str, launches, expect):
         raise AssertionError(f"{run} launch counts {launches} != {expect}")
 
 
-def check_outputs(out, what: str):
+def check_outputs(out, what: str, samples: int = SAMPLES,
+                  windows: int = WINDOWS):
     wav, spec = out["wav"], out["spec"]
-    if wav.shape != (SAMPLES, WINDOWS * WINDOW_SAMPLES) or wav.dtype != np.int16:
+    if wav.shape != (samples, windows * WINDOW_SAMPLES) or wav.dtype != np.int16:
         raise AssertionError(f"{what} wav {wav.shape} {wav.dtype}")
-    if spec.shape != (SAMPLES, 128, WINDOWS * 512) or not np.isfinite(spec).all():
+    if spec.shape != (samples, 128, windows * 512) or not np.isfinite(spec).all():
         raise AssertionError(f"{what} spec {spec.shape} "
                              f"finite={np.isfinite(spec).all()}")
     if not (spec.min() >= 0.0 and spec.max() <= 1.0):
@@ -988,6 +1057,186 @@ def inpaint_phase(pipe, feats, spec, expect, profile: bool):
                       "generated_mean_abs_delta": generated,
                       "contract_inpaint": float(err_in),
                       "contract_free": float(err_free)}
+
+
+# ---- the video entry ---------------------------------------------------------
+
+def have_cv2() -> bool:
+    try:
+        import cv2  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
+def write_clip(path: str, seconds: float = VIDEO_SECONDS,
+               fps: float = VIDEO_FPS, size: int = FRAME, seed: int = 0):
+    """A seeded constant-rate MJPG clip: coarse random colour fields
+    drifting from frame to frame, 8×8 blocks of random pixels, upscaled."""
+    import cv2
+
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, 256, (size // 8, size // 8, 3), dtype=np.uint8)
+    w = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"MJPG"), fps,
+                        (size, size))
+    if not w.isOpened():
+        raise AssertionError(f"cv2 cannot write MJPG to {path}")
+    for i in range(int(round(seconds * fps))):
+        frame = np.roll(base, i, axis=1) // 2 + rng.integers(
+            0, 128, base.shape, dtype=np.uint8)
+        w.write(cv2.resize(frame, (size, size),
+                           interpolation=cv2.INTER_NEAREST))
+    w.release()
+    return path
+
+
+def seeded_frames(n: int = WINDOW_FEATS, seed: int = 0) -> np.ndarray:
+    """(n, FRAME, FRAME, 3) frames in [0, 1], for a card without cv2."""
+    return np.random.default_rng(seed).uniform(
+        size=(n, FRAME, FRAME, 3)).astype(np.float32)
+
+
+def video_entry(pipe, seed: int = 5) -> DiffFoley:
+    """The video entry at full width on the flagship's LDM (its UNet and
+    VAE already bf16): the CAVP towers (SlowOnly-R50, CNN14) and the
+    alignment classifier in fp32, seeded random weights and BatchNorm
+    statistics (the classifier's weights are the flagship's before its
+    bf16 cast)."""
+    cavp = randomize_(CAVPModel(CAVPConfig()), seed)
+    clf = randomize_(ClassifierBackbone(CLASSIFIER_BACKBONE), 1)
+    return DiffFoley(pipe.ldm, cavp, clf, bf16=True, device="cuda")
+
+
+def check_features(feats: np.ndarray, what: str):
+    norms = np.linalg.norm(feats, axis=-1)
+    if feats.shape != (WINDOW_FEATS, 512) or not np.isfinite(feats).all() \
+            or np.abs(norms - 1.0).max() > 1e-4:
+        raise AssertionError(f"{what} features {feats.shape}, |norm − 1| "
+                             f"{np.abs(norms - 1.0).max()}")
+
+
+def video_stages(df, read, gen, seed: int):
+    """``generate_for_video``'s stages, each timed: frame decode, CAVP
+    encode, sampler, VAE decode, Griffin-Lim. Returns them and the
+    frames."""
+    stages = {}
+    frames = timed(stages, "decode_s", read)
+    feats = timed(stages, "cavp_s", lambda: encode_frames(
+        frames, df.cavp, device="cuda"))
+    check_features(feats, "video")
+    g = torch.Generator("cuda").manual_seed(seed)
+    with torch.no_grad():
+        cond = torch.as_tensor(window_features(feats), device="cuda"
+                               ).repeat_interleave(gen.sample_num, dim=0)
+        z = timed(stages, "sampler_s", lambda: df.pipe.ldm.sample(
+            cond, generator=g, **df.pipe.sampler_kwargs(gen)))
+        specs = timed(stages, "vae_decode_s", lambda: df.pipe.decode_specs(z))
+        timed(stages, "griffin_lim_s", lambda: mel_to_wav(
+            specs, n_iter=gen.gl_iters, length=WINDOW_SAMPLES, generator=g))
+    stages["total_s"] = sum(stages.values())
+    return stages, frames
+
+
+def video_phase(pipe, expect, tmp: str, profile: bool):
+    """``DiffFoley.generate_for_video`` at full width: a first call split
+    into its stages, the main-path call, a warm call split into its
+    stages; the CAVP tower's time; its features against the CPU's; then
+    ``cli.generate`` once."""
+    df = video_entry(pipe)
+    gen = GenerationConfig(steps=STEPS, sample_num=VIDEO_SAMPLES,
+                           wav_dtype="int16")
+    cv2_ok = have_cv2()
+    path = None
+    if cv2_ok:
+        path = write_clip(os.path.join(tmp, "clip.avi"))
+        log(f"ingest: cv2, {VIDEO_SECONDS} s {VIDEO_FPS:g}-fps "
+            f"{FRAME}x{FRAME} MJPG clip")
+        run = lambda: df.generate_for_video(path, seed=0, gen=gen)
+        read = lambda: extract_frames(path, size=FRAME, truncate_second=8.2)
+    else:
+        log("ingest: frames (no cv2)")
+        run = lambda: df.generate_from_features(
+            encode_frames(seeded_frames(), df.cavp, device="cuda"), seed=0,
+            gen=gen)
+        read = seeded_frames
+    first, _ = video_stages(df, read, gen, 3)
+    log("video first stages " + json.dumps(first))
+
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    call_s = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"video {call_s:.3f} s (main-path call) peak_mem_GiB {peak:.3f}")
+    check_launches("video", launches, expect)
+    check_outputs(out, "video", VIDEO_SAMPLES, 1)
+
+    warm, frames = video_stages(df, read, gen, 4)
+    log("video warm stages " + json.dumps(warm))
+    if profile:   # the sampler with the fp32 classifier
+        with torch.no_grad():
+            cond = torch.as_tensor(window_features(encode_frames(
+                frames, df.cavp, device="cuda")), device="cuda"
+            ).repeat_interleave(VIDEO_SAMPLES, dim=0)
+        profile_steps("dpm-video", lambda: df.pipe.ldm.sample(
+            cond, generator=torch.Generator("cuda").manual_seed(2),
+            **df.pipe.sampler_kwargs(dataclasses.replace(gen, steps=2))))
+
+    # the CAVP tower on the path's clip: its device time, and its features
+    # against the CPU's (fp32, TF32 off) on the first four frames
+    clip = torch.as_tensor(frames[None], device="cuda")
+    with torch.no_grad():
+        encode = lambda: df.cavp.encode_video(clip, normalize=True,
+                                              pool=False)
+        cavp_ms = time_ms(encode, iters=3, warmup=1)
+        cavp_device_ms = device_ms(encode, iters=3)
+        cpu = copy.deepcopy(df.cavp).cpu()
+        ref = cpu.encode_video(torch.as_tensor(frames[None, :4]), True, False)
+        gpu = df.cavp.encode_video(clip[:, :4], True, False).cpu()
+    feat_ratio = float((gpu - ref).abs().max() / ref.square().mean().sqrt())
+    log(f"video CAVP encode of {len(frames)} frames {cavp_ms:.3f} ms "
+        f"(events), device {cavp_device_ms:.3f} ms; GPU against CPU "
+        f"features on 4 frames max|Δ| {feat_ratio:.3e} of rms (tol 1e-3)")
+    if not feat_ratio <= 1e-3:
+        raise AssertionError("the CAVP towers on the GPU disagree with the "
+                             "CPU's")
+    del df, cpu
+
+    cli = {}
+    if not cv2_ok:
+        log("video cli.generate: not run, it reads a video file (no cv2)")
+    else:
+        out_dir = os.path.join(tmp, "generated")
+        reset_counts()
+        t0 = time.perf_counter()
+        paths = generate_cli.main(["--video", path, "--random-weights",
+                                   "--out", out_dir, "--bf16"])
+        torch.cuda.synchronize()
+        cli["cli_s"] = time.perf_counter() - t0
+        check_launches("video cli.generate", read_counts(), expect)
+        wavs = []
+        for p in paths:
+            with wave.open(p, "rb") as f:
+                wavs.append((f.getframerate(), 8 * f.getsampwidth(),
+                             f.getnframes()))
+        specs = [np.load(p[:-4] + "_spec.npy") for p in paths]
+        log(f"video cli.generate {cli['cli_s']:.3f} s (models built with "
+            f"random weights, then the call): wavs (Hz, bits, samples) "
+            f"{wavs}, specs {[sp.shape for sp in specs]}")
+        if wavs != [(16000, 16, WINDOW_SAMPLES)] * VIDEO_SAMPLES or any(
+                sp.shape != (128, 512) or not np.isfinite(sp).all()
+                for sp in specs):
+            raise AssertionError("cli.generate did not write four int16 "
+                                 "16-kHz wavs and four spec files")
+    return launches, {"main_call_s": call_s, "peak_mem_GiB": peak,
+                      "cv2": cv2_ok,
+                      **{f"first_{k}": v for k, v in first.items()},
+                      **{f"warm_{k}": v for k, v in warm.items()},
+                      "cavp_ms": cavp_ms, "cavp_device_ms": cavp_device_ms,
+                      "cavp_gpu_cpu_max_ratio": feat_ratio, **cli}
 
 
 def profile_steps(what: str, run, steps: int = 2, grad: bool = False):
@@ -1449,10 +1698,12 @@ def agreement_train_phase():
 
 
 def agreement_phase():
-    """Tiny float32 pipelines, generate and inpaint: GPU (kernels) against
-    CPU (plain versions). Head dims 40 and 80 in the UNet, 32 in the
-    classifier and the VAE (ch 32): the kernels take the path's head dims
-    only. The VAE's full-resolution norms stream in fp32."""
+    """Tiny float32 pipelines, generate, inpaint and the video entry
+    (``DiffFoley.extract_features`` then ``generate_from_features``): GPU
+    (kernels) against CPU (plain versions). Head dims 40 and 80 in the
+    UNet, 32 in the classifier and the VAE (ch 32): the kernels take the
+    path's head dims only. The VAE's full-resolution norms stream in
+    fp32."""
     ucfg = UNetConfig(model_channels=160, num_res_blocks=1,
                       channel_mult=(1, 2), attention_resolutions=(1, 2),
                       num_heads=4, context_dim=64)
@@ -1484,7 +1735,32 @@ def agreement_phase():
         outs[("inpaint", device)] = pipe.inpaint(
             feats, known, mask, gen=gen_in, x_T=x_T.to(device),
             mask_noise=mask_noise.to(device), gl_phase=phase.to(device))
-    for run in ("generate", "inpaint"):
+    # the video entry, tiny: CAVP features of a small clip (seeded frames
+    # without cv2), then generate_from_features with the same noise
+    tiny_cavp = randomize_(CAVPModel(CAVPConfig(
+        video_stage_blocks=(1, 1, 1, 1), video_base_channels=8,
+        spec_channels=(8, 8, 16, 16, 32, 32))), 6)
+    with tempfile.TemporaryDirectory() as tmp:
+        clip = (write_clip(os.path.join(tmp, "tiny.avi"), size=48)
+                if have_cv2() else None)
+        feats_by = {}
+        for device in ("cpu", "cuda"):
+            df = DiffFoley(copy.deepcopy(ldm), copy.deepcopy(tiny_cavp),
+                           copy.deepcopy(clf), bf16=False, frame_size=32,
+                           device=device)
+            f = (df.extract_features(clip, 0.0, 8.2) if clip else
+                 encode_frames(seeded_frames()[:, ::7, ::7], df.cavp,
+                               device=device))
+            feats_by[device] = f
+            outs[("video", device)] = df.generate_from_features(
+                f, gen=gen, x_T=x_T.to(device), gl_phase=phase.to(device))
+    d_feat = float(np.abs(feats_by["cpu"] - feats_by["cuda"]).max()
+                   / np.sqrt(np.square(feats_by["cpu"]).mean()))
+    log(f"agreement tiny fp32 DiffFoley.extract_features gpu-vs-cpu "
+        f"{feats_by['cpu'].shape} max|Δ| {d_feat:.3e} of rms (tol 1e-4)")
+    if not d_feat <= 1e-4:
+        raise AssertionError("GPU CAVP features disagree with the CPU's")
+    for run in ("generate", "inpaint", "video"):
         cpu, gpu = outs[(run, "cpu")], outs[(run, "cuda")]
         d_spec = float(np.abs(cpu["spec"] - gpu["spec"]).max())
         d_wav = float(np.abs(cpu["wav"] - gpu["wav"]).max())
@@ -1561,6 +1837,10 @@ def main(argv):
     launches["inpaint"], times = inpaint_phase(
         pipe, feats, spec, expect["inpaint"], profile)
     log("inpaint times " + json.dumps(times))
+    with tempfile.TemporaryDirectory() as tmp:
+        launches["video"], times = video_phase(pipe, expect["video"], tmp,
+                                               profile)
+    log("video times " + json.dumps(times))
     launches["train_vae"], times = train_phase(
         pipe, expect["train_vae"], profile)
     log("train_vae times " + json.dumps(times))

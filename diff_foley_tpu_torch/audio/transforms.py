@@ -11,6 +11,8 @@ import dataclasses
 import torch
 
 from ..ops.griffin_lim import griffin_lim, mel_to_stft
+from ..ops.mel import mel_filterbank
+from ..ops.stft import stft_magnitude
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,6 +40,16 @@ def normalize_spectrogram(mel: torch.Tensor) -> torch.Tensor:
 def denormalize_spectrogram(spec: torch.Tensor) -> torch.Tensor:
     """[0, 1] normalised spec → raw mel magnitude."""
     return torch.pow(10.0, (spec * 100.0 - 100.0 + 20.0) / 20.0)
+
+
+def wav_to_mel(wav: torch.Tensor,
+               cfg: MelSpec = DEFAULT_MELSPEC) -> torch.Tensor:
+    """(..., n_samples) waveform → (..., n_mels, n_frames) normalised mel."""
+    mag = stft_magnitude(wav, n_fft=cfg.n_fft, hop_length=cfg.hop_length,
+                         power=cfg.spec_power)
+    fb = mel_filterbank(cfg.sr, cfg.n_fft, cfg.n_mels, cfg.fmin, cfg.fmax,
+                        dtype=mag.dtype, device=mag.device)
+    return normalize_spectrogram(torch.einsum("mf,...ft->...mt", fb, mag))
 
 
 def mel_to_wav(spec: torch.Tensor, cfg: MelSpec = DEFAULT_MELSPEC,

@@ -1,0 +1,65 @@
+"""PANN CNN14 audio tower, 16 kHz variant
+(``diff_foley_tpu/models/cavp/cnn14.py``): BatchNorm over the 128 mel
+bins, six ConvBlocks 64 → 2048 with (2, 2)×4, (1, 2), (1, 1) average
+pools, the mean over mels, the max + average 1-D pool fusion (k 3, s 1,
+p 1, edge windows still ÷3), then fc1 applied twice with ReLU (the
+reference forward's quirk, which its weights were trained with), then
+``final_project``.
+
+Layout NCHW: (B, 1, T, 128 mels) in, (B, T/16, embed_dim) out. BatchNorm
+runs on its running statistics: the modules are for inference, in eval
+mode, and the reference's dropout (off in eval) is left out.
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch.nn as nn
+import torch.nn.functional as F
+
+N_MELS = 128
+POOLS = ((2, 2), (2, 2), (2, 2), (2, 2), (1, 2), (1, 1))
+
+
+class ConvBlock(nn.Module):
+    def __init__(self, in_ch: int, out_ch: int, pool=(2, 2)):
+        super().__init__()
+        self.conv1 = nn.Conv2d(in_ch, out_ch, 3, padding=1, bias=False)
+        self.bn1 = nn.BatchNorm2d(out_ch, eps=1e-5)
+        self.conv2 = nn.Conv2d(out_ch, out_ch, 3, padding=1, bias=False)
+        self.bn2 = nn.BatchNorm2d(out_ch, eps=1e-5)
+        self.pool = pool
+
+    def forward(self, x):
+        x = F.relu(self.bn1(self.conv1(x)))
+        x = F.relu(self.bn2(self.conv2(x)))
+        return F.avg_pool2d(x, self.pool, self.pool)
+
+
+class Cnn14(nn.Module):
+    def __init__(self, embed_dim: int = 512,
+                 channels: Optional[Sequence[int]] = None):
+        super().__init__()
+        chans = list(channels or (64, 128, 256, 512, 1024, 2048))
+        if len(chans) != 6:
+            raise ValueError(f"CNN14 has six conv blocks, got {chans}")
+        self.bn0 = nn.BatchNorm2d(N_MELS, eps=1e-5)
+        ch = 1
+        for i, (c, p) in enumerate(zip(chans, POOLS), start=1):
+            setattr(self, f"conv_block{i}", ConvBlock(ch, c, p))
+            ch = c
+        self.fc1 = nn.Linear(ch, ch)
+        self.final_project = nn.Linear(ch, embed_dim)
+
+    def forward(self, x):
+        """(B, 1, T, 128) → (B, T/16, embed_dim)."""
+        h = self.bn0(x.transpose(1, 3)).transpose(1, 3)   # BN over mel bins
+        for i in range(1, 7):
+            h = getattr(self, f"conv_block{i}")(h)
+        h = h.mean(dim=3)                                   # (B, C, T')
+        h = (F.max_pool1d(h, 3, 1, 1)
+             + F.avg_pool1d(h, 3, 1, 1, count_include_pad=True))
+        h = h.transpose(1, 2)
+        h = F.relu(self.fc1(h))
+        h = F.relu(self.fc1(h))   # applied twice, as the reference does
+        return self.final_project(h)

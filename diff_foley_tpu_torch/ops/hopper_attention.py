@@ -38,10 +38,12 @@ backward and the per-head forward and backward run on the tensor cores
 
 Each wrapper runs its kernel's plain version when its tensors lie on the
 CPU, launches the kernel when they lie on a CUDA device, and raises
-otherwise. ``LAUNCHES`` counts the kernel launches of each wrapper.
+otherwise. ``LAUNCHES`` counts the kernel launches of each wrapper,
+``LAUNCHES_BY_DTYPE`` the same launches by (wrapper, operand dtype).
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -52,6 +54,7 @@ from .cuda_build import DTYPE_CODES as _DTYPE_CODES, ptr as _ptr, \
 
 LAUNCHES = {"attn_packed_fwd": 0, "attn_packed_bwd": 0, "attn_fwd": 0,
             "attn_bwd": 0}
+LAUNCHES_BY_DTYPE = collections.Counter()   # {(wrapper, "bfloat16"): n}
 
 # the path's head dims; csrc/common.cuh::supported_head_dim, the packed
 # entries take these only
@@ -64,6 +67,7 @@ _HEAD_DIMS_PER_HEAD = (32, 512)
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    LAUNCHES_BY_DTYPE.clear()
 
 
 def split_heads(t: torch.Tensor, heads: int) -> torch.Tensor:
@@ -169,10 +173,11 @@ def _cp_async_ready(t: torch.Tensor) -> bool:
         if s != 1 and n > 1)
 
 
-def _launch(fn: str, key: str, *args, device):
+def _launch(fn: str, key: str, *args, device, dtype):
     name, argtypes = _ENTRIES[fn]
     cuda_build.launch(name, fn, argtypes, *args, device=device)
     LAUNCHES[key] += 1
+    LAUNCHES_BY_DTYPE[(key, str(dtype).removeprefix("torch."))] += 1
 
 
 def attention_packed_fwd(q3, k3, v3, scale: float, heads: int):
@@ -191,7 +196,8 @@ def attention_packed_fwd(q3, k3, v3, scale: float, heads: int):
     o3 = torch.empty_like(q3)
     _launch("dft_attn_packed_fwd", "attn_packed_fwd", _ptr(q3), _ptr(k3),
             _ptr(v3), _ptr(o3), b, lq, lk, heads, d, float(scale),
-            _DTYPE_CODES[q3.dtype], _stream(q3), device=q3.device)
+            _DTYPE_CODES[q3.dtype], _stream(q3), device=q3.device,
+            dtype=q3.dtype)
     return o3
 
 
@@ -227,7 +233,8 @@ def attention_packed_bwd(q3, k3, v3, g3, scale: float, heads: int):
     _launch("dft_attn_packed_bwd", "attn_packed_bwd", _ptr(q3), _ptr(k3),
             _ptr(v3), _ptr(g3), _ptr(dq), _ptr(dk), _ptr(dv), _ptr(scratch),
             b, heads, lq, lk, d, *sq, *sk, *sk, *sq, float(scale),
-            _DTYPE_CODES[q3.dtype], _stream(q3), device=q3.device)
+            _DTYPE_CODES[q3.dtype], _stream(q3), device=q3.device,
+            dtype=q3.dtype)
     return dq, dk, dv
 
 
@@ -311,7 +318,7 @@ def attention_fwd(q, k, v, scale: float):
     _launch("dft_attn_fwd", "attn_fwd", _ptr(q), _ptr(k), _ptr(v), _ptr(o),
             _ptr(scratch), b, h, lq, k.shape[2], d, *q.stride(), *k.stride(),
             *v.stride(), *o.stride(), float(scale), _DTYPE_CODES[q.dtype],
-            _stream(q), device=q.device)
+            _stream(q), device=q.device, dtype=q.dtype)
     return o
 
 
@@ -349,7 +356,8 @@ def attention_bwd(q, k, v, g, scale: float):
     _launch("dft_attn_bwd", "attn_bwd", _ptr(q), _ptr(k), _ptr(v), _ptr(g),
             _ptr(dq), _ptr(dk), _ptr(dv), _ptr(scratch), b, h, lq, k.shape[2],
             d, *q.stride(), *k.stride(), *v.stride(), *g.stride(),
-            float(scale), _DTYPE_CODES[q.dtype], _stream(q), device=q.device)
+            float(scale), _DTYPE_CODES[q.dtype], _stream(q), device=q.device,
+            dtype=q.dtype)
     return dq, dk, dv
 
 

@@ -30,10 +30,12 @@ for the block kernel and 3·N·itemsize for the streaming pair.
 
 Each wrapper runs the plain version when its tensors lie on the CPU,
 launches the kernel when they lie on a CUDA device, and raises otherwise.
-``LAUNCHES`` counts the kernel launches of each wrapper.
+``LAUNCHES`` counts the kernel launches of each wrapper,
+``LAUNCHES_BY_DTYPE`` the same launches by (wrapper, operand dtype).
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -44,6 +46,7 @@ from .cuda_build import DTYPE_CODES as _DTYPE_CODES, ptr as _ptr, \
     stream as _stream
 
 LAUNCHES = {"gn_block": 0, "gn_stream_stats": 0, "gn_stream_apply": 0}
+LAUNCHES_BY_DTYPE = collections.Counter()   # {(wrapper, "bfloat16"): n}
 
 # the block kernel holds a whole slab in registers; larger slabs stream
 BLOCK_SLAB_BYTES = 128 * 1024
@@ -53,6 +56,7 @@ STREAM_CHUNK = 16384   # elements of a slab per stats block
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    LAUNCHES_BY_DTYPE.clear()
 
 
 def uses_stream(shape, groups: int, itemsize: int) -> bool:
@@ -157,9 +161,10 @@ _ARGTYPES = {
 }
 
 
-def _launch(fn: str, key: str, *args, device):
+def _launch(fn: str, key: str, *args, device, dtype):
     cuda_build.launch("groupnorm", fn, _ARGTYPES[fn], *args, device=device)
     LAUNCHES[key] += 1
+    LAUNCHES_BY_DTYPE[(key, str(dtype).removeprefix("torch."))] += 1
 
 
 def group_norm_block(x, gamma, beta, groups: int, eps: float, act=None):
@@ -176,7 +181,7 @@ def group_norm_block(x, gamma, beta, groups: int, eps: float, act=None):
     _launch("dft_gn_block", "gn_block", _ptr(x), _ptr(gamma), _ptr(beta),
             _ptr(y), b, c, groups, h * w, float(eps), int(act == "silu"),
             _DTYPE_CODES[x.dtype], _DTYPE_CODES[gamma.dtype], _stream(x),
-            device=x.device)
+            device=x.device, dtype=x.dtype)
     return y
 
 
@@ -191,7 +196,7 @@ def stream_stats(x, groups: int):
                           device=x.device)
     _launch("dft_gn_stream_stats", "gn_stream_stats", _ptr(x), _ptr(partial),
             b, c, groups, h * w, STREAM_CHUNK, _DTYPE_CODES[x.dtype],
-            _stream(x), device=x.device)
+            _stream(x), device=x.device, dtype=x.dtype)
     return partial
 
 
@@ -210,7 +215,7 @@ def stream_apply(x, a, b, act=None):
     _launch("dft_gn_stream_apply", "gn_stream_apply", _ptr(x), _ptr(a),
             _ptr(b), _ptr(y), rows, x.shape[2] * x.shape[3],
             int(act == "silu"), _DTYPE_CODES[x.dtype], _stream(x),
-            device=x.device)
+            device=x.device, dtype=x.dtype)
     return y
 
 

@@ -4,16 +4,19 @@ The port's modules carry the flax scope names, so conversion is a rename
 and a transpose per leaf:
 
 - ``kernel`` → ``weight``: Dense (in, out) → (out, in); Conv HWIO → OIHW;
+  Conv3d tHWIO → OItHW;
 - ``scale`` → ``weight`` and ``bias`` → ``bias`` (normalisations; a
   ``scale`` beside a ``shift``, the LPIPS scaling layer's, keeps its name);
 - BatchNorm's ``batch_stats`` collection: ``mean`` → ``running_mean`` and
   ``var`` → ``running_var``, beside the parameters of the same scope;
-- ``embedding`` → ``weight``; any other leaf (``pos_emb``) keeps its name;
+- ``embedding`` → ``weight``; any other leaf (``pos_emb``, CAVP's scalar
+  ``logit_scale``) keeps its name;
 - the ``GroupNorm_0`` scope that ``GroupNorm32`` opens for its flax
   GroupNorm is folded into its parent.
 
 Covers the UNet, the classifier, ``VideoFeatEncoderPosembed``, the whole
-VAE, the PatchGAN discriminator and LPIPS/LPAPS. Load with ``strict=True``.
+VAE, the PatchGAN discriminator, LPIPS/LPAPS and the CAVP towers. Load
+with ``strict=True``.
 The same function carries gradients and updated parameters of a JAX train
 step into the port's layout, so a test compares them leaf by leaf under
 the state dict's names.
@@ -35,7 +38,8 @@ def _to_tensor(a) -> torch.Tensor:
     a = np.asarray(a)
     if a.dtype.kind == "V" or a.dtype.name == "bfloat16":
         a = a.astype(np.float32)
-    return torch.from_numpy(np.ascontiguousarray(a))
+    # ascontiguousarray makes a 0-d array 1-d: keep a scalar's shape
+    return torch.from_numpy(np.ascontiguousarray(a)).reshape(a.shape)
 
 
 def _leaf(name: str, a) -> tuple[str, torch.Tensor]:
@@ -45,6 +49,8 @@ def _leaf(name: str, a) -> tuple[str, torch.Tensor]:
             t = t.T
         elif t.dim() == 4:
             t = t.permute(3, 2, 0, 1)
+        elif t.dim() == 5:
+            t = t.permute(4, 3, 0, 1, 2)
         else:
             raise ValueError(f"kernel of rank {t.dim()} has no rule")
     return name, t.contiguous()
@@ -76,3 +82,343 @@ def from_jax_params(tree) -> dict[str, torch.Tensor]:
         walk(t, [])
     return out
 
+
+
+# ---- reference checkpoints → flax-layout trees ----------------------------
+#
+# The port's own numpy copy of the JAX package's walks
+# (``diff_foley_tpu/utils/convert.py``): a reference torch state dict →
+# the flax params tree the JAX modules take, which ``from_jax_params``
+# then turns into this package's state dicts. Layout transforms: Conv2d
+# OIHW → HWIO, Conv3d OItHW → tHWIO, Linear (O, I) → (I, O). A walk raises
+# on a missing key, and ``_Mapper.check_used`` on a key it did not take
+# (BatchNorm's ``num_batches_tracked`` is accepted and dropped).
+
+
+def _np(t) -> np.ndarray:
+    if isinstance(t, torch.Tensor):
+        return t.detach().cpu().numpy()
+    return np.asarray(t)
+
+
+def _conv(t) -> np.ndarray:
+    return _np(t).transpose(2, 3, 1, 0)
+
+
+def _conv3d(t) -> np.ndarray:
+    return _np(t).transpose(2, 3, 4, 1, 0)
+
+
+def _dense(t) -> np.ndarray:
+    return _np(t).transpose(1, 0)
+
+
+def _set(tree: dict, path: str, value: np.ndarray) -> None:
+    parts = path.split("/")
+    node = tree
+    for p in parts[:-1]:
+        node = node.setdefault(p, {})
+    node[parts[-1]] = value
+
+
+class _Mapper:
+    def __init__(self, sd: Mapping, prefix: str = ""):
+        self.sd, self.prefix = sd, prefix
+        self.tree: dict = {}
+        self.stats: dict = {}   # BatchNorm running statistics
+        self.used: set = set()
+
+    def _get(self, torch_key: str):
+        key = self.prefix + torch_key
+        if key not in self.sd:
+            raise KeyError(f"reference checkpoint lacks {key!r}")
+        self.used.add(key)
+        return self.sd[key]
+
+    def take(self, my_path: str, torch_key: str, tf=_np) -> None:
+        _set(self.tree, my_path, tf(self._get(torch_key)))
+
+    def check_used(self, *others: "_Mapper") -> None:
+        """Every key under this mapper's prefix taken by it or ``others``."""
+        used = self.used.union(*(m.used for m in others))
+        left = sorted(k for k in self.sd if k.startswith(self.prefix)
+                      and k not in used
+                      and not k.endswith(".num_batches_tracked"))
+        if left:
+            raise ValueError(f"{len(left)} reference keys have no place in "
+                             f"the model: {left[:5]}")
+
+    def gn(self, my: str, torch_key: str) -> None:
+        # the flax GroupNorm32 wraps nn.GroupNorm as GroupNorm_0
+        self.gn_flat(f"{my}/GroupNorm_0", torch_key)
+
+    def gn_flat(self, my: str, torch_key: str) -> None:
+        self.take(f"{my}/scale", f"{torch_key}.weight")
+        self.take(f"{my}/bias", f"{torch_key}.bias")
+
+    def conv(self, my: str, torch_key: str) -> None:
+        self.take(f"{my}/kernel", f"{torch_key}.weight", _conv)
+        self.take(f"{my}/bias", f"{torch_key}.bias")
+
+    def dense(self, my: str, torch_key: str, bias: bool = True) -> None:
+        self.take(f"{my}/kernel", f"{torch_key}.weight", _dense)
+        if bias:
+            self.take(f"{my}/bias", f"{torch_key}.bias")
+
+    def dense_halves(self, my_first: str, my_second: str,
+                     torch_key: str) -> None:
+        """A torch Linear(2F) whose output rows stack [first; second] → two
+        flax Dense(F) (GEGLU's split layout)."""
+        w = _dense(self._get(f"{torch_key}.weight"))
+        b = _np(self._get(f"{torch_key}.bias"))
+        half = w.shape[1] // 2
+        _set(self.tree, f"{my_first}/kernel", w[:, :half])
+        _set(self.tree, f"{my_first}/bias", b[:half])
+        _set(self.tree, f"{my_second}/kernel", w[:, half:])
+        _set(self.tree, f"{my_second}/bias", b[half:])
+
+    def bn(self, my: str, torch_key: str) -> None:
+        self.gn_flat(my, torch_key)
+        for src, dst in (("running_mean", "mean"), ("running_var", "var")):
+            _set(self.stats, f"{my}/{dst}", _np(self._get(
+                f"{torch_key}.{src}")))
+
+    def resblock(self, my: str, torch_key: str, has_skip: bool) -> None:
+        self.gn(f"{my}/in_norm", f"{torch_key}.in_layers.0")
+        self.conv(f"{my}/in_conv", f"{torch_key}.in_layers.2")
+        self.dense(f"{my}/emb_dense", f"{torch_key}.emb_layers.1")
+        self.gn(f"{my}/out_norm", f"{torch_key}.out_layers.0")
+        self.conv(f"{my}/out_conv", f"{torch_key}.out_layers.3")
+        if has_skip:
+            self.conv(f"{my}/skip_conv", f"{torch_key}.skip_connection")
+
+    def spatial_transformer(self, my: str, torch_key: str,
+                            depth: int) -> None:
+        self.gn_flat(f"{my}/norm", f"{torch_key}.norm")
+        self.conv(f"{my}/proj_in", f"{torch_key}.proj_in")
+        for d in range(depth):
+            tb, mb = f"{torch_key}.transformer_blocks.{d}", f"{my}/block{d}"
+            for n in (1, 2, 3):
+                self.gn_flat(f"{mb}/norm{n}", f"{tb}.norm{n}")
+            for a in ("attn1", "attn2"):
+                for p in ("to_q", "to_k", "to_v"):
+                    self.dense(f"{mb}/{a}/{p}", f"{tb}.{a}.{p}", bias=False)
+                self.dense(f"{mb}/{a}/to_out", f"{tb}.{a}.to_out.0")
+            self.dense_halves(f"{mb}/ff/geglu/proj_x",
+                              f"{mb}/ff/geglu/proj_gate",
+                              f"{tb}.ff.net.0.proj")
+            self.dense(f"{mb}/ff/out", f"{tb}.ff.net.2")
+        self.conv(f"{my}/proj_out", f"{torch_key}.proj_out")
+
+    def params(self) -> dict:
+        return {"params": self.tree, "batch_stats": self.stats} \
+            if self.stats else {"params": self.tree}
+
+
+def _unet_down_mid(m: _Mapper, cfg) -> int:
+    """Time embedding, input conv, down path and middle of the UNet and the
+    classifier; returns the down path's downsampling factor."""
+    m.dense("time_embed/dense0", "time_embed.0")
+    m.dense("time_embed/dense1", "time_embed.2")
+    m.conv("in_conv", "input_blocks.0.0")
+    n, ds, ch = 1, 1, cfg.model_channels
+    for level, mult in enumerate(cfg.channel_mult):
+        out_ch = mult * cfg.model_channels
+        for i in range(cfg.num_res_blocks):
+            m.resblock(f"down_{level}_{i}_res", f"input_blocks.{n}.0",
+                       has_skip=ch != out_ch)
+            ch = out_ch
+            if ds in cfg.attention_resolutions:
+                m.spatial_transformer(f"down_{level}_{i}_attn",
+                                      f"input_blocks.{n}.1",
+                                      cfg.transformer_depth)
+            n += 1
+        if level != len(cfg.channel_mult) - 1:
+            m.conv(f"down_{level}_ds/conv", f"input_blocks.{n}.0.op")
+            n += 1
+            ds *= 2
+    m.resblock("mid_res1", "middle_block.0", has_skip=False)
+    m.spatial_transformer("mid_attn", "middle_block.1", cfg.transformer_depth)
+    m.resblock("mid_res2", "middle_block.2", has_skip=False)
+    return ds
+
+
+def convert_unet(sd: Mapping, cfg) -> dict:
+    """Reference UNetModel state dict → flax params of the UNet."""
+    m = _Mapper(sd)
+    ds = _unet_down_mid(m, cfg)
+    mc = cfg.model_channels
+    skip_chs = [mc]
+    for level, mult in enumerate(cfg.channel_mult):
+        skip_chs += [mult * mc] * cfg.num_res_blocks
+        if level != len(cfg.channel_mult) - 1:
+            skip_chs.append(mult * mc)
+    mo, ch = 0, cfg.channel_mult[-1] * mc
+    for level, mult in reversed(list(enumerate(cfg.channel_mult))):
+        out_ch = mult * mc
+        for i in range(cfg.num_res_blocks + 1):
+            m.resblock(f"up_{level}_{i}_res", f"output_blocks.{mo}.0",
+                       has_skip=(ch + skip_chs.pop()) != out_ch)
+            ch, k = out_ch, 1
+            if ds in cfg.attention_resolutions:
+                m.spatial_transformer(f"up_{level}_{i}_attn",
+                                      f"output_blocks.{mo}.1",
+                                      cfg.transformer_depth)
+                k = 2
+            if i == cfg.num_res_blocks and level != 0:
+                m.conv(f"up_{level}_us/conv", f"output_blocks.{mo}.{k}.conv")
+                ds //= 2
+            mo += 1
+    m.gn("out_norm", "out.0")
+    m.conv("out_conv", "out.2")
+    m.check_used()
+    return m.params()
+
+
+def convert_classifier_backbone(sd: Mapping, cfg) -> dict:
+    """Reference Classifier_Backbone state dict → flax params (the encoder
+    half and the head)."""
+    m = _Mapper(sd)
+    _unet_down_mid(m, cfg)
+    m.gn("out_norm", "out.0")
+    m.conv("out_conv", "out.2")
+    m.dense("classifier", "classifier")
+    m.check_used()
+    return m.params()
+
+
+def _vae_resblock(m: _Mapper, my: str, torch_key: str,
+                  has_skip: bool) -> None:
+    m.gn_flat(f"{my}/norm1", f"{torch_key}.norm1")
+    m.conv(f"{my}/conv1", f"{torch_key}.conv1")
+    m.gn_flat(f"{my}/norm2", f"{torch_key}.norm2")
+    m.conv(f"{my}/conv2", f"{torch_key}.conv2")
+    if has_skip:
+        m.conv(f"{my}/nin_shortcut", f"{torch_key}.nin_shortcut")
+
+
+def _convert_vae_half(m: _Mapper, t: str, cfg) -> None:
+    """The encoder (``t="encoder"``) or the decoder of AutoencoderKL."""
+    m.conv(f"{t}/conv_in", f"{t}.conv_in")
+    levels = list(enumerate(cfg.ch_mult))
+    if t == "encoder":
+        ch = cfg.ch
+        for level, mult in levels:
+            for i in range(cfg.num_res_blocks):
+                _vae_resblock(m, f"{t}/down_{level}_block{i}",
+                              f"{t}.down.{level}.block.{i}",
+                              ch != cfg.ch * mult)
+                ch = cfg.ch * mult
+            if level != len(levels) - 1:
+                m.conv(f"{t}/down_{level}_ds/conv",
+                       f"{t}.down.{level}.downsample.conv")
+    else:
+        ch = cfg.ch * cfg.ch_mult[-1]
+        for level, mult in reversed(levels):
+            for i in range(cfg.num_res_blocks + 1):
+                _vae_resblock(m, f"{t}/up_{level}_block{i}",
+                              f"{t}.up.{level}.block.{i}",
+                              ch != cfg.ch * mult)
+                ch = cfg.ch * mult
+            if level != 0:
+                m.conv(f"{t}/up_{level}_us/conv",
+                       f"{t}.up.{level}.upsample.conv")
+    _vae_resblock(m, f"{t}/mid_block1", f"{t}.mid.block_1", False)
+    m.gn_flat(f"{t}/mid_attn/norm", f"{t}.mid.attn_1.norm")
+    for p in ("q", "k", "v", "proj_out"):
+        m.conv(f"{t}/mid_attn/{p}", f"{t}.mid.attn_1.{p}")
+    _vae_resblock(m, f"{t}/mid_block2", f"{t}.mid.block_2", False)
+    m.gn_flat(f"{t}/norm_out", f"{t}.norm_out")
+    m.conv(f"{t}/conv_out", f"{t}.conv_out")
+
+
+def convert_vae(sd: Mapping, cfg) -> dict:
+    """Reference AutoencoderKL state dict → flax params of the VAE."""
+    m = _Mapper(sd)
+    _convert_vae_half(m, "encoder", cfg)
+    _convert_vae_half(m, "decoder", cfg)
+    m.conv("quant_conv", "quant_conv")
+    m.conv("post_quant_conv", "post_quant_conv")
+    m.check_used()
+    return m.params()
+
+
+def convert_cond_encoder(sd: Mapping) -> dict:
+    """Reference Video_Feat_Encoder_Posembed state dict → flax params."""
+    m = _Mapper(sd)
+    m.dense("embedder", "embedder.0")
+    m.take("pos_emb", "pos_emb.weight")
+    m.check_used()
+    return m.params()
+
+
+def _walk_cnn14(m: _Mapper) -> None:
+    """PANN Cnn14's keys: bn, conv_block{1..6}.{conv1,bn1,conv2,bn2}, fc1,
+    final_project."""
+    m.bn("bn0", "bn")
+    for i in range(1, 7):
+        for j in (1, 2):
+            m.take(f"conv_block{i}/conv{j}/kernel",
+                   f"conv_block{i}.conv{j}.weight", _conv)
+            m.bn(f"conv_block{i}/bn{j}", f"conv_block{i}.bn{j}")
+    m.dense("fc1", "fc1")
+    m.dense("final_project", "final_project")
+
+
+def _walk_slowonly(m: _Mapper, stage_blocks=(3, 4, 6, 3)) -> None:
+    """mmaction ResNet3dSlowOnly's keys: conv1.{conv,bn},
+    layer{s}.{b}.conv{1,2,3}.{conv,bn}, layer{s}.0.downsample.{conv,bn}."""
+
+    def convmod(my: str, torch_key: str) -> None:
+        m.take(f"{my}/conv/kernel", f"{torch_key}.conv.weight", _conv3d)
+        m.bn(f"{my}/bn", f"{torch_key}.bn")
+
+    convmod("conv1", "conv1")
+    for s, blocks in enumerate(stage_blocks, start=1):
+        for b in range(blocks):
+            for c in ("conv1", "conv2", "conv3"):
+                convmod(f"layer{s}_{b}/{c}", f"layer{s}.{b}.{c}")
+            if b == 0:
+                convmod(f"layer{s}_{b}/downsample", f"layer{s}.{b}.downsample")
+
+
+def convert_cavp(sd: Mapping, stage_blocks=(3, 4, 6, 3)) -> dict:
+    """Reference CLIP_Video_Spec state dict (video_encoder.*,
+    video_project_head.*, spec_encoder.*, logit_scale) → CAVPModel's flax
+    variables."""
+    video, spec = _Mapper(sd, "video_encoder."), _Mapper(sd, "spec_encoder.")
+    _walk_slowonly(video, stage_blocks)
+    _walk_cnn14(spec)
+    head = _Mapper(sd)
+    head.dense("video_project_head", "video_project_head")
+    head.take("logit_scale", "logit_scale",
+              lambda t: _np(t).reshape(()))
+    head.check_used(video, spec)
+    return {"params": {"video_encoder": video.tree, "spec_encoder": spec.tree,
+                       **head.tree},
+            "batch_stats": {"video_encoder": video.stats,
+                            "spec_encoder": spec.stats}}
+
+
+_LDM_PREFIXES = (("model.diffusion_model.", 0), ("first_stage_model.", 1),
+                 ("cond_stage_model.", 2))
+
+
+def split_ldm_state_dict(sd: Mapping) -> tuple[dict, dict, dict]:
+    """A composite LatentDiffusion checkpoint → its (UNet, VAE, cond
+    encoder) sub-dicts; keys under no prefix (the schedule's buffers) are
+    left out."""
+    parts = ({}, {}, {})
+    for k, v in sd.items():
+        for prefix, i in _LDM_PREFIXES:
+            if k.startswith(prefix):
+                parts[i][k[len(prefix):]] = v
+    return parts
+
+
+def load_torch_state_dict(path: str) -> dict:
+    """A torch checkpoint on the CPU: a ``{"state_dict": …}`` payload is
+    unwrapped and a leading ``module.`` stripped."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    sd = ckpt.get("state_dict", ckpt) if isinstance(ckpt, dict) else ckpt
+    return {k.removeprefix("module."): v for k, v in sd.items()}

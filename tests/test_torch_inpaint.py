@@ -31,21 +31,14 @@ def _canvas(w: int, seed: int):
     return feats, known
 
 
-def test_inpaint_matches_jax_steps_with_shared_noise():
-    # fp32 end to end: canvas encode, 4 guided DDIM steps (CFG 4.5,
-    # classifier 50) keeping the first 256 frames of each window, the
-    # final composite, decode, FISTA and 4 Griffin-Lim iterations. Specs
-    # lie in [0, 1]: 1e-4; the waveform: 1e-3 of its peak, as generate's
-    pipe_j, pipe_t = _tiny_pair()
-    w, s = 2, GEN_KW["sample_num"]
-    feats, known = _canvas(w, 50)
-    mask = np.tile(tpipe.continuation_mask(512, 256), (1, w))
-    rng = np.random.default_rng(51)
-    x_T = rng.standard_normal((w * s, 16, 64, 4)).astype(np.float32)
-    noise = rng.standard_normal((4, w * s, 16, 64, 4)).astype(np.float32)
-    k_s, k_g = jax.random.split(jax.random.PRNGKey(6))
-    gen_j = jpipe.GenerationConfig(**GEN_KW)
-
+def jax_inpaint_reference(pipe_j, feats, known, mask, x_T, noise, key,
+                          gen_j):
+    """JAX's ``inpaint`` composed from its steps with a given x_T and forward
+    noise: canvas encode, masked DDIM, the final known-region composite,
+    decode, Griffin-Lim from the phase ``key`` draws. Returns the packed
+    outputs and that phase."""
+    w, s = known.shape[1] // 512, gen_j.sample_num
+    k_s, k_g = jax.random.split(key)
     to_w = lambda a: a.reshape(128, w, 512).transpose(1, 0, 2)
     ldm = pipe_j.ldm
     x_img = jnp.repeat(jnp.asarray(to_w(known))[..., None], 3, axis=-1)
@@ -66,7 +59,24 @@ def test_inpaint_matches_jax_steps_with_shared_noise():
                         length=jpipe.WINDOW_SAMPLES)
     phase = np.array(jax.random.uniform(k_g, (w * s, 513, 512),
                                         dtype=jnp.float32))
-    ref = pipe_j._pack_outputs(specs, wavs, w, w, gen_j)
+    return pipe_j._pack_outputs(specs, wavs, w, w, gen_j), phase
+
+
+def test_inpaint_matches_jax_steps_with_shared_noise():
+    # fp32 end to end: canvas encode, 4 guided DDIM steps (CFG 4.5,
+    # classifier 50) keeping the first 256 frames of each window, the
+    # final composite, decode, FISTA and 4 Griffin-Lim iterations. Specs
+    # lie in [0, 1]: 1e-4; the waveform: 1e-3 of its peak, as generate's
+    pipe_j, pipe_t = _tiny_pair()
+    w, s = 2, GEN_KW["sample_num"]
+    feats, known = _canvas(w, 50)
+    mask = np.tile(tpipe.continuation_mask(512, 256), (1, w))
+    rng = np.random.default_rng(51)
+    x_T = rng.standard_normal((w * s, 16, 64, 4)).astype(np.float32)
+    noise = rng.standard_normal((4, w * s, 16, 64, 4)).astype(np.float32)
+    ref, phase = jax_inpaint_reference(
+        pipe_j, feats, known, mask, x_T, noise, jax.random.PRNGKey(6),
+        jpipe.GenerationConfig(**GEN_KW))
 
     out = pipe_t.inpaint(feats, known, mask,
                          gen=tpipe.GenerationConfig(**GEN_KW),

@@ -4,9 +4,9 @@
                                      # agreement
     python3 chip_smoke.py --profile  # also torch.profiler over two steps
                                      # of each sampler (the video run's
-                                     # too) and of the trainer
+                                     # too) and of both trainers
     python3 chip_smoke.py --train-agreement 40   # build, then only the tiny
-                                     # train-step agreement (phase 7) 40
+                                     # train-step agreement (phase 8) 40
                                      # times: failures / runs
 
 1. Build the CUDA kernels from ``diff_foley_tpu_torch/csrc`` (in parallel);
@@ -45,7 +45,7 @@
    against the CPU's. Then
    ``cli.generate --random-weights --bf16`` once on the same clip: four
    int16 16-kHz wavs of 131072 samples and four spec files.
-   Before each main-path run (3, 4, 5, 5's CLI run and 6) the launch
+   Before each main-path run (3, 4, 5, 5's CLI run, 6 and 7) the launch
    counts are reset; read just after, they must equal what the model
    structure predicts, by kernel and operand dtype.
 6. ``cli.train_vae`` at the full width of ``SD_VAE`` in float32: seeded mel
@@ -57,12 +57,25 @@
    saved step. First-step and warm seconds per step, split generator /
    discriminator, peak memory, the plain GroupNorm backward's cost, and one
    step with the LPIPS hook on (random weights).
-7. Agreement: tiny ``generate``, ``inpaint``, ``DiffFoley.extract_features``
-   plus ``generate_from_features``, and two tiny VAE train steps in
-   float32 on the GPU (kernels) against the same on the CPU (plain
-   versions), shared noise and phase. Each train step starts from equal
-   states, and the CPU takes the GPU's branch at every leaky_relu input
-   within rounding of zero; a planted gradient fault must be caught.
+7. ``cli.train_stage2`` at the full width of ``LDM_UNET`` (and its cond
+   encoder) against the frozen ``SD_VAE``: bf16 compute on fp32 masters,
+   AdamW, EMA, batch 16, seeded random weights, 32 seeded (mel spec, CAVP
+   feature) pairs in the reference layout; six steps and one validation
+   batch (the main-path call), then ``--resume`` for a seventh. Every
+   metric finite; the eval loss on a fixed batch and a fixed draw lower
+   after the six steps than before; the EMA nearer the initial weights
+   than the parameters; the resume continues the step, AdamW's count, the
+   EMA and the generator; ``load_native_ldm`` reads the logdir and the
+   model generates on the card. The CLI's step times, warm steps split
+   into forward and backward, AdamW and EMA, and peak memory.
+8. Agreement: tiny ``generate``, ``inpaint``, ``DiffFoley.extract_features``
+   plus ``generate_from_features``, two tiny VAE train steps and one tiny
+   stage-2 train step in float32 on the GPU (kernels) against the same on
+   the CPU (plain versions), shared noise, phase and draws. Each VAE train
+   step starts from equal states, and the CPU takes the GPU's branch at
+   every leaky_relu input within rounding of zero; the train steps'
+   gradients are held per leaf before the optimizer, and a planted
+   gradient fault must be caught.
 
 The last line is {"ok": true, "device": {...}}; any failure exits non-zero
 before it. With no GPU it exits non-zero and prints no result.
@@ -87,8 +100,10 @@ import torch.nn.functional as F
 from diff_foley_tpu_torch.api import DiffFoley
 from diff_foley_tpu_torch.audio.transforms import mel_to_wav
 from diff_foley_tpu_torch.cli import generate as generate_cli
+from diff_foley_tpu_torch.cli import train_stage2 as train_stage2_cli
 from diff_foley_tpu_torch.cli import train_vae as train_vae_cli
-from diff_foley_tpu_torch.data.ldm_dataset import SpecDataset
+from diff_foley_tpu_torch.data.ldm_dataset import SpecDataset, SpecFeatDataset
+from diff_foley_tpu_torch.data.loader import DevicePrefetcher
 from diff_foley_tpu_torch.diffusion.latent_diffusion import (LatentDiffusion,
                                                               LDMConfig)
 from diff_foley_tpu_torch.models.attention import SpatialTransformer
@@ -109,8 +124,15 @@ from diff_foley_tpu_torch.pipeline import (LATENT_HW, SPEC_HW, WINDOW_FEATS,
                                            spec_mask_to_latent,
                                            window_features)
 from diff_foley_tpu_torch.train.perceptual import LPIPS, make_lpips_fn
-from diff_foley_tpu_torch.train.vae import VAETrainConfig, VAETrainer
+from diff_foley_tpu_torch.train.stage2_ldm import (Stage2TrainConfig,
+                                                   Stage2Trainer, TrainState,
+                                                   global_norm,
+                                                   init_ldm_weights_)
+from diff_foley_tpu_torch.train.vae import (VAETrainConfig, VAETrainer,
+                                            init_weights_)
 from diff_foley_tpu_torch.train.vae_losses import VAELossConfig
+from diff_foley_tpu_torch.utils.checkpoint import load_native_ldm
+from diff_foley_tpu_torch.utils.ema import ema_update
 from diff_foley_tpu_torch.utils.init import randomize_
 from diff_foley_tpu_torch.video.ingest import encode_frames, extract_frames
 
@@ -130,6 +152,13 @@ KEEP_FRAMES = 256     # inpaint keeps the first 256 frames of each window
 # the trainer: batch, steps of the main-path call, and a learning rate
 # raised from the shipped 4.5e-6 so that six steps show nll_loss falling
 TRAIN_BATCH, TRAIN_STEPS, TRAIN_LR = 4, 6, 1e-4
+# stage-2 training: the JAX CLI's default batch, the steps of the
+# main-path call (which ends with one validation round on one batch: one
+# more forward), a rate for six steps to show, and the seeded data items;
+# an 8.192-s crop gives 32 condition tokens at 4 FPS
+S2_BATCH, S2_STEPS, S2_LR, S2_ITEMS = 16, 6, 1e-4, 32
+S2_FORWARDS = S2_STEPS + 1
+S2_TOKENS = int(4.0 * 131072 / 16000)
 # Agreement with the plain version, per output tensor, against the size of
 # the plain output: max|Δ| ≤ MAX_TOL·rms(plain) and rms(Δ) ≤ RMS_TOL·rms(plain).
 # The max catches a local fault (a tile, an edge), the rms a small fault
@@ -176,14 +205,14 @@ SYMBOLS = {"fwd": ("attn_packed_fwd",), "bwd": ("head_bwd_",),
            "head": ("head_fwd_",), "head_bwd": ("head_bwd_",),
            "gn": ("gn_block_kernel",), "stats": ("gn_stream_stats_kernel",),
            "apply": ("gn_stream_apply_kernel",)}
-RUNS = ("generate", "inpaint", "train_vae", "video")
+RUNS = ("generate", "inpaint", "train_vae", "video", "train_stage2")
 
 
 def calls(generate: int = 0, inpaint: int = 0, train_vae: int = 0,
-          video: int = 0) -> dict:
+          video: int = 0, train_stage2: int = 0) -> dict:
     """Calls of one kernel shape in each main-path run."""
     return {"generate": generate, "inpaint": inpaint, "train_vae": train_vae,
-            "video": video}
+            "video": video, "train_stage2": train_stage2}
 
 
 def log(*a):
@@ -256,27 +285,34 @@ def by_kernel(counts: dict) -> dict:
 
 # ---- the path's shapes, from the model structure ----------------------------
 
+def attention_sites(name: str, cfg: UNetConfig, batch: int, lk: int,
+                    up: bool):
+    """(tag, batch, Lq, Lk, H·D, heads, calls per forward) of the self and
+    the cross attention of each SpatialTransformer level of a UNet (``up``)
+    or the classifier's half UNet."""
+    # transformers per attention level: down blocks, and the UNet's up
+    blocks = cfg.num_res_blocks + (cfg.num_res_blocks + 1 if up else 0)
+    sites = [(str(lv), lv, blocks) for lv in range(len(cfg.channel_mult))
+             if 2**lv in cfg.attention_resolutions]
+    sites.append(("mid", len(cfg.channel_mult) - 1, 1))
+    out = []
+    for tag, lv, n_blocks in sites:
+        L = (LATENT_HW[0] >> lv) * (LATENT_HW[1] >> lv)
+        hd = cfg.channel_mult[lv] * cfg.model_channels
+        per = n_blocks * cfg.transformer_depth
+        out.append((f"{name}-{tag}-self", batch, L, L, hd, cfg.num_heads,
+                    per))
+        out.append((f"{name}-{tag}-cross", batch, L, lk, hd, cfg.num_heads,
+                    per))
+    return out
+
+
 def path_shapes(n: int, lk: int):
     """(tag, batch, Lq, Lk, H·D, heads, calls per sampler step) of every
-    attention on the path: self and cross in each SpatialTransformer."""
-    out = []
-    for name, cfg, batch in (("unet", LDM_UNET, 2 * n),
-                             ("clf", CLASSIFIER_BACKBONE, n)):
-        # transformers per attention level: down blocks, and the UNet's up
-        blocks = cfg.num_res_blocks + (
-            cfg.num_res_blocks + 1 if name == "unet" else 0)
-        sites = [(str(lv), lv, blocks) for lv in range(len(cfg.channel_mult))
-                 if 2**lv in cfg.attention_resolutions]
-        sites.append(("mid", len(cfg.channel_mult) - 1, 1))
-        for tag, lv, n_blocks in sites:
-            L = (LATENT_HW[0] >> lv) * (LATENT_HW[1] >> lv)
-            hd = cfg.channel_mult[lv] * cfg.model_channels
-            calls = n_blocks * cfg.transformer_depth
-            out.append((f"{name}-{tag}-self", batch, L, L, hd, cfg.num_heads,
-                        calls))
-            out.append((f"{name}-{tag}-cross", batch, L, lk, hd,
-                        cfg.num_heads, calls))
-    return out
+    attention on the sampling paths: the UNet at the CFG batch, the
+    classifier at the sample batch."""
+    return (attention_sites("unet", LDM_UNET, 2 * n, lk, True)
+            + attention_sites("clf", CLASSIFIER_BACKBONE, n, lk, False))
 
 
 def gn_sites(model, hw):
@@ -305,10 +341,12 @@ def gn_kernels(channels: int, h: int, w: int, itemsize: int):
 
 def gn_path(pipe, n: int, steps: int):
     """{(model, batch, channels, h, w, eps, act, dtype): {run: calls}} of
-    every GroupNorm32 call in one generate, one inpaint, one train_vae and
-    one video run. The trainer's VAE has the pipeline's structure, in
-    float32, and so has the video run's classifier; only their forwards
-    launch GroupNorm kernels."""
+    every GroupNorm32 call in one generate, one inpaint, one train_vae,
+    one video and one train_stage2 run. The trainer's VAE has the
+    pipeline's structure, in float32, and so has the video run's
+    classifier; only their forwards launch GroupNorm kernels. Stage 2 runs
+    the UNet and the frozen VAE encoder in bf16 at its batch, once in each
+    train and validation forward."""
     vae = pipe.ldm.vae
     models = (("unet", pipe.ldm.unet, LATENT_HW, 2 * n, BF16,
                calls(steps, steps, video=steps)),
@@ -321,7 +359,11 @@ def gn_path(pipe, n: int, steps: int):
               ("train-enc", vae.encoder, SPEC_HW, TRAIN_BATCH, FP32,
                calls(train_vae=TRAIN_STEPS)),
               ("train-dec", vae.decoder, LATENT_HW, TRAIN_BATCH, FP32,
-               calls(train_vae=TRAIN_STEPS)))
+               calls(train_vae=TRAIN_STEPS)),
+              ("s2-unet", pipe.ldm.unet, LATENT_HW, S2_BATCH, BF16,
+               calls(train_stage2=S2_FORWARDS)),
+              ("s2-enc", vae.encoder, SPEC_HW, S2_BATCH, BF16,
+               calls(train_stage2=S2_FORWARDS)))
     out = collections.defaultdict(calls)
     for name, model, hw, batch, dtype, per_run in models:
         for site in gn_sites(model, hw):
@@ -336,7 +378,8 @@ def predicted_launches(pipe, steps: int):
     UNet and the VAE run bf16 in every sampling run; the classifier bf16 in
     generate and inpaint, fp32 in the video run (as the JAX package's
     ``DiffFoley``). The classifier backward recomputes GroupNorm through
-    the plain formula, so only its forward launches GroupNorm kernels."""
+    the plain formula, so only its forward launches GroupNorm kernels; so
+    does the UNet's in stage-2 training."""
     count = lambda m: sum(2 * x.depth for x in m.modules()
                           if isinstance(x, SpatialTransformer))
     unet, clf = count(pipe.ldm.unet), count(pipe.classifier)
@@ -354,6 +397,14 @@ def predicted_launches(pipe, steps: int):
     # weight stop at the decoder's last kernel and add none.
     pred["train_vae"]["attn_fwd/float32"] = 2 * TRAIN_STEPS
     pred["train_vae"]["attn_bwd/float32"] = 2 * TRAIN_STEPS
+    # stage 2 (mixed precision, no block recompute): the UNet's attention
+    # forward in each train and validation forward, its backward in each
+    # train step; the frozen encoder's mid attention once a forward, never
+    # differentiated
+    s2 = pred["train_stage2"]
+    s2["attn_packed_fwd/bfloat16"] = S2_FORWARDS * unet
+    s2["attn_packed_bwd/bfloat16"] = S2_STEPS * unet
+    s2["attn_fwd/bfloat16"] = S2_FORWARDS
     for (_, _, c, h, w, _, _, dtype), per_run in gn_path(
             pipe, WINDOWS * SAMPLES, steps).items():
         for k in gn_kernels(c, h, w, dtype.itemsize):
@@ -731,10 +782,11 @@ def check_gn(tag, b, c, h, w, eps, act, dtype, gen):
 
 
 def kernel_phase(pipe):
-    """Every kernel at every shape of the main paths (bf16 in ``generate``
-    and ``inpaint``, fp32 in ``train_vae``), with its calls per run; the
-    kernels of the bf16 paths also once in fp32, the per-head backward also
-    once in bf16, and both per-head kernels at ragged lengths."""
+    """Every kernel at every shape of the main paths (bf16 in ``generate``,
+    ``inpaint`` and ``train_stage2``, fp32 in ``train_vae``), with its
+    calls per run; the kernels of the bf16 paths also once in fp32, the
+    per-head backward also once in bf16, and both per-head kernels at
+    ragged lengths."""
     n = WINDOWS * SAMPLES
     gen = torch.Generator("cuda").manual_seed(0)
     rows = []
@@ -789,13 +841,20 @@ def kernel_phase(pipe):
     # the per-head forward and the VAE's norms the trainer's)
     rows.append(("attn_packed_fwd", check_packed(
         "fwd", "unet-0-cross", 2 * n, 1024, WINDOW_FEATS, 320, 8, FP32, gen)))
-    # the packed backward at the UNet's head dims 40, 80 and 160 (its self
-    # attention at levels 0, 1 and 2), which stage-2 training will run; no
-    # call on today's paths
-    for tag, b, lq, lk, hd, heads, _ in path_shapes(n, WINDOW_FEATS):
-        if tag in ("unet-0-self", "unet-1-self", "unet-2-self"):
-            rows.append(("attn_packed_bwd", check_packed(
-                "bwd", tag, b, lq, lk, hd, heads, BF16, gen)))
+    # stage-2 training: the UNet's attention at the train batch in bf16,
+    # forward in every train and validation forward, backward in each
+    # train step; the frozen encoder's mid attention once a forward
+    for tag, b, lq, lk, hd, heads, per in attention_sites(
+            "s2-unet", LDM_UNET, S2_BATCH, S2_TOKENS, True):
+        rows.append(("attn_packed_fwd", {**check_packed(
+            "fwd", tag, b, lq, lk, hd, heads, BF16, gen),
+            "calls": calls(train_stage2=S2_FORWARDS * per)}))
+        rows.append(("attn_packed_bwd", {**check_packed(
+            "bwd", tag, b, lq, lk, hd, heads, BF16, gen),
+            "calls": calls(train_stage2=S2_STEPS * per)}))
+    rows.append(("attn_fwd", {**check_head("s2-enc-mid", S2_BATCH, l, l, d,
+                                           BF16, gen),
+                              "calls": calls(train_stage2=S2_FORWARDS)}))
     rows += check_gn("unet-320x16x64", 2 * n, 320, 16, 64, 1e-5, "silu",
                      FP32, gen)
     # the block kernel's branch-free SiLU division, bit for bit __fdiv_rn's
@@ -833,8 +892,8 @@ def kernel_phase(pipe):
 
 
 def summarize(rows, launches):
-    """One entry per kernel: its path shapes summed over their calls in the
-    generate, the inpaint and the train_vae run (ms, device_ms, plain_ms,
+    """One entry per kernel: its path shapes summed over their calls in
+    each main-path run of ``RUNS`` (ms, device_ms, plain_ms,
     library_ms, bound_ms, each also per run; library_device_ms), its
     largest error, and its launches in the main-path runs. A sum is null where nothing was measured: no call
     of the kernel in that run, or a shape without a library call."""
@@ -1451,6 +1510,307 @@ def train_phase(pipe, expect, profile: bool):
         "lpips_step_s": stages["lpips_step_s"], **gn_cost}
 
 
+# ---- stage-2 training -----------------------------------------------------------
+
+def write_pairs(root: str, n: int = S2_ITEMS, frames: int = 600,
+                feats: int = 40, seed: int = 0):
+    """Seeded (mel spec, CAVP feature) pairs in the reference layout:
+    ``Train.txt``, ``Train/audio_npy_spec/<id>_mel.npy`` (128 × frames in
+    [0, 1], stationary in time as ``write_specs``'s) and
+    ``CAVP_feat/Train/<id>.npz`` (feats × 512, N(0, 1))."""
+    rng = np.random.default_rng(seed)
+    spec_dir = os.path.join(root, "Train", "audio_npy_spec")
+    feat_dir = os.path.join(root, "CAVP_feat", "Train")
+    os.makedirs(spec_dir)
+    os.makedirs(feat_dir)
+    write_specs(spec_dir, n, frames, seed)
+    ids = [f"clip{i}" for i in range(n)]
+    with open(os.path.join(root, "Train.txt"), "w") as f:
+        f.write("\n".join(ids) + "\n")
+    for i in ids:
+        np.savez(os.path.join(feat_dir, f"{i}.npz"),
+                 feat=rng.standard_normal((feats, 512)).astype(np.float32))
+
+
+def trained(ldm) -> dict:
+    """The stage-2 trainer's leaves of a LatentDiffusion."""
+    return {k: p for k, p in ldm.named_parameters()
+            if k.startswith(("unet.", "cond."))}
+
+
+def leaf_distance(a: dict, b: dict) -> float:
+    """‖a − b‖₂ over all leaves."""
+    return float(global_norm([(a[k] - b[k]).float() for k in a]))
+
+
+def prefetch_check(batches: int = 8):
+    """``DevicePrefetcher`` on the card: batches of 16 MiB staged while the
+    consumer's stream is busy with products between them must arrive
+    whole, equal to their host arrays after the cast (a missing event wait
+    or ``record_stream`` would hand out a half-copied or reused buffer)."""
+    rng = np.random.default_rng(4)
+    host = [{"x": rng.standard_normal((1024, 4096)).astype(np.float32),
+             "i": np.full(3, k, np.int64)} for k in range(batches)]
+    a = torch.randn((4096, 4096), device="cuda")
+    seen = []
+    for k, batch in enumerate(DevicePrefetcher(iter(host), device="cuda",
+                                               cast_dtype=BF16)):
+        for _ in range(8):   # keep the consumer's stream busy
+            a = (a @ a).clamp_(-1, 1)
+        ok = (batch["x"].dtype == BF16 and int(batch["i"][0]) == k
+              and torch.equal(batch["x"].cpu(),
+                              torch.from_numpy(host[k]["x"]).to(BF16)))
+        seen.append(ok)
+    log(f"DevicePrefetcher on the card: {sum(seen)} of {batches} batches "
+        f"arrived whole and in order")
+    if not (all(seen) and len(seen) == batches):
+        raise AssertionError("DevicePrefetcher handed out a wrong batch")
+
+
+def train_stage2_phase(expect, profile: bool):
+    """``cli.train_stage2`` at the full width of LDM_UNET and SD_VAE,
+    mixed precision with EMA, batch 16, on seeded random weights: the
+    main-path call of S2_STEPS steps with one validation round at its last
+    step, the resume for one step more, the fixed-batch fixed-draw eval
+    loss before and after, the EMA's distance, ``load_native_ldm`` then a
+    short CFG-only ``generate``; then warm steps split into forward and
+    backward, AdamW and EMA, and the step's profile."""
+    prefetch_check()
+    tcfg = Stage2TrainConfig(base_lr=S2_LR, warmup_steps=0, use_ema=True,
+                             compute_dtype="bfloat16")
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        data, logdir = os.path.join(tmp, "data"), os.path.join(tmp, "log")
+        write_pairs(data)
+        ds = SpecFeatDataset.from_split_file(data, "train")
+        # the fixed eval batch, staged as DevicePrefetcher stages it
+        fixed = {k: torch.from_numpy(np.stack(
+            [ds[i][k] for i in range(S2_BATCH)])).to("cuda", BF16)
+            for k in ("spec", "video_feat")}
+        # the initial state the CLI draws (seed 0, its VAE seed 1): the
+        # yardstick of the fixed-draw eval loss and of the EMA's distance
+        t0 = time.perf_counter()
+        ldm0 = LatentDiffusion(LDMConfig()).to("cuda")
+        init_weights_(ldm0.vae, torch.Generator("cuda").manual_seed(1))
+        init_ldm_weights_(ldm0, torch.Generator("cuda").manual_seed(0))
+        evaluator = Stage2Trainer(ldm0, tcfg)
+        init = {k: p.detach() for k, p in trained(ldm0).items()}
+        torch.cuda.synchronize()
+        log(f"train_stage2 full-width model and its init on the card "
+            f"{time.perf_counter() - t0:.3f} s; "
+            f"{sum(p.numel() for p in init.values())} trained parameters")
+
+        def fixed_eval(params: dict) -> float:
+            view = TrainState(0, params, None, None)
+            m = evaluator.eval_step(view, fixed, torch.Generator(
+                "cuda").manual_seed(1234))
+            return float(m["loss_simple"])
+
+        loss_before = fixed_eval(init)
+        args = ["--data-dir", data, "--logdir", logdir, "--batch-size",
+                str(S2_BATCH), "--base-lr", str(S2_LR), "--warmup-steps",
+                "0", "--mixed-precision", "--use-ema", "--log-every", "1",
+                "--save-every", "1000000", "--val-every", str(S2_STEPS),
+                "--val-batches", "1"]
+        log(f"train_stage2 LDM_UNET + cond encoder, SD_VAE frozen, bf16 on "
+            f"fp32 masters, EMA, batch {S2_BATCH}, lr {S2_LR}, {S2_STEPS} "
+            f"steps and one validation batch")
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state = train_stage2_cli.main(args + ["--max-steps", str(S2_STEPS)])
+        torch.cuda.synchronize()
+        call_s = time.perf_counter() - t0
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        peak_reserved = torch.cuda.max_memory_reserved() / 2**30
+        read_rows = lambda: [json.loads(line) for line in open(
+            os.path.join(logdir, "metrics.jsonl"))]
+        rows = read_rows()
+        log("train_stage2 metrics " + json.dumps(rows))
+        log(f"train_stage2 {call_s:.3f} s (main-path call: set-up, "
+            f"{S2_STEPS} steps, validation, checkpoint) peak_mem_GiB "
+            f"{peak:.3f} reserved {peak_reserved:.3f}")
+        check_launches("train_stage2", launches, expect)
+        train_rows = [r for r in rows if "train/loss" in r]
+        val_rows = [r for r in rows if "val/loss_simple_ema" in r]
+        if [r["step"] for r in train_rows] != list(range(1, S2_STEPS + 1)) \
+                or [r["step"] for r in val_rows] != [S2_STEPS]:
+            raise AssertionError("train_stage2 did not log every step and "
+                                 "the validation round")
+        for r in rows:
+            if not np.isfinite(list(r.values())).all():
+                raise AssertionError(f"train_stage2 metrics not finite: {r}")
+        loss_after = fixed_eval(state.params)
+        loss_ema = fixed_eval(state.ema.params)
+        d_params = leaf_distance(state.params, init)
+        d_ema = leaf_distance(state.ema.params, init)
+        d_ema_params = leaf_distance(state.ema.params, state.params)
+        log(f"train_stage2 fixed-batch fixed-draw eval loss_simple: before "
+            f"{loss_before:.6f}, after {S2_STEPS} steps {loss_after:.6f} "
+            f"(EMA {loss_ema:.6f}); ‖params − init‖ {d_params:.6e}, ‖EMA − "
+            f"init‖ {d_ema:.6e}, ‖EMA − params‖ {d_ema_params:.6e}")
+        if not loss_after < loss_before:
+            raise AssertionError("the fixed-draw eval loss did not fall")
+        if not (d_ema_params > 0.0 and d_ema < d_params):
+            raise AssertionError("the EMA does not trail the parameters")
+        del state
+        torch.cuda.empty_cache()
+
+        # the resume: step S2_STEPS + 1 from the saved optimizer, EMA and
+        # generator; the step's t draw must be the saved generator's
+        saved = torch.load(os.path.join(logdir, "ckpt",
+                                        f"step_{S2_STEPS}.pt"), mmap=True,
+                           map_location="cpu")
+        gen = torch.Generator("cuda")
+        gen.set_state(saved["generators"]["train"])
+        torch.randn((S2_BATCH, *LATENT_HW, 4), generator=gen, dtype=BF16,
+                    device="cuda")   # the posterior's ε
+        t_expect = float(torch.randint(0, 1000, (S2_BATCH,), generator=gen,
+                                       device="cuda").float().mean())
+        del saved
+        resumed = train_stage2_cli.main(
+            args + ["--max-steps", str(S2_STEPS + 1), "--resume"])
+        last = read_rows()[-1]
+        log(f"train_stage2 resume: step {resumed.step}, AdamW count "
+            f"{resumed.opt.count}, EMA updates {resumed.ema.num_updates}, "
+            f"t_mean {last['train/t_mean']} (the saved generator's draw "
+            f"{t_expect}), loss {last['train/loss']:.6f}")
+        if not (resumed.step == resumed.opt.count == resumed.ema.num_updates
+                == last["step"] == S2_STEPS + 1
+                and last["train/t_mean"] == t_expect
+                and np.isfinite(last["train/loss"])):
+            raise AssertionError("the resumed run did not continue at the "
+                                 "saved step with the saved state")
+        del resumed
+        torch.cuda.empty_cache()
+
+        # the logdir alone rebuilds the model (EMA preferred), which
+        # generates on the card: CFG only, a few DPM steps
+        t0 = time.perf_counter()
+        loaded = load_native_ldm(logdir)
+        load_s = time.perf_counter() - t0
+        pipe = DiffFoleyPipeline(loaded, vae_dtype="bfloat16", device="cuda")
+        feats = np.random.default_rng(2).standard_normal(
+            (WINDOW_FEATS, 512)).astype(np.float32)
+        sample = pipe.generate(feats, seed=0, gen=GenerationConfig(
+            steps=3, sample_num=2, gl_iters=4, classifier_scale=0.0,
+            wav_dtype="int16"))
+        check_outputs(sample, "train_stage2 load_native_ldm → generate",
+                      samples=2, windows=1)
+        log(f"train_stage2 load_native_ldm {load_s:.3f} s")
+        del pipe, loaded
+        torch.cuda.empty_cache()
+
+    # warm steps on the evaluator's model, split: forward + backward,
+    # AdamW, EMA
+    state = evaluator.init_train_state(None, "cuda")
+    gen = torch.Generator("cuda").manual_seed(5)
+    warm = []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(4):
+        stages = {}
+        timed(stages, "forward_backward_s",
+              lambda: evaluator.gradients(state, fixed, gen))
+        timed(stages, "adamw_s", lambda: state.opt.step(
+            [p.grad for p in state.params.values()]))
+        timed(stages, "ema_s", lambda: ema_update(state.ema, state.params,
+                                                  tcfg.ema_decay))
+        state.step += 1
+        warm.append(stages)
+    step_peak = torch.cuda.max_memory_allocated() / 2**30
+    log("train_stage2 warm steps " + json.dumps(warm))
+    if profile:
+        profile_steps("train_stage2", lambda: [evaluator.train_step(
+            state, fixed, gen) for _ in range(2)], grad=True)
+    best = min(warm[1:], key=lambda w: sum(w.values()))
+    out.update({
+        "batch": S2_BATCH, "main_call_s": call_s,
+        "first_step_s": train_rows[0]["step_s"],
+        "cli_step_s": [r["step_s"] for r in train_rows],
+        "split_first_step_s": sum(warm[0].values()),
+        **{f"warm_{k}": v for k, v in best.items()},
+        "warm_step_s": sum(best.values()), "peak_mem_GiB": peak,
+        "peak_reserved_GiB": peak_reserved, "step_peak_mem_GiB": step_peak,
+        "eval_loss_before": loss_before, "eval_loss_after": loss_after,
+        "eval_loss_ema": loss_ema, "load_native_ldm_s": load_s})
+    del state, evaluator, ldm0, init
+    torch.cuda.empty_cache()
+    return launches, out
+
+
+# The planted fault of the stage-2 agreement: this leaf's GPU gradient 1%
+# off.
+S2_FAULT_LEAF = "unet.in_conv.weight"
+
+
+def agreement_stage2_phase():
+    """One fp32 stage-2 train step of a tiny LDM on the GPU (kernels)
+    against the same step on the CPU (plain versions), from equal states,
+    with the same batch and draws (t, noise, keep mask, posterior ε): the
+    UNet at the agreement phase's widths (head dims 40 and 80: the kernels
+    take the path's head dims only, which ``--tiny``'s 16 is not), the VAE
+    at ch 32 (the per-head kernel's D 32). The gradients per leaf before
+    AdamW at ``GRAD_TOL``, the metrics, and a planted 1% fault on
+    ``S2_FAULT_LEAF``'s GPU gradient that must be caught."""
+    ucfg = UNetConfig(model_channels=160, num_res_blocks=1,
+                      channel_mult=(1, 2), attention_resolutions=(1, 2),
+                      num_heads=4, context_dim=64)
+    ldm = randomize_(LatentDiffusion(LDMConfig(
+        unet=ucfg, vae=VAEConfig(ch=32, ch_mult=(1, 1, 1, 1),
+                                 num_res_blocks=1), cond_embed_dim=64)), 9)
+    rng = np.random.default_rng(10)
+    latent = (2, 8, 16, 4)
+    batch = {"spec": torch.as_tensor(rng.uniform(size=(2, 64, 128, 3)),
+                                     dtype=FP32),
+             "video_feat": torch.as_tensor(rng.standard_normal((2, 8, 512)),
+                                           dtype=FP32)}
+    draws = {"t": torch.tensor([37, 811]),
+             "noise": torch.as_tensor(rng.standard_normal(latent),
+                                      dtype=FP32),
+             "keep": torch.tensor([True, False]).view(2, 1, 1),
+             "eps": torch.as_tensor(rng.standard_normal(latent), dtype=FP32)}
+    tcfg = Stage2TrainConfig(base_lr=1e-4, warmup_steps=0, use_ema=True)
+    grads, metrics = {}, {}
+    reset_counts()
+    for device in ("cuda", "cpu"):
+        trainer = Stage2Trainer(copy.deepcopy(ldm), tcfg)
+        state = trainer.init_train_state(None, device)
+        m = trainer.train_step(
+            state, {k: v.to(device) for k, v in batch.items()},
+            draws={k: v.to(device) for k, v in draws.items()})
+        metrics[device] = {k: float(v) for k, v in m.items()}
+        grads[device] = {k: p.grad.detach().cpu()
+                         for k, p in state.params.items()}
+    if not all(ha.LAUNCHES[k] for k in ("attn_packed_fwd", "attn_packed_bwd",
+                                        "attn_fwd")):
+        raise AssertionError(f"tiny stage-2 step launches {ha.LAUNCHES}")
+    worst = max(abs(metrics["cuda"][k] - ref) / max(abs(ref), 1e-3)
+                for k, ref in metrics["cpu"].items())
+    zero = noise_gradients(grads["cpu"])
+    grad_worst = gradient_agreement(grads["cuda"], grads["cpu"], zero,
+                                    *GRAD_TOL)
+    faulty = dict(grads["cuda"])
+    faulty[S2_FAULT_LEAF] = faulty[S2_FAULT_LEAF] * 1.01
+    try:
+        gradient_agreement(faulty, grads["cpu"], zero, *GRAD_TOL)
+        caught = False
+    except AssertionError:
+        caught = True
+    log(f"agreement tiny fp32 train_stage2 gpu-vs-cpu, one step from equal "
+        f"states: metrics worst relative Δ {worst:.3e} (tol 1e-4); gradients "
+        f"per leaf, worst (max|Δ|, rms(Δ)) / rms(cpu) {list(grad_worst)} "
+        f"(limits {list(GRAD_TOL)}) over {len(grads['cpu'])} leaves, "
+        f"{len(zero)} zero-gradient biases noise on both; planted fault "
+        f"({S2_FAULT_LEAF} ×1.01) caught {caught}; cpu metrics "
+        f"{json.dumps(metrics['cpu'])}")
+    if not worst <= 1e-4:
+        raise AssertionError("GPU stage-2 metrics disagree with the CPU's")
+    if not caught:
+        raise AssertionError("the stage-2 agreement passes the planted "
+                             "fault")
+
+
 def _rms(t: torch.Tensor) -> float:
     return float(t.double().square().mean().sqrt())
 
@@ -1845,8 +2205,13 @@ def main(argv):
         pipe, expect["train_vae"], profile)
     log("train_vae times " + json.dumps(times))
     del pipe
+    torch.cuda.empty_cache()
+    launches["train_stage2"], times = train_stage2_phase(
+        expect["train_stage2"], profile)
+    log("train_stage2 times " + json.dumps(times))
     agreement_phase()
     agreement_train_phase()
+    agreement_stage2_phase()
     log(json.dumps({"kernels": summarize(rows, launches)}))
     log(card)
     print(json.dumps({"ok": True, "device": {

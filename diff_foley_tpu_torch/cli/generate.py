@@ -106,20 +106,24 @@ def build(args):
     from ..models.cavp import CAVPModel
     from ..models.unet import ClassifierBackbone
     from ..pipeline import resolve_device
-    from ..utils.checkpoint import (is_native_logdir, load_reference_cavp,
+    from ..utils.checkpoint import (is_native_logdir, is_port_logdir,
+                                    load_reference_cavp,
                                     load_reference_classifier,
                                     load_reference_ldm)
     from ..utils.init import randomize_
 
-    for flag, slice_ in (("ldm_ckpt", "stage-2 trainer"),
-                         ("cavp_ckpt", "CAVP trainer"),
-                         ("classifier_ckpt", "classifier trainer")):
-        if is_native_logdir(getattr(args, flag)):
+    for flag, trainer in (("ldm_ckpt", "stage-2 trainer"),
+                          ("cavp_ckpt", "CAVP trainer"),
+                          ("classifier_ckpt", "classifier trainer")):
+        path = getattr(args, flag)
+        if is_native_logdir(path) or is_port_logdir(path):
             raise SystemExit(
-                f"--{flag.replace('_', '-')} {getattr(args, flag)} is a "
-                f"training logdir of the JAX package: the port loads those "
-                f"with the {slice_} slice (ROADMAP §1); pass a reference "
-                "torch checkpoint")
+                f"--{flag.replace('_', '-')} {path} is a training logdir: "
+                "pass a reference torch checkpoint. The JAX package's orbax "
+                "logdirs are not read; a logdir of the port's "
+                f"{trainer} loads with DiffFoley.from_native_checkpoints, "
+                "ROADMAP §1 item 4 (a stage-2 logdir already with "
+                "utils.checkpoint.load_native_ldm)")
     if not (args.random_weights or (args.cavp_ckpt and args.ldm_ckpt)):
         raise SystemExit("provide --cavp-ckpt/--ldm-ckpt or pass "
                          "--random-weights")

@@ -1,0 +1,243 @@
+"""Stage-2 LDM training entry point (``diff_foley_tpu/cli/train_stage2.py``):
+AdamW on the UNet and the cond encoder against a frozen first-stage VAE,
+on (mel spec, CAVP feature) pairs in the reference's directory layout.
+
+Usage:
+  python -m diff_foley_tpu_torch.cli.train_stage2 --data-dir /data/vggsound \\
+      --logdir ./logs/stage2 --batch-size 16 --max-steps 100000 \\
+      --mixed-precision --use-ema
+
+It runs on the first CUDA device unless ``--device cpu``. The logdir holds
+``config.json`` (the model and train configs), ``vae/step_<n>.pt`` (the
+frozen first stage, written once per run), ``ckpt/step_<n>.pt`` (the
+train state: step, float32 masters, AdamW state, EMA, and the step
+generator's state) and ``metrics.jsonl`` (one JSON object per logged step
+or validation round). ``--resume`` continues from the newest checkpoint;
+``utils.checkpoint.load_native_ldm`` rebuilds the trained model from the
+logdir. ``--vae-ckpt`` takes a ``cli.train_vae`` logdir of this package or
+a reference torch checkpoint; without it the VAE has seeded random
+weights. The last checkpoint is written at the end (preemption handling
+is not ported).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+
+import numpy as np
+import torch
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--base", default=None,
+                   help="model YAML (reference format): not ported")
+    p.add_argument("--data-dir", required=True)
+    p.add_argument("--logdir", default="./logs/stage2")
+    p.add_argument("--batch-size", type=int, default=16)
+    p.add_argument("--base-lr", type=float, default=1e-4)
+    p.add_argument("--warmup-steps", type=int, default=1000)
+    p.add_argument("--max-steps", type=int, default=100000)
+    p.add_argument("--accum-steps", type=int, default=1)
+    p.add_argument("--mixed-precision", action="store_true",
+                   help="bf16 forward and backward against float32 masters")
+    p.add_argument("--use-ema", action="store_true")
+    p.add_argument("--save-every", type=int, default=2000)
+    p.add_argument("--log-every", type=int, default=50)
+    p.add_argument("--sound-log-every", type=int, default=0,
+                   help="0 disables the SoundLogger callback (not ported)")
+    p.add_argument("--val-every", type=int, default=0,
+                   help="validation every N steps (0 disables)")
+    p.add_argument("--val-batches", type=int, default=8)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--vae-ckpt", default=None,
+                   help="a cli.train_vae logdir or a reference torch "
+                        "checkpoint for the frozen first stage")
+    p.add_argument("--tiny", action="store_true",
+                   help="tiny model for smoke runs")
+    p.add_argument("--data-duration", type=float, default=10.0)
+    p.add_argument("--data-truncate", type=int, default=131072)
+    p.add_argument("--fsdp", action="store_true",
+                   help="shard params, Adam state and EMA: not ported")
+    p.add_argument("--device", default="cuda",
+                   help="'cuda' (the default; fails without a GPU) or 'cpu'")
+    return p.parse_args(argv)
+
+
+def refuse(args) -> None:
+    """Exit with a message naming the ROADMAP item of each flag the port
+    does not run."""
+    if args.fsdp:
+        raise SystemExit("--fsdp: sharded training is ROADMAP §1 item 5 "
+                         "(parallelism), not ported")
+    if args.sound_log_every > 0:
+        raise SystemExit("--sound-log-every: the SoundLogger callback "
+                         "(train/callbacks.py) is in ROADMAP §1's long tail, "
+                         "not ported")
+    if args.base:
+        raise SystemExit("--base: reference YAML loading (config.py) is in "
+                         "ROADMAP §1's long tail, not ported")
+
+
+def build_ldm(args):
+    from ..diffusion.latent_diffusion import LatentDiffusion, LDMConfig
+    from ..models.unet import UNetConfig
+    from ..models.vae import VAEConfig
+
+    if args.tiny:
+        return LatentDiffusion(LDMConfig(
+            unet=UNetConfig(model_channels=32, num_res_blocks=1,
+                            channel_mult=(1, 2), attention_resolutions=(2,),
+                            num_heads=4, context_dim=24),
+            vae=VAEConfig(ch=32, ch_mult=(1, 2, 4, 4), num_res_blocks=1),
+            cond_embed_dim=24))
+    return LatentDiffusion(LDMConfig())
+
+
+def first_stage(args, ldm, device) -> None:
+    """Load or draw the frozen VAE into ``ldm.vae`` on ``device``."""
+    from ..train.vae import init_weights_
+    from ..utils.checkpoint import (is_port_logdir, load_native_vae,
+                                    load_vae_checkpoint)
+
+    if is_port_logdir(args.vae_ckpt):
+        ldm.vae.load_state_dict(load_native_vae(
+            args.vae_ckpt, expect_cfg=ldm.cfg.vae).state_dict())
+    elif args.vae_ckpt:
+        load_vae_checkpoint(args.vae_ckpt, ldm.vae)
+    ldm.vae.to(device)
+    if not args.vae_ckpt:
+        init_weights_(ldm.vae, torch.Generator(device).manual_seed(
+            args.seed + 1))
+
+
+def val_generator(device, seed: int, step: int, vi: int) -> torch.Generator:
+    """Independent draws for each validation batch and round."""
+    s = int(np.random.SeedSequence([seed, step, vi]).generate_state(1)[0])
+    return torch.Generator(device).manual_seed(s)
+
+
+def to_device(batch: dict, device) -> dict:
+    return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    refuse(args)
+    from ..config import save_run_config
+    from ..data.ldm_dataset import LDMDataConfig, SpecFeatDataset
+    from ..data.loader import DevicePrefetcher, PrefetchLoader
+    from ..pipeline import resolve_device
+    from ..train.stage2_ldm import Stage2TrainConfig, Stage2Trainer
+    from ..utils.checkpoint import latest_checkpoint, save_checkpoint
+
+    device = resolve_device(None if args.device == "cuda" else args.device)
+    ldm = build_ldm(args)
+    tcfg = Stage2TrainConfig(
+        base_lr=args.base_lr, warmup_steps=args.warmup_steps,
+        use_ema=args.use_ema, accum_steps=args.accum_steps,
+        compute_dtype="bfloat16" if args.mixed_precision else None)
+    dcfg = LDMDataConfig(duration=args.data_duration,
+                         truncate=args.data_truncate)
+    dataset = SpecFeatDataset.from_split_file(args.data_dir, "train",
+                                              cfg=dcfg)
+    if len(dataset) < args.batch_size:
+        raise SystemExit(
+            f"dataset has {len(dataset)} items < global batch "
+            f"{args.batch_size}: the loader would yield zero batches and "
+            "the training loop would spin forever")
+    loader = PrefetchLoader(dataset, args.batch_size, seed=args.seed)
+    val_loader = None
+    if args.val_every:
+        try:
+            val_ds = SpecFeatDataset.from_split_file(args.data_dir, "valid",
+                                                     cfg=dcfg)
+        except FileNotFoundError:
+            val_ds = dataset   # no valid split: monitor on the train split
+        val_loader = PrefetchLoader(val_ds, args.batch_size,
+                                    seed=args.seed + 99)
+
+    # a self-describing logdir: the configs and the frozen first stage,
+    # so that load_native_ldm rebuilds the model from the logdir alone
+    first_stage(args, ldm, device)
+    save_run_config(args.logdir, "stage2_ldm", model=ldm.cfg, train=tcfg)
+    vae_dir = os.path.join(args.logdir, "vae")
+    newest_vae = latest_checkpoint(vae_dir)
+    if newest_vae is None or not args.resume:
+        # a fresh run in a reused logdir writes its own first stage: a
+        # stale one would describe another run
+        save_checkpoint(vae_dir, 0 if newest_vae is None else
+                        newest_vae[0] + 1, {"vae": ldm.vae.state_dict()},
+                        keep=1)
+
+    trainer = Stage2Trainer(ldm, tcfg)
+    state = trainer.init_train_state(args.seed, device)
+    n_params = sum(p.numel() for p in state.params.values())
+    print(f"LatentDiffusion: {n_params} trained parameters on {device}")
+    gen = torch.Generator(device).manual_seed(args.seed + 2)
+    ckpt_dir = os.path.join(args.logdir, "ckpt")
+    newest = latest_checkpoint(ckpt_dir) if args.resume else None
+    if newest is not None:
+        sd = torch.load(newest[1], map_location=device)
+        state.load_state_dict(sd["state"])
+        gen.set_state(sd["generators"]["train"].cpu())
+        print(f"resumed from step {state.step}")
+
+    def save():   # the newest three stay, as the JAX package keeps them
+        save_checkpoint(ckpt_dir, state.step, {
+            "state": state.state_dict(),
+            "generators": {"train": gen.get_state()}}, keep=3)
+
+    cast = torch.bfloat16 if args.mixed_precision else None
+    val_name = "loss_simple_ema" if tcfg.use_ema else "loss_simple"
+    epoch = 0
+    t_log, n_log = time.perf_counter(), state.step
+    with open(os.path.join(args.logdir, "metrics.jsonl"), "a") as log:
+        def write(row):
+            log.write(json.dumps(row) + "\n")
+            log.flush()
+
+        while state.step < args.max_steps:
+            for batch in DevicePrefetcher(loader.epoch(epoch), device=device,
+                                          cast_dtype=cast):
+                metrics = trainer.train_step(state, batch, gen)
+                step = state.step
+                if step % args.log_every == 0:
+                    # reading the metrics waits for the device
+                    m = {f"train/{k}": float(v) for k, v in metrics.items()}
+                    now = time.perf_counter()
+                    m["step"] = step
+                    m["step_s"] = (now - t_log) / (step - n_log)
+                    t_log, n_log = now, step
+                    write(m)
+                    print(f"step {step}: loss={m['train/loss']:.4f}")
+                if args.val_every and step % args.val_every == 0:
+                    losses = []
+                    for vi, vb in enumerate(
+                            val_loader.epoch(step // args.val_every)):
+                        vm = trainer.eval_step(
+                            state, to_device(vb, device),
+                            val_generator(device, args.seed + 2, step, vi))
+                        losses.append(float(vm["loss_simple"]))
+                        if len(losses) >= args.val_batches:
+                            break
+                    write({"step": step,
+                           f"val/{val_name}": float(np.mean(losses))})
+                    print(f"step {step}: val/{val_name}="
+                          f"{np.mean(losses):.4f}")
+                    t_log = time.perf_counter()
+                if step % args.save_every == 0:
+                    save()
+                if step >= args.max_steps:
+                    break
+            epoch += 1
+    save()
+    print(f"done at step {state.step}; checkpoints in {ckpt_dir}")
+    return state
+
+
+if __name__ == "__main__":
+    main()

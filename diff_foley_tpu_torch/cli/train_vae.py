@@ -17,13 +17,14 @@ JSON object per logged step.
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import json
 import os
-import re
 import time
 
 import torch
+
+from ..utils.checkpoint import latest_checkpoint
+from ..utils.checkpoint import save_checkpoint as save_step_checkpoint
 
 
 def parse_args(argv=None):
@@ -51,30 +52,17 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def latest_checkpoint(ckpt_dir: str):
-    """(step, path) of the newest ``step_<n>.pt``, or None."""
-    found = []
-    if os.path.isdir(ckpt_dir):
-        for name in os.listdir(ckpt_dir):
-            m = re.fullmatch(r"step_(\d+)\.pt", name)
-            if m:
-                found.append((int(m.group(1)), os.path.join(ckpt_dir, name)))
-    return max(found) if found else None
-
-
 def save_checkpoint(ckpt_dir: str, state, noise_gen: torch.Generator) -> str:
-    os.makedirs(ckpt_dir, exist_ok=True)
-    path = os.path.join(ckpt_dir, f"step_{state.step}.pt")
-    tmp = path + ".tmp"
-    torch.save({**state.state_dict(), "noise_gen": noise_gen.get_state()}, tmp)
-    os.replace(tmp, path)
-    return path
+    return save_step_checkpoint(
+        ckpt_dir, state.step,
+        {**state.state_dict(), "noise_gen": noise_gen.get_state()})
 
 
 def main(argv=None):
     args = parse_args(argv)
     if not (args.data_dir or args.spec_dir):
         raise SystemExit("provide --data-dir or --spec-dir")
+    from ..config import save_run_config
     from ..data.ldm_dataset import LDMDataConfig, SpecDataset
     from ..data.loader import PrefetchLoader
     from ..models.vae import SD_VAE, VAEConfig
@@ -101,12 +89,9 @@ def main(argv=None):
             "the loader would yield no batch")
     loader = PrefetchLoader(dataset, args.batch_size, seed=args.seed)
 
-    os.makedirs(args.logdir, exist_ok=True)
-    with open(os.path.join(args.logdir, "config.json"), "w") as f:
-        json.dump({"kind": "vae", "model": dataclasses.asdict(vae_cfg),
-                   "train": dataclasses.asdict(tcfg),
-                   "sample_shape": [1, 128, args.data_truncate // dcfg.hop_len,
-                                    3]}, f, indent=1)
+    save_run_config(args.logdir, "vae", model=vae_cfg, train=tcfg,
+                    sample_shape=[1, 128, args.data_truncate // dcfg.hop_len,
+                                  3])
 
     state = trainer.init_train_state(args.seed, device)
     noise_gen = torch.Generator(device).manual_seed(args.seed + 1)

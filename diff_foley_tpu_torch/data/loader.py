@@ -1,5 +1,7 @@
-"""Host-side batch loader: per-process index sharding + threaded prefetch
-(``diff_foley_tpu/data/loader.py``), numpy only.
+"""Host-side batch loading (``diff_foley_tpu/data/loader.py``): per-process
+index sharding and threaded prefetch, numpy only (``PrefetchLoader``), and
+the staging of batches onto the device ahead of the step that reads them
+(``DevicePrefetcher``).
 
 Each process loads only its shard of the global batch (``shard_indices``),
 worker threads overlap IO and augmentation with device compute, and
@@ -9,9 +11,10 @@ from __future__ import annotations
 
 import queue
 import threading
-from typing import Callable, Dict, Iterator, Sequence
+from typing import Callable, Dict, Iterator, Optional, Sequence
 
 import numpy as np
+import torch
 
 
 def shard_indices(
@@ -164,3 +167,98 @@ class PrefetchLoader:
             seed=self.seed, epoch=0,
         )
         return len(idx) // self.batch_size
+
+
+class DevicePrefetcher:
+    """Batch k + 1 staged on the device while the step runs on batch k.
+
+    A feeder thread takes each dict-of-ndarray batch, casts its float32
+    arrays to ``cast_dtype`` on the host (bf16 under mixed precision halves
+    the bytes the copy moves; the trainer casts to its compute type
+    anyway), copies them into pinned memory and issues the copies to
+    ``device`` with ``non_blocking=True`` on a side stream, then records an
+    event. The consumer's stream waits on that event before the batch is
+    handed out, and each tensor is recorded on the consumer's stream, so
+    the caching allocator does not reuse its memory while the step still
+    reads it. On the CPU the batch is cast and handed out as is. A failure
+    in the feeder is raised in the consumer; a consumer that stops early
+    releases the feeder.
+
+        for batch in DevicePrefetcher(loader.epoch(e), device="cuda",
+                                      cast_dtype=torch.bfloat16):
+            metrics = trainer.train_step(state, batch, generator)
+    """
+
+    depth = 2   # batches staged ahead
+
+    def __init__(self, it: Iterator[Dict], *, device,
+                 cast_dtype: Optional[torch.dtype] = None):
+        self._it = it
+        self._device = torch.device(device)
+        self._dtype = cast_dtype
+
+    def _host(self, batch) -> Dict[str, torch.Tensor]:
+        out = {}
+        for k, v in batch.items():
+            t = torch.as_tensor(np.asarray(v))
+            if self._dtype is not None and t.dtype == torch.float32:
+                t = t.to(self._dtype)
+            out[k] = t
+        return out
+
+    def _stage(self, batch, stream):
+        host = self._host(batch)
+        if stream is None:
+            return host, None
+        with torch.cuda.stream(stream):
+            out = {k: t.pin_memory().to(self._device, non_blocking=True)
+                   for k, t in host.items()}
+            event = torch.cuda.Event()
+            event.record(stream)
+        return out, event
+
+    def __iter__(self):
+        q: "queue.Queue" = queue.Queue(maxsize=self.depth)
+        stop = threading.Event()
+        done = object()
+        stream = (torch.cuda.Stream(self._device)
+                  if self._device.type == "cuda" else None)
+
+        def put(item) -> bool:
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def feeder():
+            try:
+                for batch in self._it:
+                    if not put(self._stage(batch, stream)):
+                        return
+            except Exception as e:  # raised in the consumer, never a hang
+                put(e)
+                return
+            put(done)
+
+        t = threading.Thread(target=feeder, daemon=True)
+        t.start()
+        try:
+            while True:
+                item = q.get()
+                if item is done:
+                    break
+                if isinstance(item, Exception):
+                    raise RuntimeError("device prefetch failed") from item
+                batch, event = item
+                if event is not None:
+                    current = torch.cuda.current_stream(self._device)
+                    current.wait_event(event)
+                    for v in batch.values():
+                        v.record_stream(current)
+                yield batch
+        finally:
+            stop.set()
+            t.join(timeout=5.0)

@@ -1,14 +1,15 @@
-"""LatentDiffusion at inference: conditioning, the ε-UNet, DPM-Solver++ or
-DDIM sampling with guidance, and the first stage's encode and decode
-(``diff_foley_tpu/diffusion/latent_diffusion.py``).
+"""LatentDiffusion: conditioning, the ε-UNet, DPM-Solver++ or DDIM
+sampling with guidance, the first stage's encode and decode, and the
+training loss ``p_losses`` (``diff_foley_tpu/diffusion/latent_diffusion.py``).
 
 Children mirror the JAX params layout: ``unet`` ({"unet": …}), ``cond``
-({"cond": …}) and ``vae`` (the separate VAE params).
+({"cond": …}) and ``vae`` (the separate VAE params). ``forward`` is the
+training loss, as in the reference's LatentDiffusion.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 import torch.nn as nn
@@ -35,11 +36,17 @@ class LDMConfig:
     linear_start: float = 0.00085
     linear_end: float = 0.0120
     scale_factor: float = 0.18215
+    cond_drop_prob: float = 0.2   # CFG dropout of the context in training
+    conditioning_key: str = "crossattn"
 
 
 class LatentDiffusion(nn.Module):
     def __init__(self, cfg: LDMConfig = LDMConfig()):
         super().__init__()
+        if cfg.conditioning_key != "crossattn":
+            raise NotImplementedError(
+                f"conditioning_key {cfg.conditioning_key!r}: the port runs "
+                "the shipped 'crossattn' only (ROADMAP §1, the long tail)")
         self.cfg = cfg
         self.unet = UNetModel(cfg.unet)
         self.cond = VideoFeatEncoderPosembed(
@@ -56,13 +63,65 @@ class LatentDiffusion(nn.Module):
         """Cross-attention conditioning into the UNet."""
         return self.unet(x, t, context)
 
-    def encode_first_stage(self, x: torch.Tensor) -> torch.Tensor:
-        """NHWC mel image → scaled latent, the posterior's mode."""
-        return self.cfg.scale_factor * self.vae.encode(x).mode()
+    def encode_first_stage(self, x: torch.Tensor,
+                           generator: Optional[torch.Generator] = None,
+                           noise: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+        """NHWC mel image → scaled latent: the posterior's sample when a
+        ``generator`` (or its ε as ``noise``) is given, as in training,
+        else its mode."""
+        post = self.vae.encode(x)
+        z = (post.sample(generator, noise)
+             if generator is not None or noise is not None else post.mode())
+        return self.cfg.scale_factor * z
 
     def decode_first_stage(self, z: torch.Tensor) -> torch.Tensor:
         """Scaled latent → mel image, NHWC."""
         return self.vae.decode(z / self.cfg.scale_factor)
+
+    def p_losses(self, z_start: torch.Tensor, video_feat: torch.Tensor, *,
+                 generator: Optional[torch.Generator] = None,
+                 draws: Optional[Dict[str, torch.Tensor]] = None):
+        """The ε-prediction loss with CFG dropout → (loss, {loss_simple,
+        loss_vlb, t_mean}), reduced in float32.
+
+        Draws from ``generator``, in this order: t uniform in [0, T), the
+        noise in z_start's dtype, and the keep mask (uniform ≥
+        ``cond_drop_prob``; the context is zeroed where an example is
+        dropped). ``draws`` gives them instead, as tensors under "t",
+        "noise" and "keep" (B, 1, 1): the seam through which a test hands
+        in the JAX package's draws."""
+        b = z_start.shape[0]
+        dev = z_start.device
+        if draws is None:
+            t = torch.randint(0, self.schedule.num_timesteps, (b,),
+                              generator=generator, device=dev)
+            noise = torch.randn(z_start.shape, generator=generator,
+                                dtype=z_start.dtype, device=dev)
+            keep = torch.rand((b, 1, 1), generator=generator,
+                              device=dev) >= self.cfg.cond_drop_prob
+        else:
+            t, noise, keep = draws["t"], draws["noise"], draws["keep"]
+        t = t.to(dev, torch.int64)
+        z_noisy = self.schedule.q_sample(z_start, t, noise)
+        context = self.get_learned_conditioning(video_feat)
+        if self.cfg.cond_drop_prob > 0:
+            context = torch.where(keep.to(dev).view(b, 1, 1), context,
+                                  torch.zeros_like(context))
+        eps_hat = self.apply_model(z_noisy, t.float(), context)
+        per_example = (eps_hat.float() - noise.float()).square() \
+            .reshape(b, -1).mean(dim=1)
+        loss_simple = per_example.mean()
+        loss_vlb = (self.schedule.gather("lvlb_weights", t)
+                    * per_example).mean()
+        # l_simple_weight 1, no learned log-variance, ELBO weight 0
+        return loss_simple, {"loss_simple": loss_simple,
+                             "loss_vlb": loss_vlb,
+                             "t_mean": t.float().mean()}
+
+    def forward(self, z_start, video_feat, **kw):
+        """The training loss: :meth:`p_losses`."""
+        return self.p_losses(z_start, video_feat, **kw)
 
     def sample(self, video_feat: torch.Tensor, *, latent_hw=(16, 64),
                sampler: str = "dpm", steps: int = 25, cfg_scale: float = 4.5,

@@ -4,11 +4,16 @@ SpatialTransformer: GroupNorm (ε 1e-6) → 1×1 proj_in → h·w tokens →
 BasicTransformerBlock (self-attn → cross-attn → GEGLU feed-forward, each
 pre-LayerNorm and residual) → 1×1 proj_out → + input. Attention runs on the
 packed (B, L, H·D) projections through ``multi_head_attention_packed``.
+With ``checkpoint`` each block runs under ``torch.utils.checkpoint`` while
+gradients are on: its activations are recomputed in the backward, so its
+attention forward runs twice a train step.
 """
 from __future__ import annotations
 
+import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from ..ops.attention import multi_head_attention_packed
 from .layers import Dense, GroupNorm, LayerNorm, conv1x1
@@ -77,9 +82,10 @@ class SpatialTransformer(nn.Module):
     """Token-space transformer over an NCHW map."""
 
     def __init__(self, channels: int, context_dim: int, heads: int,
-                 dim_head: int, depth: int = 1):
+                 dim_head: int, depth: int = 1, checkpoint: bool = False):
         super().__init__()
         inner = heads * dim_head
+        self.checkpoint = checkpoint
         self.norm = GroupNorm(channels, eps=1e-6)
         self.proj_in = conv1x1(channels, inner)
         self.depth = depth
@@ -94,7 +100,12 @@ class SpatialTransformer(nn.Module):
         inner = t.shape[1]
         t = t.reshape(b, inner, h * w).transpose(1, 2).contiguous()
         for i in range(self.depth):
-            t = getattr(self, f"block{i}")(t, context)
+            block = getattr(self, f"block{i}")
+            if self.checkpoint and torch.is_grad_enabled():
+                t = torch.utils.checkpoint.checkpoint(block, t, context,
+                                                      use_reentrant=False)
+            else:
+                t = block(t, context)
         # back to a contiguous NCHW map, as the GroupNorm kernels take them
         t = t.transpose(1, 2).reshape(b, inner, h, w).contiguous()
         return self.proj_out(t) + x

@@ -37,6 +37,13 @@ class UNetConfig:
     num_heads: int = 8
     transformer_depth: int = 1
     context_dim: int = 768
+    # training knobs: the shipped rate is 0, and ``use_checkpoint``
+    # recomputes each BasicTransformerBlock in the backward
+    # (torch.utils.checkpoint, the scope of the JAX package's nn.remat);
+    # ``remat_policy`` names XLA save policies, which have no counterpart
+    dropout: float = 0.0
+    use_checkpoint: bool = False
+    remat_policy: str = "none"
     dtype: str = "float32"
 
     @property
@@ -57,6 +64,15 @@ class _Trunk(nn.Module):
 
     def __init__(self, cfg: UNetConfig, skips: bool):
         super().__init__()
+        if cfg.dropout > 0:
+            raise NotImplementedError(
+                f"UNet dropout {cfg.dropout}: the port runs the shipped rate "
+                "0 only (ROADMAP §1, the long tail)")
+        if cfg.remat_policy != "none":
+            raise NotImplementedError(
+                f"remat_policy {cfg.remat_policy!r} is an XLA save policy; "
+                "the port recomputes whole blocks (use_checkpoint) only "
+                "(ROADMAP §1, the long tail)")
         self.cfg = cfg
         mc = cfg.model_channels
         self.emb_dim = 4 * mc
@@ -94,7 +110,8 @@ class _Trunk(nn.Module):
     def attn(self, ch: int) -> SpatialTransformer:
         cfg = self.cfg
         return SpatialTransformer(ch, cfg.context_dim, cfg.num_heads,
-                                  ch // cfg.num_heads, cfg.transformer_depth)
+                                  ch // cfg.num_heads, cfg.transformer_depth,
+                                  checkpoint=cfg.use_checkpoint)
 
     def _add(self, plan, name: str, module: nn.Module, kind: str):
         setattr(self, name, module)

@@ -66,11 +66,13 @@ class VAETrainState:
 @torch.no_grad()
 def init_weights_(module: torch.nn.Module, generator: torch.Generator):
     """flax's default initialisation: lecun-normal kernels (σ² = 1 / fan-in),
-    zero biases and unit scales (the modules' construction values)."""
+    zero biases and unit scales (the modules' construction values); drawn
+    on the generator's device."""
     for name, p in module.named_parameters():
         if name.endswith("weight") and p.dim() >= 2:
             std = 1.0 / math.sqrt(p[0].numel())
-            p.copy_(torch.randn(p.shape, generator=generator) * std)
+            p.copy_(torch.randn(p.shape, generator=generator,
+                                device=generator.device) * std)
     return module
 
 

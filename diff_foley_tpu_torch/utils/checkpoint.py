@@ -1,19 +1,28 @@
-"""Reference-checkpoint loading (``diff_foley_tpu/utils/checkpoint.py``):
-the released torch checkpoints (``ldm_epoch240.ckpt``,
-``cavp_epoch66.ckpt``, ``double_guidance_classifier.ckpt``) into this
-package's modules.
+"""Checkpoints (``diff_foley_tpu/utils/checkpoint.py``).
 
-Each loader walks the reference keys into the flax layout
-(``utils/convert.py``), turns the tree into a state dict with
+Reference checkpoints: the released torch files (``ldm_epoch240.ckpt``,
+``cavp_epoch66.ckpt``, ``double_guidance_classifier.ckpt``) into this
+package's modules. Each loader walks the reference keys into the flax
+layout (``utils/convert.py``), turns the tree into a state dict with
 ``from_jax_params`` and loads it with ``strict=True``: a missing key, a
 key the walk does not take, or a shape the module does not have raises.
 The modules are loaded in place, on the device they are on.
+
+The port's training logdirs: ``config.json`` (``config.save_run_config``)
+beside ``ckpt/step_<n>.pt`` files, each written with ``torch.save`` to a
+temporary name and renamed into place. ``load_native_vae`` reads a
+``cli.train_vae`` logdir and ``load_native_ldm`` a ``cli.train_stage2``
+one (which also holds its frozen first stage under ``vae/``). The JAX
+package's logdirs hold orbax checkpoints, which the port does not read
+(that would need orbax; ROADMAP §1).
 """
 from __future__ import annotations
 
 import os
+import re
 from typing import Optional
 
+import torch
 import torch.nn as nn
 
 from ..diffusion.latent_diffusion import LatentDiffusion
@@ -104,8 +113,88 @@ def load_reference_classifier(ckpt_path: str,
     return out
 
 
+def latest_checkpoint(ckpt_dir: str):
+    """(step, path) of the newest ``step_<n>.pt``, or None."""
+    found = []
+    if os.path.isdir(ckpt_dir):
+        for name in os.listdir(ckpt_dir):
+            m = re.fullmatch(r"step_(\d+)\.pt", name)
+            if m:
+                found.append((int(m.group(1)), os.path.join(ckpt_dir, name)))
+    return max(found) if found else None
+
+
+def save_checkpoint(ckpt_dir: str, step: int, payload: dict,
+                    keep: Optional[int] = None) -> str:
+    """``torch.save`` to ``<ckpt_dir>/step_<step>.pt`` through a temporary
+    name and an atomic rename; with ``keep`` only the newest ``keep``
+    files stay."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    path = os.path.join(ckpt_dir, f"step_{step}.pt")
+    tmp = path + ".tmp"
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+    if keep is not None:
+        steps = sorted(n for n in os.listdir(ckpt_dir)
+                       if re.fullmatch(r"step_\d+\.pt", n))
+        steps.sort(key=lambda n: int(n[5:-3]))
+        for old in steps[:-keep]:
+            os.remove(os.path.join(ckpt_dir, old))
+    return path
+
+
+def is_port_logdir(path) -> bool:
+    """True for a training logdir of this package: config.json beside
+    ``ckpt/step_<n>.pt`` files."""
+    return (bool(path) and os.path.exists(os.path.join(path, "config.json"))
+            and latest_checkpoint(os.path.join(path, "ckpt")) is not None)
+
+
 def is_native_logdir(path) -> bool:
     """True for a training logdir of the JAX package (config.json beside
-    its orbax checkpoints): the port has no loader for those yet."""
+    its orbax checkpoints): the port does not read orbax checkpoints."""
     return bool(path) and os.path.isdir(path) and os.path.exists(
-        os.path.join(path, "config.json"))
+        os.path.join(path, "config.json")) and not is_port_logdir(path)
+
+
+def _newest(logdir: str, sub: str) -> dict:
+    found = latest_checkpoint(os.path.join(logdir, sub))
+    if found is None:
+        raise FileNotFoundError(f"no step_<n>.pt under {logdir}/{sub}")
+    return torch.load(found[1], map_location="cpu")
+
+
+def load_native_vae(logdir: str,
+                    expect_cfg: Optional[VAEConfig] = None) -> AutoencoderKL:
+    """A ``cli.train_vae`` logdir → its ``AutoencoderKL`` with the newest
+    checkpoint's weights, on the CPU. With ``expect_cfg`` the logdir's
+    config must be that one."""
+    from ..config import config_from_dict, load_run_config
+
+    cfg = config_from_dict(VAEConfig, load_run_config(logdir, "vae")["model"])
+    if expect_cfg is not None and cfg != expect_cfg:
+        raise ValueError(f"{logdir} holds a VAE of {cfg}, expected "
+                         f"{expect_cfg}")
+    vae = AutoencoderKL(cfg)
+    vae.load_state_dict(_newest(logdir, "ckpt")["vae"], strict=True)
+    return vae
+
+
+def load_native_ldm(logdir: str, prefer_ema: bool = True) -> LatentDiffusion:
+    """A ``cli.train_stage2`` logdir → its ``LatentDiffusion`` on the CPU:
+    the model config.json describes, the UNet and cond encoder of the
+    newest checkpoint (the EMA shadow when the run trained one and
+    ``prefer_ema``: the reference samples with the EMA weights), and the
+    frozen first stage from ``vae/``, so the logdir alone generates."""
+    from ..config import config_from_dict, load_run_config
+    from ..diffusion.latent_diffusion import LDMConfig
+
+    meta = load_run_config(logdir, "stage2_ldm")
+    ldm = LatentDiffusion(config_from_dict(LDMConfig, meta["model"]))
+    state = _newest(logdir, "ckpt")["state"]
+    params = (state["ema"]["params"]
+              if prefer_ema and state["ema"] is not None else state["params"])
+    vae = _newest(logdir, "vae")["vae"]
+    ldm.load_state_dict(
+        {**params, **{f"vae.{k}": v for k, v in vae.items()}}, strict=True)
+    return ldm

@@ -11,6 +11,8 @@ into reference-layout torch checkpoints (``{"state_dict": …}`` with a
 mappings are checked key by key and shape by shape against modules on
 the ``meta`` device, with no weights allocated.
 """
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -32,6 +34,11 @@ from diff_foley_tpu_torch.utils import convert as tconv
 from diff_foley_tpu_torch.utils.convert import from_jax_params
 from diff_foley_tpu_torch.utils.init import random_flax_params, randomize_
 from test_torch_pipeline import CLF_KW, UNET_KW, VAE_KW
+
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    # one intra-op thread per xdist worker: six workers of eight threads
+    # each on eight cores spin against one another
+    torch.set_num_threads(1)
 
 CAVP_KW = dict(video_stage_blocks=(1, 1, 1, 1), video_base_channels=8,
                spec_channels=(8, 8, 16, 16, 32, 32), pool_kernel=2)

@@ -8,6 +8,8 @@ runs them; on CPU tensors the port's wrappers run their plain versions.
 Tolerances: 2e-5 in fp32 (sums in other orders), 2e-2 in bf16 (one bf16
 rounding of outputs up to ~5, taken at other places).
 """
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,6 +22,11 @@ from diff_foley_tpu_torch.models.layers import GroupNorm32
 from diff_foley_tpu_torch.ops import hopper_groupnorm as hg
 from diff_foley_tpu_torch.utils.convert import from_jax_params
 from diff_foley_tpu_torch.utils.init import random_flax_params
+
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    # one intra-op thread per xdist worker: six workers of eight threads
+    # each on eight cores spin against one another
+    torch.set_num_threads(1)
 
 
 @pytest.fixture

@@ -9,6 +9,8 @@ same x_T, forward noise and phase. The tiny LDM and classifier are
 test_torch_pipeline.py's. The contract cases mirror
 tests/test_pipeline_inpaint.py.
 """
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -19,6 +21,11 @@ from diff_foley_tpu import pipeline as jpipe
 from diff_foley_tpu.audio.transforms import mel_to_wav as j_mel_to_wav
 from diff_foley_tpu_torch import pipeline as tpipe
 from test_torch_pipeline import _tiny_pair
+
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    # one intra-op thread per xdist worker: six workers of eight threads
+    # each on eight cores spin against one another
+    torch.set_num_threads(1)
 
 GEN_KW = dict(sampler="ddim", steps=4, sample_num=2, gl_iters=4,
               cfg_scale=4.5, classifier_scale=50.0)

@@ -7,6 +7,8 @@ with ``from_jax_params``; the port loads with ``strict=True``. JAX runs its
 default "xla" attention backend; the port's packed attention runs its plain
 version on CPU tensors. Inputs come from a numpy seed.
 """
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -35,6 +37,11 @@ from diff_foley_tpu_torch.models import unet as tu
 from diff_foley_tpu_torch.models import vae as tv
 from diff_foley_tpu_torch.utils.convert import from_jax_params
 from diff_foley_tpu_torch.utils.init import random_flax_params
+
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    # one intra-op thread per xdist worker: six workers of eight threads
+    # each on eight cores spin against one another
+    torch.set_num_threads(1)
 
 UNET_KW = dict(model_channels=32, num_res_blocks=1, channel_mult=(1, 2),
                attention_resolutions=(1, 2), num_heads=4, context_dim=24)

@@ -7,6 +7,7 @@ tensors the port's wrappers run their plain versions.
 """
 import ctypes
 import importlib
+import os
 import re
 
 import jax
@@ -32,6 +33,11 @@ from diff_foley_tpu_torch.ops import mel as tmel
 from diff_foley_tpu_torch.ops import stft as tstft
 from diff_foley_tpu_torch.ops.attention import (multi_head_attention,
                                                 multi_head_attention_packed)
+
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    # one intra-op thread per xdist worker: six workers of eight threads
+    # each on eight cores spin against one another
+    torch.set_num_threads(1)
 
 # diff_foley_tpu.ops re-exports functions named like these modules
 jgl = importlib.import_module("diff_foley_tpu.ops.griffin_lim")
@@ -678,6 +684,47 @@ def test_cuda_packed_forward_bf16_head_dims(d, lq, lk):
     rms = float(r.square().mean().sqrt())
     assert float((o - r).abs().max()) <= 0.06 * rms
     assert float((o - r).square().mean().sqrt()) <= 4e-4 * rms
+
+
+# The UNet's attention in stage-2 training: the train batch 16, self
+# attention at L 1024/256/64/16 with D 40/80/160/160 and cross attention
+# over the 32 condition tokens of an 8.192-s crop
+S2_SHAPES = [(1024, 1024, 40), (1024, 32, 40), (256, 256, 80),
+             (256, 32, 80), (64, 64, 160), (64, 32, 160), (16, 16, 160),
+             (16, 32, 160)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lq,lk,d", S2_SHAPES)
+def test_cuda_packed_attention_stage2_shapes(lq, lk, d):
+    """The bf16 packed forward and backward at each stage-2 train shape,
+    one launch a call each, against their plain versions at chip_smoke.py's
+    limits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    gen = torch.Generator("cuda").manual_seed(lq + lk + d)
+    heads = 8
+    q, k, v, g = (torch.randn((16, n, heads * d), generator=gen,
+                              device="cuda").to(torch.bfloat16)
+                  for n in (lq, lk, lk, lq))
+    before = dict(ha.LAUNCHES)
+    out = ha.attention_packed_fwd(q, k, v, d**-0.5, heads)
+    grads = ha.attention_packed_bwd(q, k, v, g, d**-0.5, heads)
+    torch.cuda.synchronize()
+    for kind in ("fwd", "bwd"):
+        key = f"attn_packed_{kind}"
+        assert ha.LAUNCHES[key] == before[key] + 1
+    pairs = [((out,), (ha.attention_packed_reference(q, k, v, d**-0.5,
+                                                     heads),), 0.06, 4e-4),
+             (grads, _packed_backward_yardstick(q, k, v, g, d**-0.5, heads),
+              0.25, 0.015)]
+    for outs, refs, max_tol, rms_tol in pairs:
+        for o, r in zip(outs, refs):
+            assert o.dtype == torch.bfloat16
+            o, r = o.double(), r.double()
+            rms = float(r.square().mean().sqrt())
+            assert float((o - r).abs().max()) <= max_tol * rms
+            assert float((o - r).square().mean().sqrt()) <= rms_tol * rms
 
 
 @pytest.mark.gpu

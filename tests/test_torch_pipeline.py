@@ -8,6 +8,7 @@ one shared x_T and one shared Griffin-Lim phase; JAX runs
 port ``DiffFoleyPipeline.generate``.
 """
 import ast
+import os
 import pathlib
 
 import jax
@@ -31,6 +32,11 @@ from diff_foley_tpu_torch.ops import hopper_groupnorm as hg
 from diff_foley_tpu_torch.utils.convert import from_jax_params
 from diff_foley_tpu_torch.utils.init import random_flax_params
 from diff_foley_tpu_torch.utils.wav import write_wav
+
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    # one intra-op thread per xdist worker: six workers of eight threads
+    # each on eight cores spin against one another
+    torch.set_num_threads(1)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 UNET_KW = dict(model_channels=32, num_res_blocks=1, channel_mult=(1, 2),

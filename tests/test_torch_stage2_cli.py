@@ -1,0 +1,152 @@
+"""The port's stage-2 trainer CLI on the CPU: ``cli.train_stage2 --tiny``
+trains with validation, resumes, writes a logdir that
+``load_native_ldm`` rebuilds into a model that generates, refuses what it
+does not run, and defaults to the card.
+"""
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from diff_foley_tpu_torch.cli import train_stage2 as cli
+from diff_foley_tpu_torch.cli import train_vae
+from diff_foley_tpu_torch.models.vae import SD_VAE
+from diff_foley_tpu_torch.pipeline import (WINDOW_FEATS, DiffFoleyPipeline,
+                                           GenerationConfig)
+from diff_foley_tpu_torch.utils import checkpoint as ck
+
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    # one intra-op thread per xdist worker: six workers of eight threads
+    # each on eight cores spin against one another
+    torch.set_num_threads(1)
+
+
+def write_pairs(root, n=4, frames=40, feats=3, seed=0):
+    """Seeded spec and CAVP feature files in the reference layout."""
+    rng = np.random.default_rng(seed)
+    for split in ("Train", "Test"):
+        (root / split / "audio_npy_spec").mkdir(parents=True)
+        (root / "CAVP_feat" / split).mkdir(parents=True)
+        ids = [f"{split.lower()}{i}" for i in range(n)]
+        (root / f"{split}.txt").write_text("\n".join(ids) + "\n")
+        for i in ids:
+            np.save(root / split / "audio_npy_spec" / f"{i}_mel.npy",
+                    rng.uniform(size=(128, frames)).astype(np.float32))
+            np.savez(root / "CAVP_feat" / split / f"{i}.npz",
+                     feat=rng.standard_normal((feats, 512)).astype(
+                         np.float32))
+
+
+@pytest.fixture(scope="module")
+def logdir(tmp_path_factory):
+    """Three tiny steps with validation at step 3, then a resume to 4."""
+    root = tmp_path_factory.mktemp("stage2")
+    write_pairs(root / "data")
+    args = ["--data-dir", str(root / "data"), "--logdir", str(root / "log"),
+            "--tiny", "--device", "cpu", "--batch-size", "2",
+            "--warmup-steps", "0", "--log-every", "1", "--val-every", "3",
+            "--val-batches", "2", "--use-ema", "--data-duration", "1.0",
+            "--data-truncate", "8192"]
+    first = cli.main(args + ["--max-steps", "3"])
+    saved = torch.load(root / "log" / "ckpt" / "step_3.pt")
+    resumed = cli.main(args + ["--max-steps", "4", "--resume"])
+    return dict(root=root, args=args, first=first, saved=saved,
+                resumed=resumed)
+
+
+def test_cli_trains_validates_and_resumes(logdir):
+    root, first, resumed = logdir["root"], logdir["first"], logdir["resumed"]
+    assert first.step == 3 and first.opt.count == 3
+    assert first.ema.num_updates == 3
+    saved = logdir["saved"]["state"]
+    assert saved["step"] == 3 and saved["opt"]["count"] == 3
+    assert saved["ema"]["num_updates"] == 3
+    # the resume continued the optimizer, the EMA and the generator
+    assert resumed.step == 4 and resumed.opt.count == 4
+    assert resumed.ema.num_updates == 4
+    rows = [json.loads(line) for line in
+            (root / "log" / "metrics.jsonl").read_text().splitlines()]
+    train = [r for r in rows if "train/loss" in r]
+    val = [r for r in rows if "val/loss_simple_ema" in r]
+    assert [r["step"] for r in train] == [1, 2, 3, 4]
+    assert [r["step"] for r in val] == [3]
+    for r in rows:
+        assert np.isfinite([v for v in r.values()]).all(), r
+    assert set(train[0]) >= {"train/loss", "train/loss_simple",
+                             "train/loss_vlb", "train/t_mean",
+                             "train/grad_norm", "step_s"}
+    assert ck.latest_checkpoint(str(root / "log" / "ckpt"))[0] == 4
+    assert sorted(os.listdir(root / "log" / "vae")) == ["step_0.pt"]
+    config = json.loads((root / "log" / "config.json").read_text())
+    assert config["kind"] == "stage2_ldm" and config["train"]["use_ema"]
+    gen = torch.Generator().manual_seed(2)
+    gen.set_state(logdir["saved"]["generators"]["train"])
+    assert not torch.equal(gen.get_state(),
+                           torch.Generator().manual_seed(2).get_state())
+
+
+def test_load_native_ldm_prefers_ema_and_generates(logdir):
+    log = str(logdir["root"] / "log")
+    assert ck.is_port_logdir(log) and not ck.is_native_logdir(log)
+    state = torch.load(os.path.join(log, "ckpt", "step_4.pt"))["state"]
+    ema = ck.load_native_ldm(log)
+    raw = ck.load_native_ldm(log, prefer_ema=False)
+    key = "unet.in_conv.weight"
+    assert torch.equal(ema.state_dict()[key], state["ema"]["params"][key])
+    assert torch.equal(raw.state_dict()[key], state["params"][key])
+    assert not torch.equal(ema.state_dict()[key], raw.state_dict()[key])
+    vae = torch.load(os.path.join(log, "vae", "step_0.pt"))["vae"]
+    assert all(torch.equal(ema.vae.state_dict()[k], v) for k, v in vae.items())
+    assert ema.cfg.unet.model_channels == 32
+    feats = np.random.default_rng(3).standard_normal(
+        (WINDOW_FEATS, 512)).astype(np.float32)
+    pipe = DiffFoleyPipeline(ema, device="cpu")
+    out = pipe.generate(feats, seed=0, gen=GenerationConfig(
+        steps=2, sample_num=1, gl_iters=2, classifier_scale=0.0))
+    assert out["spec"].shape == (1, 128, 512)
+    assert np.isfinite(out["spec"]).all() and np.isfinite(out["wav"]).all()
+
+
+def test_load_native_vae_reads_a_train_vae_logdir(tmp_path):
+    rng = np.random.default_rng(4)
+    specs = tmp_path / "specs"
+    specs.mkdir()
+    for i in range(2):
+        np.save(specs / f"c{i}.npy", rng.uniform(size=(128, 40)).astype(
+            np.float32))
+    state = train_vae.main([
+        "--spec-dir", str(specs), "--logdir", str(tmp_path / "vae"),
+        "--tiny", "--device", "cpu", "--batch-size", "2", "--max-steps", "1",
+        "--disc-start", "10", "--data-duration", "1.0",
+        "--data-truncate", "8192"])
+    vae = ck.load_native_vae(str(tmp_path / "vae"))
+    for k, v in state.vae.state_dict().items():
+        assert torch.equal(vae.state_dict()[k], v), k
+    with pytest.raises(ValueError, match="expected"):
+        ck.load_native_vae(str(tmp_path / "vae"), expect_cfg=SD_VAE)
+
+
+@pytest.mark.parametrize("extra,message", [
+    (["--fsdp"], "item 5"),
+    (["--sound-log-every", "1"], "SoundLogger"),
+    (["--base", "x.yaml"], "YAML"),
+    (["--batch-size", "64"], "4 items < global batch 64"),
+])
+def test_cli_refusals(logdir, extra, message):
+    args = [a for a in logdir["args"]]
+    args[args.index(str(logdir["root"] / "log"))] = str(
+        logdir["root"] / "refused")
+    with pytest.raises(SystemExit, match=message):
+        cli.main(args + ["--max-steps", "1"] + extra)
+
+
+def test_cli_defaults_to_the_card(logdir):
+    # as the other entry points: no device named means CUDA, and without a
+    # card that raises instead of training on the CPU unnoticed
+    args = ["--data-dir", str(logdir["root"] / "data"), "--tiny"]
+    assert cli.parse_args(args).device == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli.main(args)

@@ -4,6 +4,8 @@ discriminator and its BatchNorm, the losses, LPIPS/LPAPS, the mel-spec
 dataset and the loader. Inputs come from a numpy seed and go to both sides
 as numpy arrays; weights cross over with ``from_jax_params``.
 """
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -22,6 +24,11 @@ from diff_foley_tpu_torch.train import perceptual as tperc
 from diff_foley_tpu_torch.train import vae_losses as tvl
 from diff_foley_tpu_torch.utils.convert import from_jax_params
 from diff_foley_tpu_torch.utils.init import random_flax_params
+
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    # one intra-op thread per xdist worker: six workers of eight threads
+    # each on eight cores spin against one another
+    torch.set_num_threads(1)
 
 
 def _t(a):

@@ -10,6 +10,7 @@ the port as numpy). ``disc_start=1``: the first step runs with the GAN
 term gated off, the second with it on.
 """
 import json
+import os
 
 import chip_smoke
 import jax
@@ -27,6 +28,11 @@ from diff_foley_tpu_torch.models import vae as tv
 from diff_foley_tpu_torch.train import vae as ttv
 from diff_foley_tpu_torch.train import vae_losses as tvl
 from diff_foley_tpu_torch.utils.convert import from_jax_params
+
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    # one intra-op thread per xdist worker: six workers of eight threads
+    # each on eight cores spin against one another
+    torch.set_num_threads(1)
 
 VAE_KW = dict(ch=64, ch_mult=(1, 2), num_res_blocks=1)
 LR, STEPS = 1e-4, 2

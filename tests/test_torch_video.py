@@ -41,6 +41,11 @@ from test_torch_cavp import CAVP_KW  # noqa: E402
 from test_torch_inpaint import jax_inpaint_reference  # noqa: E402
 from test_torch_pipeline import CLF_KW, UNET_KW, VAE_KW, _tiny_pair  # noqa: E402
 
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    # one intra-op thread per xdist worker: six workers of eight threads
+    # each on eight cores spin against one another
+    torch.set_num_threads(1)
+
 FRAME = 32
 # CAVP features, fp32: max|Δ| against rms(JAX) (the towers reach ≤ 1.4e-6)
 FEAT_TOL = 1e-5

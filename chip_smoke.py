@@ -4,9 +4,9 @@
                                      # agreement
     python3 chip_smoke.py --profile  # also torch.profiler over two steps
                                      # of each sampler (the video run's
-                                     # too) and of both trainers
+                                     # too) and of the trainers
     python3 chip_smoke.py --train-agreement 40   # build, then only the tiny
-                                     # train-step agreement (phase 8) 40
+                                     # train-step agreement (phase 11) 40
                                      # times: failures / runs
 
 1. Build the CUDA kernels from ``diff_foley_tpu_torch/csrc`` (in parallel);
@@ -45,8 +45,8 @@
    against the CPU's. Then
    ``cli.generate --random-weights --bf16`` once on the same clip: four
    int16 16-kHz wavs of 131072 samples and four spec files.
-   Before each main-path run (3, 4, 5, 5's CLI run, 6 and 7) the launch
-   counts are reset; read just after, they must equal what the model
+   Before each main-path run (3, 4, 5, 5's CLI run, 6, 7, 8 and 9) the
+   launch counts are reset; read just after, they must equal what the model
    structure predicts, by kernel and operand dtype.
 6. ``cli.train_vae`` at the full width of ``SD_VAE`` in float32: seeded mel
    ``.npy`` files in a temporary directory, batch 4, ``--disc-start 0`` (the
@@ -68,14 +68,39 @@
    EMA and the generator; ``load_native_ldm`` reads the logdir and the
    model generates on the card. The CLI's step times, warm steps split
    into forward and backward, AdamW and EMA, and peak memory.
-8. Agreement: tiny ``generate``, ``inpaint``, ``DiffFoley.extract_features``
-   plus ``generate_from_features``, two tiny VAE train steps and one tiny
-   stage-2 train step in float32 on the GPU (kernels) against the same on
-   the CPU (plain versions), shared noise, phase and draws. Each VAE train
-   step starts from equal states, and the CPU takes the GPU's branch at
-   every leaky_relu input within rounding of zero; the train steps'
-   gradients are held per leaf before the optimizer, and a planted
-   gradient fault must be caught.
+8. ``cli.train_classifier`` at ``CLASSIFIER_BACKBONE`` in fp32 with its
+   cond encoder (512 → 512, 40 positions) against the frozen full
+   ``SD_VAE`` in fp32, batch 32, seeded random weights, 32 seeded pairs
+   with alignment labels, the shipped rate; six steps, then ``--resume``
+   for a seventh. Every metric finite; the first step replayed from the
+   same state, batch and draws gives the CLI's metrics and lowers the BCE
+   of that batch and draw; launches as predicted (the per-head attention
+   backward never: the encoder is frozen under ``no_grad``). Warm steps
+   split into the encode, forward + backward and AdamW; peak memory.
+9. ``cli.align_acc`` on that logdir over 100 seeded spec and feature
+   files at batch 64 (the last batch ragged, padded): the accuracy, its
+   counts against the files, launches as predicted.
+10. ``cli.train_cavp`` on the shipped towers (SlowOnly-R50, CNN14, 512-d)
+    in bf16 on fp32 masters over seeded tar shards (cv2 JPEG strips of 40
+    224² frames, npy specs), the CLI's 30 videos × 3 clips a step with
+    uint8 video: three steps and the retrieval eval, then a resume for one
+    step in three micro-batches (the feature cache). Losses finite,
+    ``logit_scale`` ≤ 100, every BatchNorm statistic moved, no kernel of
+    the TPU's launched; step times, peak memory. Then
+    ``cli.extract_features`` on a seeded clip with the CAVP logdir, and
+    ``DiffFoley.from_native_checkpoints`` over the stage-2, CAVP and
+    classifier logdirs (the classifier's context encoded, then raw), each
+    running ``generate_for_video`` on the clip: finite int16 wavs.
+11. Agreement: tiny ``generate``, ``inpaint``, ``DiffFoley.extract_features``
+   plus ``generate_from_features``, two tiny VAE train steps, one tiny
+   stage-2 train step, one tiny classifier train step (D 32, 40 keys) and
+   one tiny CAVP train step in float32 on the GPU (kernels) against the
+   same on the CPU (plain versions), shared noise, phase, draws and
+   dropout masks. Each VAE train step starts from equal states, and the
+   CPU takes the GPU's branch at every leaky_relu input within rounding of
+   zero; the train steps' gradients are held per leaf before the
+   optimizer (and the CAVP step's BatchNorm statistics after it), and a
+   planted gradient fault must be caught.
 
 The last line is {"ok": true, "device": {...}}; any failure exits non-zero
 before it. With no GPU it exits non-zero and prints no result.
@@ -99,21 +124,27 @@ import torch.nn.functional as F
 
 from diff_foley_tpu_torch.api import DiffFoley
 from diff_foley_tpu_torch.audio.transforms import mel_to_wav
+from diff_foley_tpu_torch.cli import align_acc as align_acc_cli
+from diff_foley_tpu_torch.cli import extract_features as extract_features_cli
 from diff_foley_tpu_torch.cli import generate as generate_cli
+from diff_foley_tpu_torch.cli import train_cavp as train_cavp_cli
+from diff_foley_tpu_torch.cli import train_classifier as train_classifier_cli
 from diff_foley_tpu_torch.cli import train_stage2 as train_stage2_cli
 from diff_foley_tpu_torch.cli import train_vae as train_vae_cli
 from diff_foley_tpu_torch.data.ldm_dataset import SpecDataset, SpecFeatDataset
-from diff_foley_tpu_torch.data.loader import DevicePrefetcher
+from diff_foley_tpu_torch.data.loader import DevicePrefetcher, PrefetchLoader
 from diff_foley_tpu_torch.diffusion.latent_diffusion import (LatentDiffusion,
                                                               LDMConfig)
+from diff_foley_tpu_torch.eval.align_acc import make_align_acc_fn
 from diff_foley_tpu_torch.models.attention import SpatialTransformer
 from diff_foley_tpu_torch.models.cavp import CAVPConfig, CAVPModel
+from diff_foley_tpu_torch.models.cavp import cnn14 as cnn14_module
 from diff_foley_tpu_torch.models.layers import (Downsample, GroupNorm32,
                                                 Upsample)
 from diff_foley_tpu_torch.models.unet import (CLASSIFIER_BACKBONE, LDM_UNET,
                                               ClassifierBackbone, UNetConfig)
-from diff_foley_tpu_torch.models.vae import (SD_VAE, VAEConfig, VAEDownsample,
-                                             VAEUpsample)
+from diff_foley_tpu_torch.models.vae import (SD_VAE, AutoencoderKL, VAEConfig,
+                                             VAEDownsample, VAEUpsample)
 from diff_foley_tpu_torch.ops import cuda_build
 from diff_foley_tpu_torch.ops import hopper_attention as ha
 from diff_foley_tpu_torch.ops import hopper_groupnorm as hg
@@ -123,10 +154,13 @@ from diff_foley_tpu_torch.pipeline import (LATENT_HW, SPEC_HW, WINDOW_FEATS,
                                            continuation_mask,
                                            spec_mask_to_latent,
                                            window_features)
+from diff_foley_tpu_torch.train.classifier import ClassifierTrainer
+from diff_foley_tpu_torch.train.optim import TrainState, global_norm
 from diff_foley_tpu_torch.train.perceptual import LPIPS, make_lpips_fn
+from diff_foley_tpu_torch.train.stage1_cavp import (Stage1TrainConfig,
+                                                    Stage1Trainer)
 from diff_foley_tpu_torch.train.stage2_ldm import (Stage2TrainConfig,
-                                                   Stage2Trainer, TrainState,
-                                                   global_norm,
+                                                   Stage2Trainer,
                                                    init_ldm_weights_)
 from diff_foley_tpu_torch.train.vae import (VAETrainConfig, VAETrainer,
                                             init_weights_)
@@ -134,6 +168,7 @@ from diff_foley_tpu_torch.train.vae_losses import VAELossConfig
 from diff_foley_tpu_torch.utils.checkpoint import load_native_ldm
 from diff_foley_tpu_torch.utils.ema import ema_update
 from diff_foley_tpu_torch.utils.init import randomize_
+from diff_foley_tpu_torch.utils.padding import pad_axis0
 from diff_foley_tpu_torch.video.ingest import encode_frames, extract_frames
 
 PEAK_BF16 = 989e12    # H100 SXM dense bf16 tensor-core FLOP/s
@@ -159,6 +194,19 @@ TRAIN_BATCH, TRAIN_STEPS, TRAIN_LR = 4, 6, 1e-4
 S2_BATCH, S2_STEPS, S2_LR, S2_ITEMS = 16, 6, 1e-4, 32
 S2_FORWARDS = S2_STEPS + 1
 S2_TOKENS = int(4.0 * 131072 / 16000)
+# the alignment classifier's trainer: the CLI's default batch and rate, the
+# steps of the main-path call; its data's 8.192-s crops give S2_TOKENS
+# condition tokens. align-acc: the CLI's default batch over AA_FILES spec
+# files (the last batch ragged, padded to AA_BATCH), features cut to 40
+C_BATCH, C_STEPS, C_REPLAY = 32, 6, 3
+AA_BATCH, AA_FILES, AA_TOKENS = 64, 100, 40
+AA_CALLS = -(-AA_FILES // AA_BATCH)
+# stage-1 CAVP: the CLI's default 30 videos × 3 clips a step (bf16 towers,
+# uint8 video), CAVP_STEPS steps of one epoch over CAVP_SAMPLES samples;
+# the resume takes one step in CAVP_ACCUM micro-batches of the same
+# 30-video contrastive batch (the feature cache)
+CAVP_BATCH, CAVP_CLIPS, CAVP_STEPS, CAVP_ACCUM = 30, 3, 3, 3
+CAVP_SAMPLES = CAVP_BATCH * CAVP_STEPS + 6
 # Agreement with the plain version, per output tensor, against the size of
 # the plain output: max|Δ| ≤ MAX_TOL·rms(plain) and rms(Δ) ≤ RMS_TOL·rms(plain).
 # The max catches a local fault (a tile, an edge), the rms a small fault
@@ -205,14 +253,17 @@ SYMBOLS = {"fwd": ("attn_packed_fwd",), "bwd": ("head_bwd_",),
            "head": ("head_fwd_",), "head_bwd": ("head_bwd_",),
            "gn": ("gn_block_kernel",), "stats": ("gn_stream_stats_kernel",),
            "apply": ("gn_stream_apply_kernel",)}
-RUNS = ("generate", "inpaint", "train_vae", "video", "train_stage2")
+RUNS = ("generate", "inpaint", "train_vae", "video", "train_stage2",
+        "train_classifier", "align_acc")
 
 
 def calls(generate: int = 0, inpaint: int = 0, train_vae: int = 0,
-          video: int = 0, train_stage2: int = 0) -> dict:
+          video: int = 0, train_stage2: int = 0, train_classifier: int = 0,
+          align_acc: int = 0) -> dict:
     """Calls of one kernel shape in each main-path run."""
     return {"generate": generate, "inpaint": inpaint, "train_vae": train_vae,
-            "video": video, "train_stage2": train_stage2}
+            "video": video, "train_stage2": train_stage2,
+            "train_classifier": train_classifier, "align_acc": align_acc}
 
 
 def log(*a):
@@ -342,11 +393,13 @@ def gn_kernels(channels: int, h: int, w: int, itemsize: int):
 def gn_path(pipe, n: int, steps: int):
     """{(model, batch, channels, h, w, eps, act, dtype): {run: calls}} of
     every GroupNorm32 call in one generate, one inpaint, one train_vae,
-    one video and one train_stage2 run. The trainer's VAE has the
-    pipeline's structure, in float32, and so has the video run's
-    classifier; only their forwards launch GroupNorm kernels. Stage 2 runs
-    the UNet and the frozen VAE encoder in bf16 at its batch, once in each
-    train and validation forward."""
+    one video, one train_stage2, one train_classifier and one align_acc
+    run. The trainer's VAE has the pipeline's structure, in float32, and so
+    has the video run's classifier; only their forwards launch GroupNorm
+    kernels. Stage 2 runs the UNet and the frozen VAE encoder in bf16 at
+    its batch, once in each train and validation forward. The classifier's
+    trainer and align-acc run the classifier and the frozen VAE encoder in
+    float32 at their batches, once a step or a batch."""
     vae = pipe.ldm.vae
     models = (("unet", pipe.ldm.unet, LATENT_HW, 2 * n, BF16,
                calls(steps, steps, video=steps)),
@@ -363,7 +416,15 @@ def gn_path(pipe, n: int, steps: int):
               ("s2-unet", pipe.ldm.unet, LATENT_HW, S2_BATCH, BF16,
                calls(train_stage2=S2_FORWARDS)),
               ("s2-enc", vae.encoder, SPEC_HW, S2_BATCH, BF16,
-               calls(train_stage2=S2_FORWARDS)))
+               calls(train_stage2=S2_FORWARDS)),
+              ("c-clf", pipe.classifier, LATENT_HW, C_BATCH, FP32,
+               calls(train_classifier=C_STEPS)),
+              ("c-enc", vae.encoder, SPEC_HW, C_BATCH, FP32,
+               calls(train_classifier=C_STEPS)),
+              ("a-clf", pipe.classifier, LATENT_HW, AA_BATCH, FP32,
+               calls(align_acc=AA_CALLS)),
+              ("a-enc", vae.encoder, SPEC_HW, AA_BATCH, FP32,
+               calls(align_acc=AA_CALLS)))
     out = collections.defaultdict(calls)
     for name, model, hw, batch, dtype, per_run in models:
         for site in gn_sites(model, hw):
@@ -405,6 +466,17 @@ def predicted_launches(pipe, steps: int):
     s2["attn_packed_fwd/bfloat16"] = S2_FORWARDS * unet
     s2["attn_packed_bwd/bfloat16"] = S2_STEPS * unet
     s2["attn_fwd/bfloat16"] = S2_FORWARDS
+    # the classifier's trainer (fp32): its attention forward and backward
+    # (the parameters' gradients) once a step; the frozen encoder's mid
+    # attention once a step, never differentiated (kernel 4: 0). align-acc:
+    # one forward of each a batch
+    c = pred["train_classifier"]
+    c["attn_packed_fwd/float32"] = C_STEPS * clf
+    c["attn_packed_bwd/float32"] = C_STEPS * clf
+    c["attn_fwd/float32"] = C_STEPS
+    a = pred["align_acc"]
+    a["attn_packed_fwd/float32"] = AA_CALLS * clf
+    a["attn_fwd/float32"] = AA_CALLS
     for (_, _, c, h, w, _, _, dtype), per_run in gn_path(
             pipe, WINDOWS * SAMPLES, steps).items():
         for k in gn_kernels(c, h, w, dtype.itemsize):
@@ -855,6 +927,32 @@ def kernel_phase(pipe):
     rows.append(("attn_fwd", {**check_head("s2-enc-mid", S2_BATCH, l, l, d,
                                            BF16, gen),
                               "calls": calls(train_stage2=S2_FORWARDS)}))
+    # the classifier's trainer: fp32 forward and backward at batch 32 over
+    # the crops' 32 tokens; align-acc: fp32 forward at batch 64 over 40
+    # tokens (a ragged last key tile), and the backward held there too at
+    # the trainer's batch. The frozen encoder's mid attention at both.
+    for tag, b, lq, lk, hd, heads, per in attention_sites(
+            "c-clf", CLASSIFIER_BACKBONE, C_BATCH, S2_TOKENS, False):
+        for kind, name in (("fwd", "attn_packed_fwd"),
+                           ("bwd", "attn_packed_bwd")):
+            rows.append((name, {**check_packed(
+                kind, tag, b, lq, lk, hd, heads, FP32, gen),
+                "calls": calls(train_classifier=C_STEPS * per)}))
+    for tag, b, lq, lk, hd, heads, per in attention_sites(
+            "a-clf", CLASSIFIER_BACKBONE, AA_BATCH, AA_TOKENS, False):
+        rows.append(("attn_packed_fwd", {**check_packed(
+            "fwd", tag, b, lq, lk, hd, heads, FP32, gen),
+            "calls": calls(align_acc=AA_CALLS * per)}))
+        if lk == AA_TOKENS:
+            rows.append(("attn_packed_bwd", check_packed(
+                "bwd", tag.replace("a-clf", "lk40"), C_BATCH, lq, lk, hd,
+                heads, FP32, gen)))
+    rows.append(("attn_fwd", {**check_head("c-enc-mid", C_BATCH, l, l, d,
+                                           FP32, gen),
+                              "calls": calls(train_classifier=C_STEPS)}))
+    rows.append(("attn_fwd", {**check_head("a-enc-mid", AA_BATCH, l, l, d,
+                                           FP32, gen),
+                              "calls": calls(align_acc=AA_CALLS)}))
     rows += check_gn("unet-320x16x64", 2 * n, 320, 16, 64, 1e-5, "silu",
                      FP32, gen)
     # the block kernel's branch-free SiLU division, bit for bit __fdiv_rn's
@@ -1567,7 +1665,7 @@ def prefetch_check(batches: int = 8):
         raise AssertionError("DevicePrefetcher handed out a wrong batch")
 
 
-def train_stage2_phase(expect, profile: bool):
+def train_stage2_phase(expect, profile: bool, root: str):
     """``cli.train_stage2`` at the full width of LDM_UNET and SD_VAE,
     mixed precision with EMA, batch 16, on seeded random weights: the
     main-path call of S2_STEPS steps with one validation round at its last
@@ -1579,128 +1677,132 @@ def train_stage2_phase(expect, profile: bool):
     tcfg = Stage2TrainConfig(base_lr=S2_LR, warmup_steps=0, use_ema=True,
                              compute_dtype="bfloat16")
     out = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        data, logdir = os.path.join(tmp, "data"), os.path.join(tmp, "log")
-        write_pairs(data)
-        ds = SpecFeatDataset.from_split_file(data, "train")
-        # the fixed eval batch, staged as DevicePrefetcher stages it
-        fixed = {k: torch.from_numpy(np.stack(
-            [ds[i][k] for i in range(S2_BATCH)])).to("cuda", BF16)
-            for k in ("spec", "video_feat")}
-        # the initial state the CLI draws (seed 0, its VAE seed 1): the
-        # yardstick of the fixed-draw eval loss and of the EMA's distance
-        t0 = time.perf_counter()
-        ldm0 = LatentDiffusion(LDMConfig()).to("cuda")
-        init_weights_(ldm0.vae, torch.Generator("cuda").manual_seed(1))
-        init_ldm_weights_(ldm0, torch.Generator("cuda").manual_seed(0))
-        evaluator = Stage2Trainer(ldm0, tcfg)
-        init = {k: p.detach() for k, p in trained(ldm0).items()}
-        torch.cuda.synchronize()
-        log(f"train_stage2 full-width model and its init on the card "
-            f"{time.perf_counter() - t0:.3f} s; "
-            f"{sum(p.numel() for p in init.values())} trained parameters")
+    data, logdir = os.path.join(root, "s2-data"), os.path.join(root, "s2")
+    write_pairs(data)
+    ds = SpecFeatDataset.from_split_file(data, "train")
+    # the fixed eval batch, staged as DevicePrefetcher stages it
+    fixed = {k: torch.from_numpy(np.stack(
+        [ds[i][k] for i in range(S2_BATCH)])).to("cuda", BF16)
+        for k in ("spec", "video_feat")}
+    # the initial state the CLI draws (seed 0, its VAE seed 1): the
+    # yardstick of the fixed-draw eval loss and of the EMA's distance
+    t0 = time.perf_counter()
+    ldm0 = LatentDiffusion(LDMConfig()).to("cuda")
+    init_weights_(ldm0.vae, torch.Generator("cuda").manual_seed(1))
+    init_ldm_weights_(ldm0, torch.Generator("cuda").manual_seed(0))
+    evaluator = Stage2Trainer(ldm0, tcfg)
+    init = {k: p.detach() for k, p in trained(ldm0).items()}
+    torch.cuda.synchronize()
+    log(f"train_stage2 full-width model and its init on the card "
+        f"{time.perf_counter() - t0:.3f} s; "
+        f"{sum(p.numel() for p in init.values())} trained parameters")
 
-        def fixed_eval(params: dict) -> float:
-            view = TrainState(0, params, None, None)
-            m = evaluator.eval_step(view, fixed, torch.Generator(
-                "cuda").manual_seed(1234))
-            return float(m["loss_simple"])
+    def fixed_eval(params: dict) -> float:
+        view = TrainState(0, params, None, None)
+        m = evaluator.eval_step(view, fixed, torch.Generator(
+            "cuda").manual_seed(1234))
+        return float(m["loss_simple"])
 
-        loss_before = fixed_eval(init)
-        args = ["--data-dir", data, "--logdir", logdir, "--batch-size",
-                str(S2_BATCH), "--base-lr", str(S2_LR), "--warmup-steps",
-                "0", "--mixed-precision", "--use-ema", "--log-every", "1",
-                "--save-every", "1000000", "--val-every", str(S2_STEPS),
-                "--val-batches", "1"]
-        log(f"train_stage2 LDM_UNET + cond encoder, SD_VAE frozen, bf16 on "
-            f"fp32 masters, EMA, batch {S2_BATCH}, lr {S2_LR}, {S2_STEPS} "
-            f"steps and one validation batch")
-        reset_counts()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        state = train_stage2_cli.main(args + ["--max-steps", str(S2_STEPS)])
-        torch.cuda.synchronize()
-        call_s = time.perf_counter() - t0
-        launches = read_counts()
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        peak_reserved = torch.cuda.max_memory_reserved() / 2**30
-        read_rows = lambda: [json.loads(line) for line in open(
-            os.path.join(logdir, "metrics.jsonl"))]
-        rows = read_rows()
-        log("train_stage2 metrics " + json.dumps(rows))
-        log(f"train_stage2 {call_s:.3f} s (main-path call: set-up, "
-            f"{S2_STEPS} steps, validation, checkpoint) peak_mem_GiB "
-            f"{peak:.3f} reserved {peak_reserved:.3f}")
-        check_launches("train_stage2", launches, expect)
-        train_rows = [r for r in rows if "train/loss" in r]
-        val_rows = [r for r in rows if "val/loss_simple_ema" in r]
-        if [r["step"] for r in train_rows] != list(range(1, S2_STEPS + 1)) \
-                or [r["step"] for r in val_rows] != [S2_STEPS]:
-            raise AssertionError("train_stage2 did not log every step and "
-                                 "the validation round")
-        for r in rows:
-            if not np.isfinite(list(r.values())).all():
-                raise AssertionError(f"train_stage2 metrics not finite: {r}")
-        loss_after = fixed_eval(state.params)
-        loss_ema = fixed_eval(state.ema.params)
-        d_params = leaf_distance(state.params, init)
-        d_ema = leaf_distance(state.ema.params, init)
-        d_ema_params = leaf_distance(state.ema.params, state.params)
-        log(f"train_stage2 fixed-batch fixed-draw eval loss_simple: before "
-            f"{loss_before:.6f}, after {S2_STEPS} steps {loss_after:.6f} "
-            f"(EMA {loss_ema:.6f}); ‖params − init‖ {d_params:.6e}, ‖EMA − "
-            f"init‖ {d_ema:.6e}, ‖EMA − params‖ {d_ema_params:.6e}")
-        if not loss_after < loss_before:
-            raise AssertionError("the fixed-draw eval loss did not fall")
-        if not (d_ema_params > 0.0 and d_ema < d_params):
-            raise AssertionError("the EMA does not trail the parameters")
-        del state
-        torch.cuda.empty_cache()
+    loss_before = fixed_eval(init)
+    args = ["--data-dir", data, "--logdir", logdir, "--batch-size",
+            str(S2_BATCH), "--base-lr", str(S2_LR), "--warmup-steps",
+            "0", "--mixed-precision", "--use-ema", "--log-every", "1",
+            "--save-every", "1000000", "--val-every", str(S2_STEPS),
+            "--val-batches", "1"]
+    log(f"train_stage2 LDM_UNET + cond encoder, SD_VAE frozen, bf16 on "
+        f"fp32 masters, EMA, batch {S2_BATCH}, lr {S2_LR}, {S2_STEPS} "
+        f"steps and one validation batch")
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = train_stage2_cli.main(args + ["--max-steps", str(S2_STEPS)])
+    torch.cuda.synchronize()
+    call_s = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    peak_reserved = torch.cuda.max_memory_reserved() / 2**30
+    read_rows = lambda: [json.loads(line) for line in open(
+        os.path.join(logdir, "metrics.jsonl"))]
+    rows = read_rows()
+    log("train_stage2 metrics " + json.dumps(rows))
+    log(f"train_stage2 {call_s:.3f} s (main-path call: set-up, "
+        f"{S2_STEPS} steps, validation, checkpoint) peak_mem_GiB "
+        f"{peak:.3f} reserved {peak_reserved:.3f}")
+    check_launches("train_stage2", launches, expect)
+    train_rows = [r for r in rows if "train/loss" in r]
+    val_rows = [r for r in rows if "val/loss_simple_ema" in r]
+    if [r["step"] for r in train_rows] != list(range(1, S2_STEPS + 1)) \
+            or [r["step"] for r in val_rows] != [S2_STEPS]:
+        raise AssertionError("train_stage2 did not log every step and "
+                             "the validation round")
+    for r in rows:
+        if not np.isfinite(list(r.values())).all():
+            raise AssertionError(f"train_stage2 metrics not finite: {r}")
+    loss_after = fixed_eval(state.params)
+    loss_ema = fixed_eval(state.ema.params)
+    d_params = leaf_distance(state.params, init)
+    d_ema = leaf_distance(state.ema.params, init)
+    d_ema_params = leaf_distance(state.ema.params, state.params)
+    log(f"train_stage2 fixed-batch fixed-draw eval loss_simple: before "
+        f"{loss_before:.6f}, after {S2_STEPS} steps {loss_after:.6f} "
+        f"(EMA {loss_ema:.6f}); ‖params − init‖ {d_params:.6e}, ‖EMA − "
+        f"init‖ {d_ema:.6e}, ‖EMA − params‖ {d_ema_params:.6e}")
+    if not loss_after < loss_before:
+        raise AssertionError("the fixed-draw eval loss did not fall")
+    if not (d_ema_params > 0.0 and d_ema < d_params):
+        raise AssertionError("the EMA does not trail the parameters")
+    del state
+    torch.cuda.empty_cache()
 
-        # the resume: step S2_STEPS + 1 from the saved optimizer, EMA and
-        # generator; the step's t draw must be the saved generator's
-        saved = torch.load(os.path.join(logdir, "ckpt",
-                                        f"step_{S2_STEPS}.pt"), mmap=True,
-                           map_location="cpu")
-        gen = torch.Generator("cuda")
-        gen.set_state(saved["generators"]["train"])
-        torch.randn((S2_BATCH, *LATENT_HW, 4), generator=gen, dtype=BF16,
-                    device="cuda")   # the posterior's ε
-        t_expect = float(torch.randint(0, 1000, (S2_BATCH,), generator=gen,
-                                       device="cuda").float().mean())
-        del saved
-        resumed = train_stage2_cli.main(
-            args + ["--max-steps", str(S2_STEPS + 1), "--resume"])
-        last = read_rows()[-1]
-        log(f"train_stage2 resume: step {resumed.step}, AdamW count "
-            f"{resumed.opt.count}, EMA updates {resumed.ema.num_updates}, "
-            f"t_mean {last['train/t_mean']} (the saved generator's draw "
-            f"{t_expect}), loss {last['train/loss']:.6f}")
-        if not (resumed.step == resumed.opt.count == resumed.ema.num_updates
-                == last["step"] == S2_STEPS + 1
-                and last["train/t_mean"] == t_expect
-                and np.isfinite(last["train/loss"])):
-            raise AssertionError("the resumed run did not continue at the "
-                                 "saved step with the saved state")
-        del resumed
-        torch.cuda.empty_cache()
+    # the resume: step S2_STEPS + 1 from the saved optimizer, EMA and
+    # generator; the step's t draw must be the saved generator's
+    saved = torch.load(os.path.join(logdir, "ckpt",
+                                    f"step_{S2_STEPS}.pt"), mmap=True,
+                       map_location="cpu")
+    gen = torch.Generator("cuda")
+    gen.set_state(saved["generators"]["train"])
+    torch.randn((S2_BATCH, *LATENT_HW, 4), generator=gen, dtype=BF16,
+                device="cuda")   # the posterior's ε
+    t_expect = float(torch.randint(0, 1000, (S2_BATCH,), generator=gen,
+                                   device="cuda").float().mean())
+    del saved
+    resumed = train_stage2_cli.main(
+        args + ["--max-steps", str(S2_STEPS + 1), "--resume"])
+    last = read_rows()[-1]
+    log(f"train_stage2 resume: step {resumed.step}, AdamW count "
+        f"{resumed.opt.count}, EMA updates {resumed.ema.num_updates}, "
+        f"t_mean {last['train/t_mean']} (the saved generator's draw "
+        f"{t_expect}), loss {last['train/loss']:.6f}")
+    if not (resumed.step == resumed.opt.count == resumed.ema.num_updates
+            == last["step"] == S2_STEPS + 1
+            and last["train/t_mean"] == t_expect
+            and np.isfinite(last["train/loss"])):
+        raise AssertionError("the resumed run did not continue at the "
+                             "saved step with the saved state")
+    del resumed
+    torch.cuda.empty_cache()
+    # one 13.8-GB checkpoint stays for the composition phase: the newest
+    ckpt_dir = os.path.join(logdir, "ckpt")
+    for name in os.listdir(ckpt_dir):
+        if name != f"step_{S2_STEPS + 1}.pt":
+            os.remove(os.path.join(ckpt_dir, name))
 
-        # the logdir alone rebuilds the model (EMA preferred), which
-        # generates on the card: CFG only, a few DPM steps
-        t0 = time.perf_counter()
-        loaded = load_native_ldm(logdir)
-        load_s = time.perf_counter() - t0
-        pipe = DiffFoleyPipeline(loaded, vae_dtype="bfloat16", device="cuda")
-        feats = np.random.default_rng(2).standard_normal(
-            (WINDOW_FEATS, 512)).astype(np.float32)
-        sample = pipe.generate(feats, seed=0, gen=GenerationConfig(
-            steps=3, sample_num=2, gl_iters=4, classifier_scale=0.0,
-            wav_dtype="int16"))
-        check_outputs(sample, "train_stage2 load_native_ldm → generate",
-                      samples=2, windows=1)
-        log(f"train_stage2 load_native_ldm {load_s:.3f} s")
-        del pipe, loaded
-        torch.cuda.empty_cache()
+    # the logdir alone rebuilds the model (EMA preferred), which
+    # generates on the card: CFG only, a few DPM steps
+    t0 = time.perf_counter()
+    loaded = load_native_ldm(logdir)
+    load_s = time.perf_counter() - t0
+    pipe = DiffFoleyPipeline(loaded, vae_dtype="bfloat16", device="cuda")
+    feats = np.random.default_rng(2).standard_normal(
+        (WINDOW_FEATS, 512)).astype(np.float32)
+    sample = pipe.generate(feats, seed=0, gen=GenerationConfig(
+        steps=3, sample_num=2, gl_iters=4, classifier_scale=0.0,
+        wav_dtype="int16"))
+    check_outputs(sample, "train_stage2 load_native_ldm → generate",
+                  samples=2, windows=1)
+    log(f"train_stage2 load_native_ldm {load_s:.3f} s")
+    del pipe, loaded
+    torch.cuda.empty_cache()
 
     # warm steps on the evaluator's model, split: forward + backward,
     # AdamW, EMA
@@ -1736,7 +1838,602 @@ def train_stage2_phase(expect, profile: bool):
         "eval_loss_ema": loss_ema, "load_native_ldm_s": load_s})
     del state, evaluator, ldm0, init
     torch.cuda.empty_cache()
-    return launches, out
+    return launches, out, logdir
+
+
+# ---- the alignment classifier: training and align-acc ---------------------------
+
+def classifier_step_agreement(trainer, state, batch: dict) -> dict:
+    """The gradient of one classifier step at full width on the GPU
+    (kernels 1, 2 and 5 in fp32) against the same step on the CPU (plain
+    versions), from ``state`` with ``batch``'s posterior moments (the frozen
+    encode on the GPU, outside the count) and seeded draws: per leaf at
+    GRAD_TOL, a planted 1% fault on C_FAULT_LEAF caught, and every q, k and
+    v projection's gradient nonzero, so that kernel 2's dQ, dK and dV are
+    held. From flax's init the head's out_conv and every proj_out are zero,
+    so this says something only from the third step on."""
+    with torch.no_grad():
+        post = trainer.vae.encode(batch["spec"])
+    g = torch.Generator("cuda").manual_seed(7)
+    moments = {"z_mu": post.mean, "z_sigma": post.std,
+               "video_feat": batch["video_feat"], "labels": batch["labels"]}
+    draws = {"eps": torch.randn(post.mean.shape, generator=g, device="cuda"),
+             "t": torch.randint(0, trainer.schedule.num_timesteps,
+                                (len(post.mean),), generator=g,
+                                device="cuda"),
+             "noise": torch.randn(post.mean.shape, generator=g,
+                                  device="cuda")}
+    reset_counts()
+    trainer.gradients(state, moments, draws=draws)
+    launched = read_counts()
+    grads = {"cuda": {k: p.grad.detach().cpu()
+                      for k, p in state.params.items()}}
+    cpu = copy.copy(trainer)
+    cpu.model = copy.deepcopy(trainer.model).cpu()
+    cpu_state = TrainState(0, dict(cpu.model.named_parameters()), None, None)
+    t0 = time.perf_counter()
+    cpu.gradients(cpu_state, {k: v.cpu() for k, v in moments.items()},
+                  draws={k: v.cpu() for k, v in draws.items()})
+    cpu_s = time.perf_counter() - t0
+    grads["cpu"] = {k: p.grad.detach() for k, p in cpu_state.params.items()}
+    del cpu, cpu_state
+    silent = [k for k, v in grads["cpu"].items()
+              if any(f".{w}." in k for w in ("to_q", "to_k", "to_v"))
+              and _rms(v) == 0.0]
+    zero = noise_gradients(grads["cpu"])
+    worst = gradient_agreement(grads["cuda"], grads["cpu"], zero, *GRAD_TOL)
+    caught = _planted_caught(grads["cuda"], grads["cpu"], zero, C_FAULT_LEAF)
+    log(f"train_classifier step-3 gradient at full width, batch "
+        f"{len(post.mean)}, gpu-vs-cpu from the step-2 state: worst (max|Δ|, "
+        f"rms(Δ)) / rms(cpu) {list(worst)} (limits {list(GRAD_TOL)}) over "
+        f"{len(grads['cpu'])} leaves, {len(zero)} zero-gradient biases noise "
+        f"on both; q/k/v leaves with a zero gradient {silent}; planted fault "
+        f"({C_FAULT_LEAF} ×1.01) caught {caught}; launches "
+        f"{json.dumps(launched)}; the CPU's step {cpu_s:.1f} s")
+    if silent:
+        raise AssertionError("attention projections without a gradient: "
+                             "kernel 2 is not held by this step")
+    if not (launched.get("attn_packed_fwd/float32")
+            and launched.get("attn_packed_bwd/float32")
+            and launched.get("gn_block/float32")
+            and "attn_bwd/float32" not in launched):
+        raise AssertionError(f"full-width classifier step launches "
+                             f"{launched}")
+    if not caught:
+        raise AssertionError("the full-width classifier gradient check "
+                             "passes the planted fault")
+    return {"step3_grad_worst_max": worst[0], "step3_grad_worst_rms": worst[1],
+            "step3_grad_worst_leaf": worst[2], "step3_cpu_s": cpu_s}
+
+
+def train_classifier_phase(expect, root: str, profile: bool):
+    """``cli.train_classifier`` at CLASSIFIER_BACKBONE in fp32 with its
+    cond encoder (512 → 512, 40 positions) against the frozen full SD_VAE,
+    batch 32, the shipped rate, seeded random weights and stage 2's seeded
+    pairs: the main-path call of C_STEPS steps and the resume for one more.
+    Its first C_REPLAY steps are replayed from the same state with the
+    same batches and draws; the gates: each replayed step's metrics are
+    the CLI's; from the step-2 state, the step-3 gradient on the GPU holds
+    the CPU's per leaf (``classifier_step_agreement``: the first step that
+    moves the backbone and the attention); the first step lowers its
+    batch's BCE at its draw, and so do the C_STEPS steps. Then warm steps
+    split into the VAE encode, forward + backward and AdamW. Returns the
+    logdir beside the launches and times."""
+    data, logdir = os.path.join(root, "clf-data"), os.path.join(root, "clf")
+    write_pairs(data)
+    ds = SpecFeatDataset.from_split_file(data, "train", alignment_labels=True)
+    # the CLI's first C_REPLAY batches (its loader's seed 0, epoch by
+    # epoch) and its step generator (seed 2); the first batch and a fresh
+    # seed-2 generator are the fixed batch and the fixed draw
+    loader, batches, epoch = PrefetchLoader(ds, C_BATCH, seed=0), [], 0
+    while len(batches) < C_REPLAY:
+        batches += [{k: torch.from_numpy(v).to("cuda") for k, v in b.items()}
+                    for b in loader.epoch(epoch)]
+        epoch += 1
+    batches = batches[:C_REPLAY]
+    first = batches[0]
+    draw = lambda: torch.Generator("cuda").manual_seed(2)
+    # the initial state the CLI draws (seed 0, its VAE seed 1)
+    evaluator = ClassifierTrainer()
+    init_weights_(evaluator.vae.to("cuda"),
+                  torch.Generator("cuda").manual_seed(1))
+    state = evaluator.init_train_state(0, "cuda")
+
+    def fixed_bce() -> float:
+        with torch.no_grad():
+            return float(evaluator.loss(first, draw())[0])
+
+    args = ["--data-dir", data, "--logdir", logdir, "--batch-size",
+            str(C_BATCH), "--log-every", "1", "--save-every", "1000000"]
+    log(f"train_classifier CLASSIFIER_BACKBONE + cond encoder fp32, SD_VAE "
+        f"frozen fp32, batch {C_BATCH}, lr 5e-5, {C_STEPS} steps")
+    reset_counts()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trained = train_classifier_cli.main(args + ["--max-steps", str(C_STEPS)])
+    torch.cuda.synchronize()
+    call_s = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    read_rows = lambda: [json.loads(line) for line in open(
+        os.path.join(logdir, "metrics.jsonl"))]
+    rows = read_rows()
+    log("train_classifier metrics " + json.dumps(rows))
+    log(f"train_classifier {call_s:.3f} s (main-path call: set-up, "
+        f"{C_STEPS} steps, checkpoint) peak_mem_GiB {peak:.3f}")
+    check_launches("train_classifier", launches, expect)
+    if [r["step"] for r in rows] != list(range(1, C_STEPS + 1)):
+        raise AssertionError("train_classifier did not log every step")
+    for r in rows:
+        if not (np.isfinite(list(r.values())).all()
+                and 0.0 <= r["train/acc"] <= 1.0):
+            raise AssertionError(f"train_classifier metrics: {r}")
+
+    # the first C_REPLAY steps again, from the same state with the same
+    # batches and draws: the CLI's metrics; before the last of them, the
+    # full-width gradient against the CPU's
+    bce_init = fixed_bce()
+    gen = draw()
+    replay_gap = 0.0
+    for i, batch in enumerate(batches):
+        if i == C_REPLAY - 1:
+            held = classifier_step_agreement(evaluator, state, batch)
+        m = evaluator.train_step(state, batch, gen)
+        replay_gap = max([replay_gap] + [
+            abs(float(m[k]) - rows[i][f"train/{k}"])
+            for k in ("bce_loss", "acc", "grad_norm")])
+        if i == 0:
+            bce_step1 = fixed_bce()
+    with torch.no_grad():
+        for k, p in state.params.items():
+            p.copy_(trained.params[k])
+    bce_after = fixed_bce()
+    log(f"train_classifier fixed batch (the first step's) and draw: BCE "
+        f"{bce_init:.6f} at the init, {bce_step1:.6f} after the first step, "
+        f"{bce_after:.6f} after {C_STEPS} steps; the replayed first "
+        f"{C_REPLAY} steps' metrics {replay_gap:.3e} from the CLI's")
+    if not replay_gap <= 1e-5:
+        raise AssertionError("the replayed steps are not the CLI's")
+    if not (bce_step1 < bce_init and bce_after < bce_init):
+        raise AssertionError("the steps did not lower the first batch's BCE")
+    del trained
+
+    resumed = train_classifier_cli.main(
+        args + ["--max-steps", str(C_STEPS + 1), "--resume"])
+    last = read_rows()[-1]
+    log(f"train_classifier resume: step {resumed.step}, AdamW count "
+        f"{resumed.opt.count}, bce {last['train/bce_loss']:.6f}")
+    if not (resumed.step == resumed.opt.count == last["step"] == C_STEPS + 1
+            and np.isfinite(last["train/bce_loss"])):
+        raise AssertionError("the resumed classifier run did not continue "
+                             "at the saved step")
+    del resumed
+
+    # warm steps on the evaluator, split: the frozen encode, forward +
+    # backward (the posterior's moments in, so that the encode is not
+    # repeated), AdamW
+    gen = torch.Generator("cuda").manual_seed(5)
+    warm = []
+    for _ in range(4):
+        stages = {}
+        with torch.no_grad():
+            post = timed(stages, "vae_encode_s",
+                         lambda: evaluator.vae.encode(first["spec"]))
+        moments = {"z_mu": post.mean, "z_sigma": post.std,
+                   "video_feat": first["video_feat"],
+                   "labels": first["labels"]}
+        timed(stages, "forward_backward_s",
+              lambda: evaluator.gradients(state, moments, gen))
+        timed(stages, "adamw_s", lambda: state.opt.step(
+            [p.grad for p in state.params.values()]))
+        state.step += 1
+        warm.append(stages)
+    log("train_classifier warm steps " + json.dumps(warm))
+    if profile:
+        profile_steps("train_classifier", lambda: [evaluator.train_step(
+            state, first, gen) for _ in range(2)], grad=True)
+    best = min(warm[1:], key=lambda w: sum(w.values()))
+    del evaluator, state, first
+    torch.cuda.empty_cache()
+    return launches, {
+        "batch": C_BATCH, "main_call_s": call_s,
+        "first_step_s": rows[0]["step_s"],
+        "cli_step_s": [r["step_s"] for r in rows],
+        **{f"warm_{k}": v for k, v in best.items()},
+        "warm_step_s": sum(best.values()), "peak_mem_GiB": peak,
+        "bce_init": bce_init, "bce_step1": bce_step1,
+        "bce_after": bce_after, **held}, logdir
+
+
+def align_acc_phase(expect, clf_logdir: str, root: str):
+    """``cli.align_acc`` on the classifier's logdir over AA_FILES seeded
+    spec and feature files at batch 64, the last batch ragged: the
+    accuracy, and the counts against the files."""
+    spec_dir, feat_dir = (os.path.join(root, "aa-spec"),
+                          os.path.join(root, "aa-feat"))
+    os.makedirs(spec_dir)
+    os.makedirs(feat_dir)
+    rng = np.random.default_rng(8)
+    for i in range(AA_FILES):
+        loud = i % 2 == 0
+        np.save(os.path.join(spec_dir, f"c{i:03d}.npy"), np.clip(
+            (0.8 if loud else 0.2) + 0.05 * rng.standard_normal((128, 520)),
+            0, 1).astype(np.float32))
+        np.savez(os.path.join(feat_dir, f"c{i:03d}.npz"), feat=(
+            (1.0 if i % 3 else -1.0) + 0.3 * rng.standard_normal(
+                (44, 512))).astype(np.float32))
+    out = os.path.join(root, "results_metric.txt")
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    acc = align_acc_cli.main(["--spec-dir", spec_dir, "--feat-dir", feat_dir,
+                              "--classifier-ckpt", clf_logdir,
+                              "--batch-size", str(AA_BATCH), "--out", out])
+    torch.cuda.synchronize()
+    call_s = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check_launches("align_acc", launches, expect)
+    # the counts, batch by batch, through the same function
+    model, vae = align_acc_cli.load_classifier(clf_logdir)
+    model.cuda().eval()
+    fn = make_align_acc_fn(model, vae.cuda().eval())
+    correct = total = 0
+    for b in align_acc_cli.iter_batches(spec_dir, feat_dir, AA_BATCH):
+        n = len(b["spec"])
+        valid = torch.zeros(AA_BATCH, dtype=torch.long, device="cuda")
+        valid[:n] = 1
+        c, t = fn(*(torch.as_tensor(pad_axis0(b[k], AA_BATCH), device="cuda")
+                    for k in ("spec", "video_feat")), valid)
+        correct, total = correct + int(c), total + int(t)
+    line = open(out).read().strip()
+    log(f"align_acc {call_s:.3f} s (main-path call: load, {AA_CALLS} "
+        f"batches of {AA_BATCH}) peak_mem_GiB {peak:.3f}: {line}; "
+        f"{correct} of {total} files aligned")
+    if not (total == AA_FILES and 0.0 <= acc <= 1.0
+            and correct == round(acc * AA_FILES)
+            and line == f"align_acc: {acc:.6f}"):
+        raise AssertionError("align_acc's counts or result disagree")
+    del model, vae
+    torch.cuda.empty_cache()
+    return launches, {"main_call_s": call_s, "peak_mem_GiB": peak,
+                      "align_acc": acc, "files": total}
+
+
+# ---- stage-1 CAVP --------------------------------------------------------------
+
+def write_cavp_shards(root: str, n_shards: int = 3,
+                      samples: int = CAVP_SAMPLES, frame: int = FRAME,
+                      seed: int = 9):
+    """Seeded tar shards in the stage-1 layout: ``<key>.spec.npy`` (128 ×
+    640 mel frames) and ``<key>.video.jpg`` (a cv2 JPEG strip of 40
+    frame × frame frames: coarse colour fields drifting from frame to
+    frame)."""
+    import cv2
+    import io
+    import tarfile
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(root)
+    per = -(-samples // n_shards)
+    paths = []
+    for si in range(n_shards):
+        path = os.path.join(root, f"shard-{si:06d}.tar")
+        with tarfile.open(path, "w") as tf:
+            for k in range(per):
+                buf = io.BytesIO()
+                np.save(buf, rng.uniform(size=(128, 640)).astype(np.float32))
+                info = tarfile.TarInfo(f"s{si}_{k}.spec.npy")
+                info.size = buf.getbuffer().nbytes
+                buf.seek(0)
+                tf.addfile(info, buf)
+                base = rng.integers(0, 256, (frame // 8, frame // 8, 3),
+                                    dtype=np.uint8)
+                strip = np.concatenate([cv2.resize(
+                    np.roll(base, i, axis=1), (frame, frame),
+                    interpolation=cv2.INTER_NEAREST) for i in range(40)],
+                    axis=1)
+                ok, enc = cv2.imencode(".jpg", strip)
+                if not ok:
+                    raise AssertionError("cv2 cannot encode a JPEG strip")
+                info = tarfile.TarInfo(f"s{si}_{k}.video.jpg")
+                info.size = len(enc)
+                tf.addfile(info, io.BytesIO(enc.tobytes()))
+        paths.append(path)
+    return paths
+
+
+def train_cavp_phase(root: str):
+    """``cli.train_cavp`` on the shipped towers (SlowOnly-R50, CNN14,
+    512-d), bf16 on fp32 masters, uint8 video, the CLI's default 30 videos
+    × 3 clips a step: the main-path call of CAVP_STEPS steps and the
+    retrieval eval, then a resume for one step in CAVP_ACCUM micro-batches
+    (the feature cache). No TPU kernel runs: every launch count must stay
+    0. Returns the logdir beside the times."""
+    t0 = time.perf_counter()
+    shards = write_cavp_shards(os.path.join(root, "shards"))
+    write_s = time.perf_counter() - t0
+    logdir = os.path.join(root, "cavp")
+    pattern = os.path.join(root, "shards", "shard-{000000..%06d}.tar"
+                           % (len(shards) - 1))
+    args = ["--train-shards", pattern, "--logdir", logdir, "--clip-num",
+            str(CAVP_CLIPS), "--mixed-precision", "--uint8-video",
+            "--epochs", "1", "--log-every", "1", "--save-every-epochs", "1",
+            "--val-shards", shards[0], "--val-frequency", "1",
+            "--val-samples", "16"]
+    log(f"train_cavp SlowOnly-R50 + CNN14 bf16 on fp32 masters, "
+        f"{CAVP_BATCH} videos × {CAVP_CLIPS} clips of 16×{FRAME}² a step, "
+        f"{CAVP_STEPS} steps; {len(shards)} shards of {CAVP_SAMPLES} "
+        f"samples written in {write_s:.3f} s")
+    torch.cuda.empty_cache()
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = train_cavp_cli.main(args + [
+        "--batch-size", str(CAVP_BATCH), "--steps-per-epoch",
+        str(CAVP_STEPS)])
+    torch.cuda.synchronize()
+    call_s = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    peak_reserved = torch.cuda.max_memory_reserved() / 2**30
+    rows = [json.loads(line) for line in open(os.path.join(logdir,
+                                                           "metrics.jsonl"))]
+    log("train_cavp metrics " + json.dumps(rows))
+    log(f"train_cavp {call_s:.3f} s (main-path call: set-up, {CAVP_STEPS} "
+        f"steps, retrieval eval, checkpoint) peak_mem_GiB {peak:.3f} "
+        f"reserved {peak_reserved:.3f}; launches {json.dumps(launches)}")
+    if launches:
+        raise AssertionError("stage-1 CAVP launched a TPU kernel's port")
+    train = [r for r in rows if "train/total_loss" in r]
+    val = [r for r in rows if "val/video_to_spec_R@1" in r]
+    if [r["step"] for r in train] != list(range(1, CAVP_STEPS + 1)) or \
+            len(val) != 1:
+        raise AssertionError("train_cavp did not log every step and the "
+                             "retrieval eval")
+    for r in rows:
+        if not np.isfinite(list(r.values())).all():
+            raise AssertionError(f"train_cavp metrics not finite: {r}")
+    if not all(r["train/logit_scale"] <= 100.0 * (1 + 1e-6) for r in train):
+        raise AssertionError("logit_scale left [0, ln 100]")
+    stats = state.batch_stats
+    moved = sum(not (torch.all(v == 0.0) if k.endswith("mean")
+                     else torch.all(v == 1.0)) for k, v in stats.items())
+    log(f"train_cavp BatchNorm running statistics moved from the init: "
+        f"{moved} of {len(stats)}")
+    if moved != len(stats):
+        raise AssertionError("some BatchNorm statistics did not move")
+    del state
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    resumed = train_cavp_cli.main(args + [
+        "--batch-size", str(CAVP_BATCH // CAVP_ACCUM), "--accum-freq",
+        str(CAVP_ACCUM), "--steps-per-epoch", "1", "--resume"])
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t0
+    last = [json.loads(line) for line in open(os.path.join(
+        logdir, "metrics.jsonl"))]
+    last = [r for r in last if "train/total_loss" in r][-1]
+    log(f"train_cavp resume in {CAVP_ACCUM} micro-batches of "
+        f"{CAVP_BATCH // CAVP_ACCUM} videos: step {resumed.step}, AdamW "
+        f"count {resumed.opt.count}, loss {last['train/total_loss']:.6f}, "
+        f"{resume_s:.3f} s, peak_mem_GiB "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f}")
+    if not (resumed.step == resumed.opt.count == last["step"]
+            == CAVP_STEPS + 1 and np.isfinite(last["train/total_loss"])):
+        raise AssertionError("the resumed CAVP run did not continue at the "
+                             "saved step")
+    del resumed
+    torch.cuda.empty_cache()
+    return {"main_call_s": call_s, "first_step_s": train[0]["step_s"],
+            "cli_step_s": [r["step_s"] for r in train],
+            "warm_step_s": min(r["step_s"] for r in train[1:]),
+            "peak_mem_GiB": peak, "peak_reserved_GiB": peak_reserved,
+            "resume_accum_s": resume_s, "shards_write_s": write_s,
+            "retrieval": {k: v for k, v in val[0].items() if k != "step"}
+            }, logdir
+
+
+def extract_features_phase(clip: str, cavp_logdir: str, root: str):
+    """``cli.extract_features`` on the seeded clip with the CAVP logdir:
+    one (T, 512) file of unit-norm features at the logdir's frame size."""
+    video_dir, out_dir = os.path.join(root, "videos"), os.path.join(
+        root, "feats")
+    os.makedirs(video_dir)
+    os.link(clip, os.path.join(video_dir, "clip.avi"))
+    t0 = time.perf_counter()
+    names = extract_features_cli.main(["--video-dir", video_dir, "--out-dir",
+                                       out_dir, "--cavp-ckpt", cavp_logdir])
+    torch.cuda.synchronize()
+    call_s = time.perf_counter() - t0
+    feat = np.load(os.path.join(out_dir, "clip.npz"))["feat"]
+    norms = np.linalg.norm(feat, axis=-1)
+    log(f"extract_features {call_s:.3f} s: {names} → {feat.shape}, norms "
+        f"{norms.min():.6f}–{norms.max():.6f}")
+    frames = len(extract_frames(clip, size=FRAME))
+    if not (names == ["clip.avi"] and feat.shape == (frames, 512)
+            and np.isfinite(feat).all()
+            and np.abs(norms - 1).max() < 1e-3):
+        raise AssertionError("extract_features did not write unit-norm "
+                             "per-frame features")
+    return {"call_s": call_s, "frames": feat.shape[0]}
+
+
+def native_compose_phase(clip: str, ldm_logdir: str, cavp_logdir: str,
+                         clf_logdir: str):
+    """``DiffFoley.from_native_checkpoints`` over the port's own three
+    logdirs (stage 2, stage-1 CAVP, classifier), with the classifier's
+    context encoded and raw, each then ``generate_for_video`` on the
+    seeded clip at a few steps: finite int16 wavs."""
+    gen = GenerationConfig(steps=3, sample_num=2, gl_iters=4,
+                           wav_dtype="int16")
+    out = {}
+    for context in ("encoded", "raw"):
+        t0 = time.perf_counter()
+        df = DiffFoley.from_native_checkpoints(
+            cavp_logdir, ldm_logdir, classifier=clf_logdir,
+            classifier_context=context)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        expect_type = ("AlignmentClassifier" if context == "encoded"
+                       else "ClassifierBackbone")
+        if type(df.pipe.classifier).__name__ != expect_type or \
+                df.frame_size != FRAME:
+            raise AssertionError(f"from_native_checkpoints {context}: "
+                                 f"{type(df.pipe.classifier).__name__}, "
+                                 f"frames {df.frame_size}")
+        reset_counts()
+        t0 = time.perf_counter()
+        sample = df.generate_for_video(clip, seed=0, gen=gen)
+        torch.cuda.synchronize()
+        call_s = time.perf_counter() - t0
+        check_outputs(sample, f"from_native_checkpoints ({context}) → "
+                      "generate_for_video", samples=2, windows=1)
+        log(f"from_native_checkpoints {context}: load {load_s:.3f} s, "
+            f"generate_for_video (3 steps) {call_s:.3f} s, launches "
+            f"{json.dumps(read_counts())}")
+        out[context] = {"load_s": load_s, "generate_s": call_s}
+        del df
+        torch.cuda.empty_cache()
+    return out
+
+
+# The planted faults of the classifier and CAVP agreements: these leaves'
+# GPU gradients 1% off.
+C_FAULT_LEAF = "backbone.in_conv.weight"
+CAVP_FAULT_LEAF = "video_encoder.conv1.conv.weight"
+
+
+def _planted_caught(grads: dict, ref: dict, zero: set, leaf: str) -> bool:
+    faulty = dict(grads)
+    faulty[leaf] = faulty[leaf] * 1.01
+    try:
+        gradient_agreement(faulty, ref, zero, *GRAD_TOL)
+    except AssertionError:
+        return True
+    return False
+
+
+def agreement_classifier_phase():
+    """One fp32 classifier train step on the GPU (kernels) against the same
+    step on the CPU (plain versions), from equal weights with the same
+    batch and draws: the backbone at D 32 (4 heads of 128 channels at
+    ds 2; 64 channels at level 0, so that no GroupNorm group holds one
+    channel and removes a bias's gradient), cross attention over 40 tokens
+    (a ragged last key tile), the VAE at ch 32 (the per-head kernel's
+    D 32). The gradients per leaf before AdamW at
+    GRAD_TOL, the metrics, and a planted 1% fault on C_FAULT_LEAF."""
+    ccfg = UNetConfig(out_channels=1, model_channels=64, num_res_blocks=1,
+                      channel_mult=(1, 2), attention_resolutions=(2,),
+                      num_heads=4, context_dim=512)
+    base = ClassifierTrainer(ccfg, AutoencoderKL(VAEConfig(
+        ch=32, ch_mult=(1, 1, 1, 1), num_res_blocks=1)), cond_seq_len=40)
+    randomize_(base.model, 11)
+    randomize_(base.vae, 12)
+    rng = np.random.default_rng(13)
+    latent = (2, 8, 16, 4)
+    batch = {"spec": torch.as_tensor(rng.uniform(size=(2, 64, 128, 3)),
+                                     dtype=FP32),
+             "video_feat": torch.as_tensor(rng.standard_normal((2, 40, 512)),
+                                           dtype=FP32),
+             "labels": torch.tensor([1, 0])}
+    draws = {"t": torch.tensor([37, 811]),
+             "noise": torch.as_tensor(rng.standard_normal(latent),
+                                      dtype=FP32),
+             "eps": torch.as_tensor(rng.standard_normal(latent), dtype=FP32)}
+    grads, metrics = {}, {}
+    reset_counts()
+    for device in ("cuda", "cpu"):
+        trainer = copy.deepcopy(base)
+        state = trainer.init_train_state(None, device)
+        m = trainer.train_step(
+            state, {k: v.to(device) for k, v in batch.items()},
+            draws={k: v.to(device) for k, v in draws.items()})
+        metrics[device] = {k: float(v) for k, v in m.items()}
+        grads[device] = {k: p.grad.detach().cpu()
+                         for k, p in state.params.items()}
+    launched = read_counts()
+    if not all(launched.get(k) for k in (
+            "attn_packed_fwd/float32", "attn_packed_bwd/float32",
+            "attn_fwd/float32")) or "attn_bwd/float32" in launched:
+        raise AssertionError(f"tiny classifier step launches {launched}")
+    worst = max(abs(metrics["cuda"][k] - ref) / max(abs(ref), 1e-3)
+                for k, ref in metrics["cpu"].items())
+    zero = noise_gradients(grads["cpu"])
+    grad_worst = gradient_agreement(grads["cuda"], grads["cpu"], zero,
+                                    *GRAD_TOL)
+    caught = _planted_caught(grads["cuda"], grads["cpu"], zero, C_FAULT_LEAF)
+    log(f"agreement tiny fp32 train_classifier gpu-vs-cpu, one step from "
+        f"equal weights: metrics worst relative Δ {worst:.3e} (tol 1e-4); "
+        f"gradients per leaf, worst (max|Δ|, rms(Δ)) / rms(cpu) "
+        f"{list(grad_worst)} (limits {list(GRAD_TOL)}) over "
+        f"{len(grads['cpu'])} leaves, {len(zero)} zero-gradient biases noise "
+        f"on both; planted fault ({C_FAULT_LEAF} ×1.01) caught {caught}; "
+        f"launches {json.dumps(launched)}; cpu metrics "
+        f"{json.dumps(metrics['cpu'])}")
+    if not worst <= 1e-4:
+        raise AssertionError("GPU classifier metrics disagree with the CPU's")
+    if not caught:
+        raise AssertionError("the classifier agreement passes the planted "
+                             "fault")
+
+
+def agreement_cavp_phase():
+    """One fp32 stage-1 train step of tiny CAVP towers on the GPU against
+    the same step on the CPU, from equal weights and BatchNorm statistics,
+    with the same batch and the same dropout masks: the gradients per leaf
+    before AdamW and the BatchNorm running statistics after the step at
+    GRAD_TOL, the metrics, and a planted 1% fault on CAVP_FAULT_LEAF."""
+    cfg = CAVPConfig(video_stage_blocks=(1, 1, 1, 1), video_base_channels=8,
+                     spec_channels=(8, 8, 16, 16, 32, 32), pool_kernel=4)
+    base = randomize_(CAVPModel(cfg), 14)
+    rng = np.random.default_rng(15)
+    batch = {"video": torch.as_tensor(rng.uniform(
+                 size=(2, 2, 4, 32, 32, 3)), dtype=FP32),
+             "spec": torch.as_tensor(rng.uniform(size=(2, 2, 128, 64)),
+                                     dtype=FP32)}
+    real = cnn14_module.dropout_keep
+    grads, stats, metrics = {}, {}, {}
+    try:
+        for device in ("cuda", "cpu"):
+            masks = np.random.default_rng(16)   # the same masks on both
+            cnn14_module.dropout_keep = (
+                lambda shape, p, g, dev: torch.as_tensor(
+                    masks.uniform(size=tuple(shape)) < p, device=dev))
+            trainer = Stage1Trainer(copy.deepcopy(base), Stage1TrainConfig(
+                lr=1e-4, warmup_steps=0, clip_num=2))
+            state = trainer.init_train_state(None, device)
+            m = trainer.train_step(state, {k: v.to(device)
+                                           for k, v in batch.items()})
+            metrics[device] = {k: float(v) for k, v in m.items()}
+            grads[device] = {k: p.grad.detach().cpu()
+                             for k, p in state.params.items()}
+            stats[device] = {k: v.detach().cpu()
+                             for k, v in state.batch_stats.items()}
+    finally:
+        cnn14_module.dropout_keep = real
+    worst = max(abs(metrics["cuda"][k] - ref) / max(abs(ref), 1e-3)
+                for k, ref in metrics["cpu"].items())
+    zero = noise_gradients(grads["cpu"])
+    grad_worst = gradient_agreement(grads["cuda"], grads["cpu"], zero,
+                                    *GRAD_TOL)
+    stats_worst = gradient_agreement(stats["cuda"], stats["cpu"], set(),
+                                     *GRAD_TOL)
+    caught = _planted_caught(grads["cuda"], grads["cpu"], zero,
+                             CAVP_FAULT_LEAF)
+    log(f"agreement tiny fp32 train_cavp gpu-vs-cpu, one step from equal "
+        f"states: metrics worst relative Δ {worst:.3e} (tol 1e-4); gradients "
+        f"per leaf, worst (max|Δ|, rms(Δ)) / rms(cpu) {list(grad_worst)}, "
+        f"BatchNorm statistics {list(stats_worst)} (limits "
+        f"{list(GRAD_TOL)}) over {len(grads['cpu'])} leaves and "
+        f"{len(stats['cpu'])} statistics; planted fault ({CAVP_FAULT_LEAF} "
+        f"×1.01) caught {caught}; cpu metrics {json.dumps(metrics['cpu'])}")
+    if not worst <= 1e-4:
+        raise AssertionError("GPU CAVP metrics disagree with the CPU's")
+    if not caught:
+        raise AssertionError("the CAVP agreement passes the planted fault")
 
 
 # The planted fault of the stage-2 agreement: this leaf's GPU gradient 1%
@@ -2206,12 +2903,29 @@ def main(argv):
     log("train_vae times " + json.dumps(times))
     del pipe
     torch.cuda.empty_cache()
-    launches["train_stage2"], times = train_stage2_phase(
-        expect["train_stage2"], profile)
-    log("train_stage2 times " + json.dumps(times))
+    # the trainers' logdirs live until the composition phase reads them
+    with tempfile.TemporaryDirectory() as root:
+        launches["train_stage2"], times, ldm_logdir = train_stage2_phase(
+            expect["train_stage2"], profile, root)
+        log("train_stage2 times " + json.dumps(times))
+        launches["train_classifier"], times, clf_logdir = \
+            train_classifier_phase(expect["train_classifier"], root, profile)
+        log("train_classifier times " + json.dumps(times))
+        launches["align_acc"], times = align_acc_phase(expect["align_acc"],
+                                                       clf_logdir, root)
+        log("align_acc times " + json.dumps(times))
+        times, cavp_logdir = train_cavp_phase(root)
+        log("train_cavp times " + json.dumps(times))
+        clip = write_clip(os.path.join(root, "clip.avi"))
+        log("extract_features times " + json.dumps(
+            extract_features_phase(clip, cavp_logdir, root)))
+        log("from_native_checkpoints times " + json.dumps(
+            native_compose_phase(clip, ldm_logdir, cavp_logdir, clf_logdir)))
     agreement_phase()
     agreement_train_phase()
     agreement_stage2_phase()
+    agreement_classifier_phase()
+    agreement_cavp_phase()
     log(json.dumps({"kernels": summarize(rows, launches)}))
     log(card)
     print(json.dumps({"ok": True, "device": {

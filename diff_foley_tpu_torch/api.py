@@ -1,6 +1,7 @@
 """The user API, video in and foley audio out (``diff_foley_tpu/api.py``):
-load the three reference checkpoints, extract CAVP features from a video,
-generate.
+load the three reference checkpoints (or the port's own three training
+logdirs, ``from_native_checkpoints``), extract CAVP features from a
+video, generate.
 
     from diff_foley_tpu_torch.api import DiffFoley
     df = DiffFoley.from_checkpoints(cavp="cavp_epoch66.ckpt",
@@ -67,6 +68,53 @@ class DiffFoley:
             if classifier else None
         return cls(ldm_model, load_reference_cavp(cavp), clf, bf16=bf16,
                    device=device)
+
+    @classmethod
+    def from_native_checkpoints(cls, cavp: str, ldm: str,
+                                classifier: Optional[str] = None,
+                                vae_ckpt: Optional[str] = None,
+                                bf16: bool = True,
+                                frame_size: Optional[int] = None,
+                                classifier_context: str = "raw",
+                                device=None) -> "DiffFoley":
+        """The API over this package's own training logdirs
+        (``cli.train_cavp``, ``cli.train_stage2``, ``cli.train_classifier``).
+        The LDM takes its EMA weights when the run trained them and the
+        first stage from the stage-2 logdir, unless ``vae_ckpt`` (a
+        ``cli.train_vae`` logdir or a reference checkpoint) overrides it.
+        ``frame_size`` defaults to the frame size the CAVP towers trained
+        at.
+
+        ``classifier_context`` is what the guidance classifier sees as its
+        cross-attention context: "raw" feeds the raw 512-d CAVP features
+        to the backbone (the reference's shipped behaviour, which differs
+        from how the classifier trained); "encoded" passes them through the
+        classifier's own trained cond encoder first, as in its training."""
+        from .utils.checkpoint import (is_port_logdir, load_native_cavp,
+                                       load_native_classifier,
+                                       load_native_ldm, load_native_vae,
+                                       load_vae_checkpoint,
+                                       native_cavp_ingest_size)
+
+        if classifier_context not in ("raw", "encoded"):
+            raise ValueError("classifier_context must be 'raw' or "
+                             f"'encoded', got {classifier_context!r}")
+        device = resolve_device(device)
+        ldm_model = load_native_ldm(ldm)
+        if is_port_logdir(vae_ckpt):
+            ldm_model.vae.load_state_dict(load_native_vae(
+                vae_ckpt, expect_cfg=ldm_model.cfg.vae).state_dict())
+        elif vae_ckpt:
+            load_vae_checkpoint(vae_ckpt, ldm_model.vae)
+        clf = None
+        if classifier:
+            trainer, _, _ = load_native_classifier(classifier)
+            clf = (trainer.model if classifier_context == "encoded"
+                   else trainer.model.backbone)
+        if frame_size is None:
+            frame_size = native_cavp_ingest_size(cavp)
+        return cls(ldm_model, load_native_cavp(cavp), clf, bf16=bf16,
+                   frame_size=frame_size, device=device)
 
     def extract_features(self, video_path: str, start_second: float = 0.0,
                          truncate_second: Optional[float] = None

@@ -11,6 +11,13 @@ SlowOnly-R50 video and CNN14 audio, 512-d embeddings.
 latent diffusion. Public shapes are the JAX package's: video (B, T, H, W,
 3), spec (B, n_mels, T); the towers run NCDHW / NCHW. Only the shipped
 (slowonly, cnn14) pair is ported.
+
+Training (``train/stage1_cavp.py``) runs the module in train mode:
+BatchNorm on batch statistics, updating its running ones as flax does,
+and CNN14's dropout, its masks drawn from the ``generator`` the forward
+is given. ``CAVPConfig.dtype="bfloat16"`` runs the towers in bf16 against
+float32 parameters (BatchNorm statistics float32); ``logit_scale`` stays
+float32. Cross-replica BatchNorm (``axis_name``) is not ported.
 """
 from __future__ import annotations
 
@@ -22,6 +29,7 @@ import torch
 import torch.nn as nn
 
 from .cnn14 import Cnn14
+from .layers import Linear
 from .slowonly import ResNet3dSlowOnly
 
 
@@ -35,6 +43,8 @@ class CAVPConfig:
     pool_kernel: int = 16
     video_arch: str = "slowonly"
     spec_arch: str = "cnn14"
+    axis_name: Optional[str] = None   # cross-replica BatchNorm: refused
+    dtype: Optional[str] = None       # "bfloat16": the towers' compute type
     video_stage_blocks: Optional[tuple] = None
     video_base_channels: Optional[int] = None
     spec_channels: Optional[tuple] = None
@@ -68,6 +78,12 @@ class CAVPModel(nn.Module):
                 f"towers ({cfg.video_arch!r}, {cfg.spec_arch!r}) are not "
                 "ported: only (slowonly, cnn14); the other factory towers "
                 "are on ROADMAP §1's long tail")
+        if cfg.axis_name is not None:
+            raise NotImplementedError(
+                f"axis_name={cfg.axis_name!r}: cross-replica BatchNorm "
+                "(SyncBN) is ROADMAP §1 item 5 (parallelism), not ported")
+        if cfg.dtype not in (None, "float32", "bfloat16"):
+            raise ValueError(f"dtype {cfg.dtype!r}: float32 or bfloat16")
         self.cfg = cfg
         kw = {}
         if cfg.video_stage_blocks is not None:
@@ -75,29 +91,57 @@ class CAVPModel(nn.Module):
         if cfg.video_base_channels is not None:
             kw["base_channels"] = cfg.video_base_channels
         self.video_encoder = ResNet3dSlowOnly(**kw)
-        self.video_project_head = nn.Linear(self.video_encoder.out_channels,
-                                            cfg.embed_dim)
+        self.video_project_head = Linear(self.video_encoder.out_channels,
+                                         cfg.embed_dim)
         self.spec_encoder = Cnn14(embed_dim=cfg.embed_dim,
                                   channels=cfg.spec_channels)
         self.logit_scale = nn.Parameter(torch.tensor(math.log(1.0 / 0.07)))
 
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return torch.bfloat16 if self.cfg.dtype == "bfloat16" \
+            else torch.float32
+
     def encode_video(self, video: torch.Tensor, normalize: bool = False,
                      pool: bool = True) -> torch.Tensor:
         """(B, T, H, W, 3) → (B, 512) pooled or (B, T, 512) per frame."""
-        x = video.permute(0, 4, 1, 2, 3).contiguous()
+        x = video.permute(0, 4, 1, 2, 3).to(self.compute_dtype).contiguous()
         feat = self.video_project_head(self.video_encoder(x))
         return _pool_norm(feat, self.cfg.pool_kernel, pool, normalize)
 
     def encode_spec(self, spec: torch.Tensor, normalize: bool = False,
-                    pool: bool = True) -> torch.Tensor:
-        """(B, n_mels, T) → (B, 512) pooled or (B, T/16, 512) per step."""
-        feat = self.spec_encoder(spec.transpose(1, 2)[:, None])
+                    pool: bool = True,
+                    generator: Optional[torch.Generator] = None
+                    ) -> torch.Tensor:
+        """(B, n_mels, T) → (B, 512) pooled or (B, T/16, 512) per step; in
+        train mode CNN14's dropout draws from ``generator``."""
+        x = spec.transpose(1, 2)[:, None].to(self.compute_dtype)
+        feat = self.spec_encoder(x, generator)
         return _pool_norm(feat, self.cfg.pool_kernel, pool, normalize)
 
-    def forward(self, video: torch.Tensor, spec: torch.Tensor) -> dict:
+    def forward(self, video: torch.Tensor, spec: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> dict:
         """Contrastive forward: normalised pooled features and the scale."""
         return {
             "video_features": self.encode_video(video, True, True),
-            "spec_features": self.encode_spec(spec, True, True),
+            "spec_features": self.encode_spec(spec, True, True, generator),
+            "logit_scale": self.logit_scale.exp(),
+        }
+
+    def forward_temporal(self, video: torch.Tensor, spec: torch.Tensor,
+                         generator: Optional[torch.Generator] = None
+                         ) -> dict:
+        """Per-frame and pooled features of one tower pass per modality
+        (the temporal losses' inputs): the pooled ones are the unnormalised
+        per-frame features max-pooled, then both are normalised."""
+        k = self.cfg.pool_kernel
+        vt = self.encode_video(video, normalize=False, pool=False)
+        st = self.encode_spec(spec, normalize=False, pool=False,
+                              generator=generator)
+        return {
+            "video_temporal_features": _l2norm(vt),
+            "spec_temporal_features": _l2norm(st),
+            "video_mean_features": _pool_norm(vt, k, True, True),
+            "spec_mean_features": _pool_norm(st, k, True, True),
             "logit_scale": self.logit_scale.exp(),
         }

@@ -7,33 +7,43 @@ reference forward's quirk, which its weights were trained with), then
 ``final_project``.
 
 Layout NCHW: (B, 1, T, 128 mels) in, (B, T/16, embed_dim) out. BatchNorm
-runs on its running statistics: the modules are for inference, in eval
-mode, and the reference's dropout (off in eval) is left out.
+runs flax's semantics (``layers.py``). In train mode each ConvBlock's
+output takes dropout at 0.2, its keep mask drawn from the caller's
+generator (``dropout_keep``). The products run in the activation's type.
 """
 from __future__ import annotations
 
 from typing import Optional, Sequence
 
+import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from .layers import BatchNorm1d, BatchNorm2d, Conv2d, Linear
+
 N_MELS = 128
 POOLS = ((2, 2), (2, 2), (2, 2), (2, 2), (1, 2), (1, 1))
+DROPOUT = 0.2
 
 
 class ConvBlock(nn.Module):
     def __init__(self, in_ch: int, out_ch: int, pool=(2, 2)):
         super().__init__()
-        self.conv1 = nn.Conv2d(in_ch, out_ch, 3, padding=1, bias=False)
-        self.bn1 = nn.BatchNorm2d(out_ch, eps=1e-5)
-        self.conv2 = nn.Conv2d(out_ch, out_ch, 3, padding=1, bias=False)
-        self.bn2 = nn.BatchNorm2d(out_ch, eps=1e-5)
+        self.conv1 = Conv2d(in_ch, out_ch, 3, padding=1, bias=False)
+        self.bn1 = BatchNorm2d(out_ch, eps=1e-5)
+        self.conv2 = Conv2d(out_ch, out_ch, 3, padding=1, bias=False)
+        self.bn2 = BatchNorm2d(out_ch, eps=1e-5)
         self.pool = pool
 
     def forward(self, x):
         x = F.relu(self.bn1(self.conv1(x)))
         x = F.relu(self.bn2(self.conv2(x)))
         return F.avg_pool2d(x, self.pool, self.pool)
+
+
+def dropout_keep(shape, keep_prob: float, generator, device) -> torch.Tensor:
+    """The keep mask of one dropout: uniform draws below ``keep_prob``."""
+    return torch.rand(shape, generator=generator, device=device) < keep_prob
 
 
 class Cnn14(nn.Module):
@@ -43,19 +53,28 @@ class Cnn14(nn.Module):
         chans = list(channels or (64, 128, 256, 512, 1024, 2048))
         if len(chans) != 6:
             raise ValueError(f"CNN14 has six conv blocks, got {chans}")
-        self.bn0 = nn.BatchNorm2d(N_MELS, eps=1e-5)
+        self.bn0 = BatchNorm1d(N_MELS, eps=1e-5)
         ch = 1
         for i, (c, p) in enumerate(zip(chans, POOLS), start=1):
             setattr(self, f"conv_block{i}", ConvBlock(ch, c, p))
             ch = c
-        self.fc1 = nn.Linear(ch, ch)
-        self.final_project = nn.Linear(ch, embed_dim)
+        self.fc1 = Linear(ch, ch)
+        self.final_project = Linear(ch, embed_dim)
 
-    def forward(self, x):
-        """(B, 1, T, 128) → (B, T/16, embed_dim)."""
-        h = self.bn0(x.transpose(1, 3)).transpose(1, 3)   # BN over mel bins
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        """(B, 1, T, 128) → (B, T/16, embed_dim); in train mode the
+        dropout masks come from ``generator``."""
+        # BN over the mel bins, as (B·T, mels) rows: no transposed view
+        # around the norm. The CPU's batch_norm backward miscomputes the
+        # scale and bias gradients when the incoming gradient is a
+        # transposed view (0.7–1.2 of their size off, torch 2.13)
+        h = self.bn0(x.reshape(-1, x.shape[-1])).reshape(x.shape)
+        keep_prob = 1.0 - DROPOUT
         for i in range(1, 7):
             h = getattr(self, f"conv_block{i}")(h)
+            if self.training:
+                keep = dropout_keep(h.shape, keep_prob, generator, h.device)
+                h = torch.where(keep, h / keep_prob, torch.zeros_like(h))
         h = h.mean(dim=3)                                   # (B, C, T')
         h = (F.max_pool1d(h, 3, 1, 1)
              + F.avg_pool1d(h, 3, 1, 1, count_include_pad=True))

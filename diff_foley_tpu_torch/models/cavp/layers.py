@@ -1,0 +1,91 @@
+"""The CAVP towers' layers with flax's semantics.
+
+- ``BatchNorm1d``/``BatchNorm2d``/``BatchNorm3d``: flax ``nn.BatchNorm`` (eps 1e-5,
+  ``momentum=0.9``, which is torch's ``momentum=0.1``). In train mode
+  they normalise with the batch statistics and update the running mean and
+  variance, the variance with the *biased* batch variance, as flax does
+  (torch's own update takes the unbiased one). The statistics stay float32
+  whatever the activation type. ``frozen_statistics`` runs train-mode
+  normalisation without the update.
+- ``Conv2d``/``Conv3d``/``Linear``: their parameters cast to the
+  activation's type in the forward, a differentiable cast (flax's
+  ``dtype``): bf16 activations run bf16 products whose gradients land on
+  the float32 parameters.
+"""
+from __future__ import annotations
+
+import contextlib
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+
+class _FlaxStatistics:
+    update_statistics = True
+
+    def forward(self, x):
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, self.eps)
+        if not self.update_statistics:
+            return F.batch_norm(x, None, None, self.weight, self.bias, True,
+                                0.0, self.eps)
+        # the update lands in copies: autograd holds the tensors it was
+        # given, and the buffers may not change under it
+        mean, var = self.running_mean.clone(), self.running_var.clone()
+        y = F.batch_norm(x, mean, var, self.weight, self.bias, True,
+                         self.momentum, self.eps)
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            # torch added momentum·(n / (n − 1))·var: rescale that part to
+            # the biased variance
+            kept = (1.0 - self.momentum) * self.running_var
+            self.running_var.copy_((var - kept) * ((n - 1) / n) + kept)
+            self.running_mean.copy_(mean)
+        return y
+
+
+class BatchNorm1d(_FlaxStatistics, nn.BatchNorm1d):
+    pass
+
+
+class BatchNorm2d(_FlaxStatistics, nn.BatchNorm2d):
+    pass
+
+
+class BatchNorm3d(_FlaxStatistics, nn.BatchNorm3d):
+    pass
+
+
+@contextlib.contextmanager
+def frozen_statistics(module: nn.Module):
+    """Inside the block, train-mode BatchNorms of ``module`` normalise with
+    the batch statistics but leave their running statistics as they are."""
+    norms = [m for m in module.modules() if isinstance(m, _FlaxStatistics)]
+    try:
+        for m in norms:
+            m.update_statistics = False
+        yield module
+    finally:
+        for m in norms:
+            del m.update_statistics
+
+
+class Conv2d(nn.Conv2d):
+    def forward(self, x):
+        return self._conv_forward(x, self.weight.to(x.dtype), None
+                                  if self.bias is None
+                                  else self.bias.to(x.dtype))
+
+
+class Conv3d(nn.Conv3d):
+    def forward(self, x):
+        return self._conv_forward(x, self.weight.to(x.dtype), None
+                                  if self.bias is None
+                                  else self.bias.to(x.dtype))
+
+
+class Linear(nn.Linear):
+    def forward(self, x):
+        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))

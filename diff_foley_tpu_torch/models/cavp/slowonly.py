@@ -7,8 +7,10 @@
   strides (1, 2, 2, 2) on conv2, stages 3–4 with (3, 1, 1) conv1 kernels;
 - the spatial mean at the end: (B, T, 2048), T kept end to end.
 
-Layout NCDHW, (B, 3, T, H, W). BatchNorm (eps 1e-5) runs on its running
-statistics: the modules are for inference, in eval mode.
+Layout NCDHW, (B, 3, T, H, W). BatchNorm (eps 1e-5) runs flax's
+semantics (``layers.py``): in eval mode on its running statistics, in
+train mode on the batch's, updating them. The products run in the
+activation's type.
 """
 from __future__ import annotations
 
@@ -16,6 +18,8 @@ from typing import Sequence, Tuple
 
 import torch.nn as nn
 import torch.nn.functional as F
+
+from .layers import BatchNorm3d, Conv3d
 
 Triple = Tuple[int, int, int]
 SPATIAL_STRIDES = (1, 2, 2, 2)   # of each stage's first block, on conv2
@@ -29,9 +33,9 @@ class ConvBN(nn.Module):
                  stride: Triple = (1, 1, 1), padding: Triple = (0, 0, 0),
                  act: bool = True):
         super().__init__()
-        self.conv = nn.Conv3d(in_ch, features, kernel, stride, padding,
-                              bias=False)
-        self.bn = nn.BatchNorm3d(features, eps=1e-5)
+        self.conv = Conv3d(in_ch, features, kernel, stride, padding,
+                           bias=False)
+        self.bn = BatchNorm3d(features, eps=1e-5)
         self.act = act
 
     def forward(self, x):

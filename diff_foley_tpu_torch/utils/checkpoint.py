@@ -11,8 +11,10 @@ The modules are loaded in place, on the device they are on.
 The port's training logdirs: ``config.json`` (``config.save_run_config``)
 beside ``ckpt/step_<n>.pt`` files, each written with ``torch.save`` to a
 temporary name and renamed into place. ``load_native_vae`` reads a
-``cli.train_vae`` logdir and ``load_native_ldm`` a ``cli.train_stage2``
-one (which also holds its frozen first stage under ``vae/``). The JAX
+``cli.train_vae`` logdir, ``load_native_ldm`` a ``cli.train_stage2``
+one and ``load_native_classifier`` a ``cli.train_classifier`` one (both
+also hold their frozen first stage under ``vae/``), ``load_native_cavp``
+a ``cli.train_cavp`` one (parameters and BatchNorm statistics). The JAX
 package's logdirs hold orbax checkpoints, which the port does not read
 (that would need orbax; ROADMAP §1).
 """
@@ -198,3 +200,54 @@ def load_native_ldm(logdir: str, prefer_ema: bool = True) -> LatentDiffusion:
     ldm.load_state_dict(
         {**params, **{f"vae.{k}": v for k, v in vae.items()}}, strict=True)
     return ldm
+
+
+def load_native_classifier(logdir: str):
+    """A ``cli.train_classifier`` logdir → (``ClassifierTrainer`` with the
+    newest checkpoint's weights in ``trainer.model``, those parameters by
+    name, the frozen VAE the run scored latents with (``vae/``), or None
+    where the logdir holds none), on the CPU. ``trainer.model(z_t, t,
+    feat)`` is the align-acc surface; ``trainer.model.backbone`` alone is what
+    guidance takes when it feeds the raw CAVP features."""
+    from ..config import config_from_dict, load_run_config
+    from ..train.classifier import ClassifierTrainConfig, ClassifierTrainer
+
+    meta = load_run_config(logdir, "classifier")
+    trainer = ClassifierTrainer(
+        backbone_cfg=config_from_dict(UNetConfig, meta["backbone"]),
+        vae=AutoencoderKL(config_from_dict(VAEConfig, meta["vae"])),
+        cfg=config_from_dict(ClassifierTrainConfig, meta["train"]),
+        cond_seq_len=meta["cond_seq_len"])
+    params = _newest(logdir, "ckpt")["state"]["params"]
+    trainer.model.load_state_dict(params, strict=True)
+    vae = None
+    if latest_checkpoint(os.path.join(logdir, "vae")) is not None:
+        trainer.vae.load_state_dict(_newest(logdir, "vae")["vae"],
+                                    strict=True)
+        vae = trainer.vae
+    return trainer, dict(trainer.model.named_parameters()), vae
+
+
+def load_native_cavp(logdir: str) -> CAVPModel:
+    """A ``cli.train_cavp`` logdir → its ``CAVPModel`` with the newest
+    checkpoint's parameters and BatchNorm running statistics (the towers'
+    eval-mode statistics), in eval mode on the CPU."""
+    from ..config import config_from_dict, load_run_config
+
+    meta = load_run_config(logdir, "stage1_cavp")
+    model = CAVPModel(config_from_dict(CAVPConfig, meta["model"]))
+    state = _newest(logdir, "ckpt")["state"]
+    model.load_state_dict({**state["params"], **state["batch_stats"]},
+                          strict=True)
+    return model.eval()
+
+
+def native_cavp_ingest_size(logdir: str, default: int = 224) -> int:
+    """The frame size the CAVP towers were trained at (the recorded init
+    video shape): the ingest resize every user of the logdir should
+    default to. Frames at a size the towers never saw run without error
+    and give poorer features."""
+    from ..config import load_run_config
+
+    shape = load_run_config(logdir, "stage1_cavp").get("init_video_shape")
+    return int(shape[2]) if shape else default

@@ -3,7 +3,8 @@ package, on the CPU.
 
 Towers: a tiny SlowOnly (one block a stage, 8 base channels, 5 frames at
 32×32) and a tiny CNN14, seeded random weights with positive random
-BatchNorm statistics carried over with ``from_jax_params``, in eval mode.
+BatchNorm statistics carried over with ``from_jax_params``, in eval mode;
+the contrastive and the temporal forward.
 Loaders: tiny JAX parameter trees go through the JAX package's exporters
 into reference-layout torch checkpoints (``{"state_dict": …}`` with a
 ``module.`` prefix); the port's loaders must give exactly
@@ -106,6 +107,24 @@ def test_cavp_forward_matches_jax(cavp_pair):
     assert float(out["logit_scale"]) == pytest.approx(
         float(ref["logit_scale"]), rel=1e-6)
 
+
+
+def test_cavp_forward_temporal_matches_jax(cavp_pair):
+    # the temporal losses' inputs: per-frame features and their pooled
+    # windows from one tower pass each, in eval mode
+    jm, variables, tm, video, spec = cavp_pair
+    ref = jax.jit(lambda v, a, b: jm.apply(
+        v, a, b, method=jc.CAVPModel.forward_temporal))(variables, video, spec)
+    with torch.no_grad():
+        out = tm.forward_temporal(torch.from_numpy(video),
+                                  torch.from_numpy(spec))
+    assert set(out) == set(ref)
+    for k in ("video_temporal_features", "spec_temporal_features",
+              "video_mean_features", "spec_mean_features"):
+        assert _close(out[k], ref[k]) <= TOL
+    assert out["video_mean_features"].shape == (2, 2, 512)
+    assert float(out["logit_scale"]) == pytest.approx(
+        float(ref["logit_scale"]), rel=1e-6)
 
 def test_cavp_rejects_other_towers():
     for kw in ({"video_arch": "x3d"}, {"spec_arch": "cnn10"}):

@@ -149,11 +149,14 @@ def test_port_imports_no_jax():
     files = sorted((REPO / "diff_foley_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 38
-    # the trainer's modules and the video entry's are in
-    for sub in ("train", "data", "cli", "video", "cavp"):
+    # the trainers' modules, the evaluation's and the video entry's are in
+    for sub in ("train", "data", "cli", "video", "cavp", "eval"):
         assert any(p.parent.name == sub for p in files), sub
     for name in ("api.py", "generate.py", "checkpoint.py", "slowonly.py",
-                 "cnn14.py", "ingest.py", "mux.py"):
+                 "cnn14.py", "ingest.py", "mux.py", "optim.py",
+                 "classifier.py", "train_classifier.py", "align_acc.py",
+                 "padding.py", "losses.py", "stage1_cavp.py", "layers.py",
+                 "cavp_shards.py", "train_cavp.py", "extract_features.py"):
         assert any(p.name == name for p in files), name
     banned = ("jax", "flax", "optax", "orbax", "diff_foley_tpu")
     for path in files:

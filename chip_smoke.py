@@ -12,7 +12,8 @@
 1. Build the CUDA kernels from ``diff_foley_tpu_torch/csrc`` (in parallel);
    ``ptxas -v`` lines and the HMMA (tensor-core) instruction count of each
    kernel's SASS (``cuobjdump -sass``): the rebuilt attention kernels must
-   hold some.
+   hold some, and the GroupNorm apply kernel 128-bit global loads and
+   stores (its instructions per element are logged).
 2. Kernel phase: each kernel against its plain PyTorch version at every
    shape of the main paths, in bf16 and fp32, with times beside the
    plain version's, one PyTorch call for the same function (SDPA,
@@ -26,6 +27,9 @@
    the plain version on float64 copies of their operands, at the same
    limits. The fp32 packed forward is held to its plain version in fp32;
    the distances of both to float64 are printed beside.
+   The apply kernel also at its edges: more than 65535 rows, the
+   single-element route, an x off 16-byte alignment, each with a planted
+   fault of its own.
 3. ``DiffFoleyPipeline.generate`` at full width (the 860M LDM UNet and the
    alignment classifier in bf16, the SD VAE in bf16, seeded random
    weights), 2 windows × 2 samples, 25 DPM-Solver++ steps, CFG 4.5,
@@ -112,6 +116,7 @@ import copy
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -498,28 +503,112 @@ TENSOR_CORE_KERNELS = {"attention_fwd": ("attn_packed_fwd_mma_kernel",),
                                               "head_bwd_products_kernel")}
 
 
+def sass_functions(path) -> dict:
+    """{kernel symbol: [its SASS instructions]} of a built library
+    (``cuobjdump -sass``)."""
+    tool = os.path.join(os.path.dirname(cuda_build.nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                          text=True, check=True).stdout
+    out, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            out[fn] = []
+        elif fn is not None:
+            m = re.search(r"/\*[0-9a-f]+\*/\s+([^;]*);", line)
+            if m:
+                out[fn].append(m.group(1).strip())
+    return out
+
+
 def sass_hmma() -> dict:
     """{source: {kernel symbol: HMMA instructions}} from ``cuobjdump -sass``
     of each built library; fails unless every instantiation of the
     tensor-core kernels holds some."""
-    tool = os.path.join(os.path.dirname(cuda_build.nvcc()), "cuobjdump")
     out = {}
     for name in cuda_build.SOURCES:
-        sass = subprocess.run([tool, "-sass", str(cuda_build.library_path(
-            name))], capture_output=True, text=True, check=True).stdout
-        counts, fn = {}, None
-        for line in sass.splitlines():
-            if "Function :" in line:
-                fn = line.split("Function :")[1].strip()
-                counts[fn] = 0
-            elif fn is not None and "HMMA" in line:
-                counts[fn] += 1
+        counts = {f: sum("HMMA" in i for i in ins) for f, ins in
+                  sass_functions(cuda_build.library_path(name)).items()}
         out[name] = counts
         for kernel in TENSOR_CORE_KERNELS.get(name, ()):
             found = {f: n for f, n in counts.items() if kernel in f}
             if not found or not all(found.values()):
                 raise AssertionError(f"{kernel}: no HMMA in its SASS {found}")
     return out
+
+
+def _opcode(instruction: str) -> str:
+    words = instruction.split()
+    return words[1] if words[0].startswith("@") else words[0]
+
+
+def sass_fast_path(ins: list) -> list:
+    """The instructions one thread of an apply kernel issues on a full
+    tile with SiLU, every division in the fast range: from the entry, each
+    conditional branch falls through (a full tile, SiLU on) but the two
+    that skip the slow division, a branch on two predicates (finish_unit's
+    ``if (slow)``) and the one after ``FCHK`` (``__fdiv_rn``'s range
+    check); unconditional branches are taken; it ends at ``EXIT``. Hopper
+    encodes each instruction in 16 bytes, so a target address over 16 is
+    its index. None where the walk finds no ``EXIT``: a code layout it
+    does not know."""
+    path, i, fchk = [], 0, False
+    while i < len(ins) and len(path) < 100000:
+        op = _opcode(ins[i])
+        path.append(op)
+        if op == "EXIT" and not ins[i].startswith("@"):
+            return path
+        if op.startswith("BRA") and (
+                not ins[i].startswith("@") or fchk
+                or re.match(r"@!?P\d BRA !?P\d", ins[i])):
+            target = re.search(r"0x([0-9a-f]+)", ins[i])
+            if target is None:
+                return None
+            i, fchk = int(target.group(1), 16) // 16, False
+            continue
+        fchk = op.startswith("FCHK") or (fchk and not op.startswith("BRA"))
+        i += 1
+    return None
+
+
+def sass_apply() -> dict:
+    """{"dtype/E/NV": counts} of each instantiation of
+    ``gn_stream_apply_kernel`` (E elements a unit, NV units a thread) in
+    the built GroupNorm library: all its instructions, its 128-bit global
+    loads and stores, and on the fast path of a full tile
+    (``sass_fast_path``, null where it finds none) the instructions, MUFU
+    (two an element: the exponential and the reciprocal) and instructions
+    per element. Fails unless every 16-byte-unit instantiation loads and
+    stores 128 bits at a time."""
+    funcs = sass_functions(cuda_build.library_path("groupnorm"))
+    out = {}
+    for fn, ins in funcs.items():
+        m = re.search(r"gn_stream_apply_kernelI(f|13__nv_bfloat16)"
+                      r"Li(\d+)ELi(\d+)E", fn)
+        if not m:
+            continue
+        e, nv = int(m.group(2)), int(m.group(3))
+        ops = [_opcode(i) for i in ins]
+        wide = lambda op, kind: (op.split(".")[0] == kind
+                                 and "128" in op.split("."))
+        fast = sass_fast_path(ins)
+        row = {"instructions": len(ops),
+               "ldg_128": sum(wide(op, "LDG") for op in ops),
+               "stg_128": sum(wide(op, "STG") for op in ops),
+               "fast_path": fast and len(fast),
+               "fast_path_mufu": fast and sum(op.startswith("MUFU")
+                                              for op in fast),
+               "per_element": fast and len(fast) / (nv * e)}
+        out[f"{'float32' if m.group(1) == 'f' else 'bfloat16'}/E{e}/NV{nv}"] \
+            = row
+        if e > 1 and not (row["ldg_128"] and row["stg_128"]):
+            raise AssertionError(f"gn_stream_apply_kernel {fn}: no 128-bit "
+                                 f"global load or store in its SASS {row}")
+    if not any(k.split("/")[1] != "E1" for k in out):
+        raise AssertionError(f"no 16-byte-unit gn_stream_apply_kernel in the "
+                             f"SASS: {sorted(out)}")
+    return out
+
 
 def attn_peak(dtype) -> float:
     """The product rate that bounds an attention kernel: the bf16 tensor
@@ -655,6 +744,38 @@ def fault_apply_neighbour_affine(x, a, b, act):
     """Planted fault: each channel gets its neighbour's folded affine."""
     return (hg.stream_apply_reference(x, a.roll(1, dims=1),
                                       b.roll(1, dims=1), act),)
+
+
+def fault_apply_rows_past_65535(x, a, b, act):
+    """Planted fault: the rows past 65535 left unwritten (zero), as a grid
+    with the rows on its y dimension would leave them."""
+    y = hg.stream_apply_reference(x, a, b, act)
+    y.view(-1, y.shape[2] * y.shape[3])[65535:] = 0
+    return (y,)
+
+
+def fault_apply_row_tails(x, a, b, act):
+    """Planted fault: the last hw mod 8 elements of each row left
+    unwritten (zero), as 16-byte units of bf16 alone would leave them."""
+    y = hg.stream_apply_reference(x, a, b, act)
+    hw = y.shape[2] * y.shape[3]
+    y.view(-1, hw)[:, hw - hw % 8:] = 0
+    return (y,)
+
+
+def fault_apply_last_unit(x, a, b, act):
+    """Planted fault: the last 16 bytes of each row left unwritten (zero),
+    as a 16-byte-unit tile short of a full one would leave its last unit."""
+    y = hg.stream_apply_reference(x, a, b, act)
+    y.view(-1, y.shape[2] * y.shape[3])[:, -16 // y.element_size():] = 0
+    return (y,)
+
+
+def fault_apply_aligned_base(x, a, b, act):
+    """Planted fault: x read from one element earlier, its 16-byte-aligned
+    base."""
+    early = torch.as_strided(x, x.shape, x.stride(), x.storage_offset() - 1)
+    return (hg.stream_apply_reference(early, a, b, act),)
 
 
 FAULTS = {"fwd": (fault_fwd_neighbour_head,),
@@ -853,12 +974,49 @@ def check_gn(tag, b, c, h, w, eps, act, dtype, gen):
             gn_bound_ms("apply", n, itemsize))})]
 
 
+# the apply kernel's edges, each with its own planted fault: (tag, shape,
+# dtype, act, x's storage offset in elements, fault). B·C past 65535 rows
+# (the VAE encoder's fp32 32×128 level at batch 130), the single-element
+# route at an hw that is no multiple of 8, an x one element off its
+# 16-byte alignment (a contiguous view) at the VAE's full-resolution map,
+# and two 16-byte-unit rows that end short of a full tile: hw 4800 (600
+# units, one tile of 256 threads) and hw 128 (16 units, 32 threads)
+APPLY_EDGES = (
+    ("rows-66560", (130, 512, 32, 128), FP32, "silu", 0,
+     fault_apply_rows_past_65535),
+    ("hw-127x511", (2, 128, 127, 511), BF16, None, 0, fault_apply_row_tails),
+    ("offset-1", (4, 128, 128, 512), BF16, "silu", 1,
+     fault_apply_aligned_base),
+    ("hw-40x120", (2, 64, 40, 120), BF16, "silu", 0, fault_apply_last_unit),
+    ("hw-8x16", (2, 64, 8, 16), BF16, None, 0, fault_apply_last_unit))
+
+
+def check_apply_edge(tag, shape, dtype, act, offset, fault, gen):
+    b, c, h, w = shape
+    n = b * c * h * w
+    flat = (torch.randn(n + offset, generator=gen, device="cuda") * 2
+            + 0.5).to(dtype)
+    x = flat[offset:].view(shape)
+    gamma = (1 + 0.1 * torch.randn(c, generator=gen, device="cuda")).to(dtype)
+    beta = (0.1 * torch.randn(c, generator=gen, device="cuda")).to(dtype)
+    a, bb = hg.fold_stats(hg.stream_stats_reference(x, 32), gamma, beta,
+                          n // b // 32, 1e-6)
+    faults = {**planted("apply", x, a, bb, act),
+              fault.__name__: fault(x, a, bb, act)}
+    return ("gn_stream_apply", {
+        "shape": tag, "B": b, "C": c, "H": h, "W": w, "act": act,
+        "rows": b * c, "offset": offset, **run_check(
+            "apply", dtype, lambda: hg.stream_apply(x, a, bb, act),
+            lambda: hg.stream_apply_reference(x, a, bb, act), faults, None,
+            gn_bound_ms("apply", n, x.element_size()))})
+
+
 def kernel_phase(pipe):
     """Every kernel at every shape of the main paths (bf16 in ``generate``,
     ``inpaint`` and ``train_stage2``, fp32 in ``train_vae``), with its
     calls per run; the kernels of the bf16 paths also once in fp32, the
-    per-head backward also once in bf16, and both per-head kernels at
-    ragged lengths."""
+    per-head backward also once in bf16, both per-head kernels at ragged
+    lengths, and the apply kernel at its edges (``APPLY_EDGES``)."""
     n = WINDOWS * SAMPLES
     gen = torch.Generator("cuda").manual_seed(0)
     rows = []
@@ -955,6 +1113,9 @@ def kernel_phase(pipe):
                               "calls": calls(align_acc=AA_CALLS)}))
     rows += check_gn("unet-320x16x64", 2 * n, 320, 16, 64, 1e-5, "silu",
                      FP32, gen)
+    for edge in APPLY_EDGES:
+        rows.append(check_apply_edge(*edge, gen))
+        torch.cuda.empty_cache()
     # the block kernel's branch-free SiLU division, bit for bit __fdiv_rn's
     # over every fp32 input in its range (the rest go through __fdiv_rn)
     off, taken = hg.silu_division_check("cuda")
@@ -2872,6 +3033,7 @@ def main(argv):
     for name, counts in sass_hmma().items():
         log(f"sass HMMA {name} " + json.dumps(
             {f: n for f, n in counts.items() if n}))
+    log("sass gn_stream_apply_kernel " + json.dumps(sass_apply()))
     if "--train-agreement" in argv:
         return train_agreement_runs(
             int(argv[argv.index("--train-agreement") + 1]), card)

@@ -291,3 +291,46 @@ def test_cuda_silu_division_is_fdiv_rn():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     off, taken = hg.silu_division_check("cuda")
     assert off == 0 and taken > 2**31
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act", [None, "silu"])
+@pytest.mark.parametrize("shape,dtype,offset", [
+    ((130, 512, 32, 128), torch.float32, 0),   # 66560 rows, past 65535
+    ((2, 128, 127, 511), torch.bfloat16, 0),   # hw 64897: single elements
+    ((4, 128, 128, 512), torch.bfloat16, 1),   # x one element off 16 bytes
+    ((2, 64, 64, 256), torch.float32, 1),
+    ((2, 64, 40, 120), torch.bfloat16, 0),     # 600 units: a short tile
+    ((2, 64, 8, 16), torch.bfloat16, 0),       # 16 units: 32 threads
+])
+def test_cuda_stream_apply_edges(shape, dtype, offset, act):
+    """The apply kernel at the edges of its grid and of its 16-byte units:
+    more than 65535 rows (B·C), a bf16 hw that is no multiple of 8 (the
+    single-element route), x a contiguous view at a storage offset of one
+    element, and rows of 16-byte units that end short of a full tile (and
+    of a full block of threads); one launch a call, against its plain
+    version at chip_smoke.py's apply limits (fp32 1e-6 / 1e-7 of rms,
+    within the 1e-5 of the ragged shapes above; bf16 0.02 / 1e-4)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    gen = torch.Generator("cuda").manual_seed(3)
+    b, c, h, w = shape
+    flat = (torch.randn(b * c * h * w + offset, generator=gen, device="cuda")
+            * 2 + 0.5).to(dtype)
+    x = flat[offset:].view(shape)
+    assert x.is_contiguous() and bool(x.data_ptr() % 16) == bool(offset)
+    gamma = 1 + 0.1 * torch.randn(c, generator=gen, device="cuda")
+    beta = 0.1 * torch.randn(c, generator=gen, device="cuda")
+    a, bb = hg.fold_stats(hg.stream_stats_reference(x, 32), gamma, beta,
+                          c // 32 * h * w, 1e-6)
+    before = hg.LAUNCHES["gn_stream_apply"]
+    out = hg.stream_apply(x, a, bb, act)
+    ref = hg.stream_apply_reference(x, a, bb, act)
+    torch.cuda.synchronize()
+    assert hg.LAUNCHES["gn_stream_apply"] == before + 1 and out.dtype == dtype
+    max_tol, rms_tol = (0.02, 1e-4) if dtype == torch.bfloat16 else (1e-6,
+                                                                     1e-7)
+    o, r = out.double(), ref.double()
+    rms = float(r.square().mean().sqrt())
+    assert float((o - r).abs().max()) <= max_tol * rms
+    assert float((o - r).square().mean().sqrt()) <= rms_tol * rms

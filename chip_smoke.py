@@ -6,7 +6,7 @@
                                      # of each sampler (the video run's
                                      # too) and of the trainers
     python3 chip_smoke.py --train-agreement 40   # build, then only the tiny
-                                     # train-step agreement (phase 11) 40
+                                     # train-step agreement (phase 12) 40
                                      # times: failures / runs
 
 1. Build the CUDA kernels from ``diff_foley_tpu_torch/csrc`` (in parallel);
@@ -49,10 +49,21 @@
    against the CPU's. Then
    ``cli.generate --random-weights --bf16`` once on the same clip: four
    int16 16-kHz wavs of 131072 samples and four spec files.
-   Before each main-path run (3, 4, 5, 5's CLI run, 6, 7, 8 and 9) the
+   Before each main-path run (3, 4, 5, 5's CLI run, 6, 7, 8, 9 and 10) the
    launch counts are reset; read just after, they must equal what the model
    structure predicts, by kernel and operand dtype.
-6. ``cli.train_vae`` at the full width of ``SD_VAE`` in float32: seeded mel
+6. Serving, ``BatchingEngine`` and ``FoleyServer``, at the same full width
+   (the flagship's bf16 UNet, classifier and VAE; random CAVP towers for
+   ``DiffFoley.extract_features``), 25 steps, one sample, int16: the
+   warm-up over the bucket ladder 1/2/4/8/16, a warm request per bucket
+   (the bucket-16 one is the main-path run), a 1-window request, eight
+   concurrent ones of 1–3 windows (a batch of two or more must form, and
+   its fan-out must equal a direct bucketed ``generate`` with its seed, bit
+   for bit), a 20-window request (two bucket-16 chunks), and every HTTP
+   route on 127.0.0.1 (``/generate_video`` over 5's clip; a malformed body
+   answers 400). Warm seconds per bucket, windows per minute at bucket 16,
+   the concurrent requests' p50 and max latency.
+7. ``cli.train_vae`` at the full width of ``SD_VAE`` in float32: seeded mel
    ``.npy`` files in a temporary directory, batch 4, ``--disc-start 0`` (the
    GAN term, the adaptive weight and the discriminator step all run), a
    raised learning rate. Every metric finite, ``nll_loss`` falls,
@@ -61,7 +72,7 @@
    saved step. First-step and warm seconds per step, split generator /
    discriminator, peak memory, the plain GroupNorm backward's cost, and one
    step with the LPIPS hook on (random weights).
-7. ``cli.train_stage2`` at the full width of ``LDM_UNET`` (and its cond
+8. ``cli.train_stage2`` at the full width of ``LDM_UNET`` (and its cond
    encoder) against the frozen ``SD_VAE``: bf16 compute on fp32 masters,
    AdamW, EMA, batch 16, seeded random weights, 32 seeded (mel spec, CAVP
    feature) pairs in the reference layout; six steps and one validation
@@ -72,7 +83,7 @@
    EMA and the generator; ``load_native_ldm`` reads the logdir and the
    model generates on the card. The CLI's step times, warm steps split
    into forward and backward, AdamW and EMA, and peak memory.
-8. ``cli.train_classifier`` at ``CLASSIFIER_BACKBONE`` in fp32 with its
+9. ``cli.train_classifier`` at ``CLASSIFIER_BACKBONE`` in fp32 with its
    cond encoder (512 → 512, 40 positions) against the frozen full
    ``SD_VAE`` in fp32, batch 32, seeded random weights, 32 seeded pairs
    with alignment labels, the shipped rate; six steps, then ``--resume``
@@ -81,10 +92,12 @@
    of that batch and draw; launches as predicted (the per-head attention
    backward never: the encoder is frozen under ``no_grad``). Warm steps
    split into the encode, forward + backward and AdamW; peak memory.
-9. ``cli.align_acc`` on that logdir over 100 seeded spec and feature
+10. ``cli.align_acc`` on that logdir over 100 seeded spec and feature
    files at batch 64 (the last batch ragged, padded): the accuracy, its
-   counts against the files, launches as predicted.
-10. ``cli.train_cavp`` on the shipped towers (SlowOnly-R50, CNN14, 512-d)
+   counts against the files, launches as predicted; then at batch 128
+   (one padded batch), its counts equal to batch 64's, and its peak
+   memory.
+11. ``cli.train_cavp`` on the shipped towers (SlowOnly-R50, CNN14, 512-d)
     in bf16 on fp32 masters over seeded tar shards (cv2 JPEG strips of 40
     224² frames, npy specs), the CLI's 30 videos × 3 clips a step with
     uint8 video: three steps and the retrieval eval, then a resume for one
@@ -95,7 +108,7 @@
     ``DiffFoley.from_native_checkpoints`` over the stage-2, CAVP and
     classifier logdirs (the classifier's context encoded, then raw), each
     running ``generate_for_video`` on the clip: finite int16 wavs.
-11. Agreement: tiny ``generate``, ``inpaint``, ``DiffFoley.extract_features``
+12. Agreement: tiny ``generate``, ``inpaint``, ``DiffFoley.extract_features``
    plus ``generate_from_features``, two tiny VAE train steps, one tiny
    stage-2 train step, one tiny classifier train step (D 32, 40 keys) and
    one tiny CAVP train step in float32 on the GPU (kernels) against the
@@ -117,10 +130,14 @@ import dataclasses
 import json
 import os
 import re
+import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.error
+import urllib.request
 import wave
 
 import numpy as np
@@ -159,6 +176,7 @@ from diff_foley_tpu_torch.pipeline import (LATENT_HW, SPEC_HW, WINDOW_FEATS,
                                            continuation_mask,
                                            spec_mask_to_latent,
                                            window_features)
+from diff_foley_tpu_torch.serving import BatchingEngine, FoleyServer
 from diff_foley_tpu_torch.train.classifier import ClassifierTrainer
 from diff_foley_tpu_torch.train.optim import TrainState, global_norm
 from diff_foley_tpu_torch.train.perceptual import LPIPS, make_lpips_fn
@@ -206,6 +224,17 @@ S2_TOKENS = int(4.0 * 131072 / 16000)
 C_BATCH, C_STEPS, C_REPLAY = 32, 6, 3
 AA_BATCH, AA_FILES, AA_TOKENS = 64, 100, 40
 AA_CALLS = -(-AA_FILES // AA_BATCH)
+# align-acc's second call: batch 128, one padded batch (other shapes,
+# other cuDNN algorithms in fp32): every file must get the same decision
+# as at batch 64
+AA_BATCH_LARGE = 128
+# serving: the engine's bucket ladder up to 16 windows of one sample; the
+# main-path run is one warm request of 16 windows (one bucket-16 call:
+# the UNet at the CFG batch 32, the classifier gradient at 16). Eight
+# concurrent requests of SERVE_WINDOWS windows, then one of
+# SERVE_OVERSIZE (two bucket-16 chunks, the last padded)
+SERVE_BUCKET, SERVE_OVERSIZE = 16, 20
+SERVE_WINDOWS = (1, 2, 3, 1, 2, 3, 2, 1)
 # stage-1 CAVP: the CLI's default 30 videos × 3 clips a step (bf16 towers,
 # uint8 video), CAVP_STEPS steps of one epoch over CAVP_SAMPLES samples;
 # the resume takes one step in CAVP_ACCUM micro-batches of the same
@@ -259,16 +288,17 @@ SYMBOLS = {"fwd": ("attn_packed_fwd",), "bwd": ("head_bwd_",),
            "gn": ("gn_block_kernel",), "stats": ("gn_stream_stats_kernel",),
            "apply": ("gn_stream_apply_kernel",)}
 RUNS = ("generate", "inpaint", "train_vae", "video", "train_stage2",
-        "train_classifier", "align_acc")
+        "train_classifier", "align_acc", "serve")
 
 
 def calls(generate: int = 0, inpaint: int = 0, train_vae: int = 0,
           video: int = 0, train_stage2: int = 0, train_classifier: int = 0,
-          align_acc: int = 0) -> dict:
+          align_acc: int = 0, serve: int = 0) -> dict:
     """Calls of one kernel shape in each main-path run."""
     return {"generate": generate, "inpaint": inpaint, "train_vae": train_vae,
             "video": video, "train_stage2": train_stage2,
-            "train_classifier": train_classifier, "align_acc": align_acc}
+            "train_classifier": train_classifier, "align_acc": align_acc,
+            "serve": serve}
 
 
 def log(*a):
@@ -404,7 +434,9 @@ def gn_path(pipe, n: int, steps: int):
     kernels. Stage 2 runs the UNet and the frozen VAE encoder in bf16 at
     its batch, once in each train and validation forward. The classifier's
     trainer and align-acc run the classifier and the frozen VAE encoder in
-    float32 at their batches, once a step or a batch."""
+    float32 at their batches, once a step or a batch. The serving run (one
+    bucket-16 call of one sample) runs the UNet, the classifier and the
+    decoder as ``generate`` does, at the bucket's batches."""
     vae = pipe.ldm.vae
     models = (("unet", pipe.ldm.unet, LATENT_HW, 2 * n, BF16,
                calls(steps, steps, video=steps)),
@@ -429,7 +461,13 @@ def gn_path(pipe, n: int, steps: int):
               ("a-clf", pipe.classifier, LATENT_HW, AA_BATCH, FP32,
                calls(align_acc=AA_CALLS)),
               ("a-enc", vae.encoder, SPEC_HW, AA_BATCH, FP32,
-               calls(align_acc=AA_CALLS)))
+               calls(align_acc=AA_CALLS)),
+              ("e-unet", pipe.ldm.unet, LATENT_HW, 2 * SERVE_BUCKET, BF16,
+               calls(serve=steps)),
+              ("e-clf", pipe.classifier, LATENT_HW, SERVE_BUCKET, BF16,
+               calls(serve=steps)),
+              ("e-dec", vae.decoder, LATENT_HW, SERVE_BUCKET, BF16,
+               calls(serve=1)))
     out = collections.defaultdict(calls)
     for name, model, hw, batch, dtype, per_run in models:
         for site in gn_sites(model, hw):
@@ -442,8 +480,9 @@ def gn_path(pipe, n: int, steps: int):
 def predicted_launches(pipe, steps: int):
     """{run: {"kernel/dtype": launches}} from the module structure. The
     UNet and the VAE run bf16 in every sampling run; the classifier bf16 in
-    generate and inpaint, fp32 in the video run (as the JAX package's
-    ``DiffFoley``). The classifier backward recomputes GroupNorm through
+    generate, inpaint and serve, fp32 in the video run (as the JAX
+    package's ``DiffFoley``). A launch serves the whole batch, so one
+    bucket-16 serving call launches what one ``generate`` does. The classifier backward recomputes GroupNorm through
     the plain formula, so only its forward launches GroupNorm kernels; so
     does the UNet's in stage-2 training."""
     count = lambda m: sum(2 * x.depth for x in m.modules()
@@ -451,7 +490,7 @@ def predicted_launches(pipe, steps: int):
     unet, clf = count(pipe.ldm.unet), count(pipe.classifier)
     pred = {run: collections.Counter() for run in RUNS}
     clf_dtype = {"generate": "bfloat16", "inpaint": "bfloat16",
-                 "video": "float32"}
+                 "video": "float32", "serve": "bfloat16"}
     for run, dt in clf_dtype.items():
         pred[run]["attn_packed_fwd/bfloat16"] += steps * unet
         pred[run][f"attn_packed_fwd/{dt}"] += steps * clf
@@ -1013,10 +1052,11 @@ def check_apply_edge(tag, shape, dtype, act, offset, fault, gen):
 
 def kernel_phase(pipe):
     """Every kernel at every shape of the main paths (bf16 in ``generate``,
-    ``inpaint`` and ``train_stage2``, fp32 in ``train_vae``), with its
-    calls per run; the kernels of the bf16 paths also once in fp32, the
-    per-head backward also once in bf16, both per-head kernels at ragged
-    lengths, and the apply kernel at its edges (``APPLY_EDGES``)."""
+    ``inpaint``, ``train_stage2`` and ``serve``, fp32 in ``train_vae``),
+    with its calls per run; the kernels of the bf16 paths also once in
+    fp32, the per-head backward also once in bf16, both per-head kernels
+    at ragged lengths, and the apply kernel at its edges
+    (``APPLY_EDGES``)."""
     n = WINDOWS * SAMPLES
     gen = torch.Generator("cuda").manual_seed(0)
     rows = []
@@ -1047,6 +1087,20 @@ def kernel_phase(pipe):
     rows.append(("attn_fwd", {**check_head("vae-dec-mid", n, l, l, d, BF16,
                                            gen),
                               "calls": calls(1, 1, video=1)}))
+    # serving's bucket-16 call of one sample: the UNet at the CFG batch 32,
+    # the classifier's forward and gradient at 16, the decoder's mid
+    # attention at 16, all bf16
+    for tag, b, lq, lk, hd, heads, per_step in path_shapes(SERVE_BUCKET,
+                                                           WINDOW_FEATS):
+        per_run = calls(serve=STEPS * per_step)
+        kinds = (("fwd", "attn_packed_fwd"), ("bwd", "attn_packed_bwd"))
+        for kind, name in kinds[:2 if tag.startswith("clf") else 1]:
+            rows.append((name, {**check_packed(
+                kind, f"e-{tag}", b, lq, lk, hd, heads, BF16, gen),
+                "calls": per_run}))
+    rows.append(("attn_fwd", {**check_head("e-vae-dec-mid", SERVE_BUCKET, l,
+                                           l, d, BF16, gen),
+                              "calls": calls(serve=1)}))
     # the train step's mid attention, encoder and decoder alike: forward
     # and backward in fp32 at the train batch
     both = calls(train_vae=2 * TRAIN_STEPS)
@@ -1152,8 +1206,8 @@ def kernel_phase(pipe):
 
 def summarize(rows, launches):
     """One entry per kernel: its path shapes summed over their calls in
-    each main-path run of ``RUNS`` (ms, device_ms, plain_ms,
-    library_ms, bound_ms, each also per run; library_device_ms), its
+    each main-path run of ``RUNS`` (ms, device_ms, plain_ms, library_ms,
+    library_device_ms, bound_ms, each also per run), its
     largest error, and its launches in the main-path runs. A sum is null where nothing was measured: no call
     of the kernel in that run, or a shape without a library call."""
     out = []
@@ -1187,7 +1241,7 @@ def summarize(rows, launches):
             **{f"{key}_{run}": total(
                 f"{'kernel_' if key == 'ms' else ''}{key}", (run,))
                for key in ("ms", "device_ms", "plain_ms", "bound_ms",
-                           "library_ms")
+                           "library_ms", "library_device_ms")
                for run in RUNS},
         })
     return out
@@ -1555,6 +1609,170 @@ def video_phase(pipe, expect, tmp: str, profile: bool):
                       **{f"warm_{k}": v for k, v in warm.items()},
                       "cavp_ms": cavp_ms, "cavp_device_ms": cavp_device_ms,
                       "cavp_gpu_cpu_max_ratio": feat_ratio, **cli}
+
+
+# ---- serving ------------------------------------------------------------------
+
+def http(url: str, body=None, raw: bool = False):
+    """(status, JSON reply) of a GET (no body) or a POST to the server."""
+    data = None if body is None else body if raw else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, headers={
+        "Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def check_wav(wav: np.ndarray, windows: int, what: str):
+    if wav.shape != (windows * WINDOW_SAMPLES,) or wav.dtype != np.int16:
+        raise AssertionError(f"{what}: wav {wav.shape} {wav.dtype}, not "
+                             f"{windows} windows of int16")
+
+
+def serve_phase(pipe, expect, clip: str, card: str, profile: bool):
+    """``BatchingEngine`` and ``FoleyServer`` at full width over the
+    flagship's models (bf16 UNet, classifier and VAE), built from
+    ``DiffFoley.pipe`` with random CAVP towers for ``extract_features``;
+    25 steps, CFG 4.5, classifier guidance 50, 32 Griffin-Lim iterations,
+    one sample, int16. The warm-up ladder, then a warm request per bucket
+    (the bucket-16 one is the main-path run, its launches counted), one
+    1-window request, eight concurrent ones (at least one batch of two or
+    more requests), one of 20 windows (two bucket-16 chunks), the fan-out
+    of the largest batch replayed by a direct bucketed ``generate`` with
+    its seed (bit for bit), and each HTTP route on 127.0.0.1."""
+    if not have_cv2():
+        raise AssertionError("serving's /generate_video needs cv2")
+    gen = GenerationConfig(steps=STEPS, sample_num=1, return_spec=False,
+                           wav_dtype="int16")
+    df = DiffFoley(pipe.ldm, randomize_(CAVPModel(CAVPConfig()), 5),
+                   pipe.classifier, bf16=True, device="cuda")
+    engine = BatchingEngine(df.pipe, gen, max_batch_windows=SERVE_BUCKET)
+    server = None
+    rng = np.random.default_rng(11)
+    feats = lambda w: rng.standard_normal(
+        (w * WINDOW_FEATS, 512)).astype(np.float32)
+    try:
+        ladder = engine.aot_warmup()
+        log(f"serve warm-up, first call of each bucket (status, s) "
+            f"{json.dumps(ladder)} ({card})")
+        warm = {}
+        for b in ladder:
+            f = feats(b)
+            if b == SERVE_BUCKET:
+                reset_counts()
+            t0 = time.perf_counter()
+            wav = engine.submit(f, timeout=600)
+            warm[b] = time.perf_counter() - t0
+            if b == SERVE_BUCKET:
+                launches = read_counts()
+            check_wav(wav, b, f"serve bucket {b}")
+        check_launches("serve", launches, expect)
+        single = engine.submit(feats(1), timeout=600)
+        check_wav(single, 1, "serve 1-window request")
+
+        reqs, latency = [None] * len(SERVE_WINDOWS), [0.0] * len(SERVE_WINDOWS)
+        start = threading.Barrier(len(SERVE_WINDOWS))
+        inputs = [feats(w) for w in SERVE_WINDOWS]
+
+        def client(i):
+            start.wait()
+            t0 = time.perf_counter()
+            reqs[i] = engine.enqueue(inputs[i])
+            reqs[i].event.wait(600)
+            latency[i] = time.perf_counter() - t0
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(len(SERVE_WINDOWS))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        batches = {}
+        for r, w in zip(reqs, SERVE_WINDOWS):
+            if r is None or r.error or r.result is None:
+                raise AssertionError(f"serve concurrent request failed: "
+                                     f"{r and r.error}")
+            check_wav(r.result, w, "serve concurrent request")
+            batches.setdefault(r.seed, []).append(r)
+        batches = [sorted(b, key=lambda r: r.offset)
+                   for b in batches.values()]
+        formed = [{"bucket": b[0].bucket,
+                   "windows": [r.feats.shape[0] for r in b]} for b in batches]
+        log(f"serve concurrent requests of {list(SERVE_WINDOWS)} windows: "
+            f"batches formed {json.dumps(formed)}")
+        if max(len(b) for b in batches) < 2:
+            raise AssertionError("the engine formed no batch of two or more "
+                                 "requests")
+        # the largest batch replayed by a direct bucketed generate
+        batch = max(batches, key=len)
+        ref = df.pipe.generate(
+            np.concatenate([r.feats for r in batch]).reshape(-1, 512),
+            batch[0].seed, gen, bucket_windows=batch[0].bucket)["wav"][0]
+        fan_out = max(int(np.abs(r.result.astype(np.int32) - ref[
+            r.offset * WINDOW_SAMPLES:(r.offset + r.feats.shape[0])
+            * WINDOW_SAMPLES].astype(np.int32)).max()) for r in batch)
+        log(f"serve fan-out of a batch of {len(batch)} requests against a "
+            f"direct bucketed generate with its seed: max|Δ| {fan_out} "
+            f"(must be 0)")
+        if fan_out:
+            raise AssertionError("the engine's fan-out differs from a direct "
+                                 "bucketed generate")
+        t0 = time.perf_counter()
+        big = engine.submit(feats(SERVE_OVERSIZE), timeout=600)
+        oversize_s = time.perf_counter() - t0
+        check_wav(big, SERVE_OVERSIZE, "serve oversize request")
+
+        server = FoleyServer(engine, port=0,
+                             feature_fn=df.extract_features)
+        server.start_background()
+        base = f"http://127.0.0.1:{server.port}"
+        routes = {}
+
+        def route(name, expect_code, *args, **kw):
+            t0 = time.perf_counter()
+            code, body = http(base + name.split()[0], *args, **kw)
+            routes[name] = {"status": code,
+                            "s": time.perf_counter() - t0}
+            if code != expect_code or (code == 200 and not (
+                    body.get("num_samples") == len(body.get("wav", ()))
+                    == WINDOW_SAMPLES and body["sr"] == 16000)):
+                raise AssertionError(f"serve HTTP {name}: {code} "
+                                     f"{str(body)[:200]}")
+            return body
+
+        code, body = http(base + "/healthz")
+        routes["/healthz"] = {"status": code}
+        if (code, body) != (200, {"status": "ok"}):
+            raise AssertionError(f"serve HTTP /healthz: {code} {body}")
+        route("/generate", 200, {"features": feats(1).tolist()})
+        known = single[:4 * 16000].astype(np.float32) / 32767.0
+        route("/continue", 200, {"features": feats(1).tolist(),
+                                 "known_wav": known.tolist(),
+                                 "known_seconds": 2.0})
+        route("/generate_video", 200, open(clip, "rb").read(), raw=True)
+        route("/generate malformed", 400, {"features": [[1.0, 2.0]]})
+        log("serve HTTP routes " + json.dumps(routes))
+        if profile:
+            f16 = feats(SERVE_BUCKET)
+            profile_steps("serve-bucket16", lambda: df.pipe.generate(
+                f16, 0, gen, bucket_windows=SERVE_BUCKET), steps=1)
+    finally:
+        if server is not None:
+            server.shutdown()
+        engine.stop()
+    times = {
+        "first_call_s": {b: s for b, (_, s) in ladder.items()},
+        "warm_s": warm,
+        f"windows_per_min_bucket{SERVE_BUCKET}": 60.0 * SERVE_BUCKET / warm[SERVE_BUCKET],
+        "concurrent_p50_s": statistics.median(latency),
+        "concurrent_max_s": max(latency), "oversize_s": oversize_s,
+        "batches": formed, "http": routes}
+    log(f"serve {json.dumps(times)} ({card})")
+    del df
+    torch.cuda.empty_cache()
+    return launches, times
 
 
 def profile_steps(what: str, run, steps: int = 2, grad: bool = False):
@@ -2210,7 +2428,9 @@ def train_classifier_phase(expect, root: str, profile: bool):
 def align_acc_phase(expect, clf_logdir: str, root: str):
     """``cli.align_acc`` on the classifier's logdir over AA_FILES seeded
     spec and feature files at batch 64, the last batch ragged: the
-    accuracy, and the counts against the files."""
+    accuracy, and the counts against the files; then at batch 128 (one
+    padded batch) over the same files, its counts equal to batch 64's and
+    its peak memory."""
     spec_dir, feat_dir = (os.path.join(root, "aa-spec"),
                           os.path.join(root, "aa-feat"))
     os.makedirs(spec_dir)
@@ -2236,30 +2456,79 @@ def align_acc_phase(expect, clf_logdir: str, root: str):
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     check_launches("align_acc", launches, expect)
-    # the counts, batch by batch, through the same function
+    # the counts, batch by batch, through the same function; and P(aligned)
+    # of every file at both batches (other shapes, other cuDNN algorithms)
     model, vae = align_acc_cli.load_classifier(clf_logdir)
     model.cuda().eval()
     fn = make_align_acc_fn(model, vae.cuda().eval())
     correct = total = 0
-    for b in align_acc_cli.iter_batches(spec_dir, feat_dir, AA_BATCH):
-        n = len(b["spec"])
-        valid = torch.zeros(AA_BATCH, dtype=torch.long, device="cuda")
-        valid[:n] = 1
-        c, t = fn(*(torch.as_tensor(pad_axis0(b[k], AA_BATCH), device="cuda")
-                    for k in ("spec", "video_feat")), valid)
-        correct, total = correct + int(c), total + int(t)
+    probs = {AA_BATCH: [], AA_BATCH_LARGE: []}
+    for batch_size, p_files in probs.items():
+        for b in align_acc_cli.iter_batches(spec_dir, feat_dir, batch_size):
+            n = len(b["spec"])
+            spec, feat = (torch.as_tensor(pad_axis0(b[k], batch_size),
+                                          device="cuda")
+                          for k in ("spec", "video_feat"))
+            if batch_size == AA_BATCH:
+                valid = torch.zeros(AA_BATCH, dtype=torch.long,
+                                    device="cuda")
+                valid[:n] = 1
+                c, t = fn(spec, feat, valid)
+                correct, total = correct + int(c), total + int(t)
+            with torch.no_grad():
+                z = 0.18215 * vae.encode(spec[:, :, :512]).mode()
+                p_files.append(model(z, torch.zeros(batch_size,
+                                                    device="cuda"),
+                                     feat)[:n, 0].cpu().numpy())
+    p64, p128 = (np.concatenate(probs[b]) for b in (AA_BATCH,
+                                                    AA_BATCH_LARGE))
+    # a file's decision flips between the batches only where |p − 0.5|
+    # is under max|Δp|: both are printed
+    margin = float(np.abs(p64 - 0.5).min())
+    p_delta = float(np.abs(p128 - p64).max())
+    flipped = int((np.round(p64) != np.round(p128)).sum())
     line = open(out).read().strip()
     log(f"align_acc {call_s:.3f} s (main-path call: load, {AA_CALLS} "
         f"batches of {AA_BATCH}) peak_mem_GiB {peak:.3f}: {line}; "
-        f"{correct} of {total} files aligned")
+        f"{correct} of {total} files aligned, p in [{p64.min():.4f}, "
+        f"{p64.max():.4f}], least |p − 0.5| {margin:.3e}; batch "
+        f"{AA_BATCH_LARGE} against {AA_BATCH}: max|Δp| {p_delta:.3e}, "
+        f"{flipped} decisions differ (must be 0)")
     if not (total == AA_FILES and 0.0 <= acc <= 1.0
             and correct == round(acc * AA_FILES)
             and line == f"align_acc: {acc:.6f}"):
         raise AssertionError("align_acc's counts or result disagree")
+    if flipped:
+        raise AssertionError(f"align_acc decides {flipped} files otherwise "
+                             f"at batch {AA_BATCH_LARGE} than at "
+                             f"{AA_BATCH}")
     del model, vae
     torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    acc_large = align_acc_cli.main([
+        "--spec-dir", spec_dir, "--feat-dir", feat_dir, "--classifier-ckpt",
+        clf_logdir, "--batch-size", str(AA_BATCH_LARGE), "--out",
+        os.path.join(root, "results_metric_large.txt")])
+    torch.cuda.synchronize()
+    large_s = time.perf_counter() - t0
+    peak_large = torch.cuda.max_memory_allocated() / 2**30
+    log(f"align_acc at batch {AA_BATCH_LARGE} (one padded batch): "
+        f"{large_s:.3f} s peak_mem_GiB {peak_large:.3f} reserved "
+        f"{torch.cuda.max_memory_reserved() / 2**30:.3f}: "
+        f"{round(acc_large * AA_FILES)} of {AA_FILES} aligned (batch "
+        f"{AA_BATCH}: {correct})")
+    if round(acc_large * AA_FILES) != correct:
+        raise AssertionError(f"align_acc counts {acc_large * AA_FILES} at "
+                             f"batch {AA_BATCH_LARGE}, {correct} at "
+                             f"{AA_BATCH}")
+    torch.cuda.empty_cache()
     return launches, {"main_call_s": call_s, "peak_mem_GiB": peak,
-                      "align_acc": acc, "files": total}
+                      "align_acc": acc, "files": total,
+                      "least_margin": margin,
+                      "p_delta_batch128": p_delta,
+                      f"batch{AA_BATCH_LARGE}_s": large_s,
+                      f"batch{AA_BATCH_LARGE}_peak_mem_GiB": peak_large}
 
 
 # ---- stage-1 CAVP --------------------------------------------------------------
@@ -3059,7 +3328,11 @@ def main(argv):
     with tempfile.TemporaryDirectory() as tmp:
         launches["video"], times = video_phase(pipe, expect["video"], tmp,
                                                profile)
-    log("video times " + json.dumps(times))
+        log("video times " + json.dumps(times))
+        # serving's /generate_video reads the video phase's clip
+        launches["serve"], times = serve_phase(
+            pipe, expect["serve"], os.path.join(tmp, "clip.avi"), card,
+            profile)
     launches["train_vae"], times = train_phase(
         pipe, expect["train_vae"], profile)
     log("train_vae times " + json.dumps(times))

@@ -7,6 +7,12 @@ Usage:
       --classifier-ckpt double_guidance_classifier.ckpt --bf16 \\
       [--cfg-scale 4.5 --cg-scale 50 --steps 25 --sample-num 4]
 
+Each ``--*-ckpt`` is a reference checkpoint or a training logdir of this
+package (``cli.train_stage2``, ``cli.train_cavp``,
+``cli.train_classifier``): the stage-2 logdir brings its first stage, the
+CAVP logdir its frame size (the default ``--frame-size``), and guidance
+takes the classifier logdir's backbone with the raw CAVP features as its
+context. The JAX package's orbax logdirs are refused.
 ``--random-weights`` runs the whole path with seeded random weights, for
 smoke and speed runs only. It runs on the first CUDA device unless
 ``--device cpu``. For each sample it writes ``<video>_sample<i>.wav``
@@ -48,7 +54,8 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=21)
     p.add_argument("--bf16", action="store_true")
     p.add_argument("--frame-size", type=int, default=None,
-                   help="ingest resize (default 224)")
+                   help="ingest resize (default: a CAVP logdir's frame "
+                        "size, else 224)")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (the default; fails without a GPU) or 'cpu'")
     return p.parse_args(argv)
@@ -99,47 +106,65 @@ def _continue_audio(df, feats, args, gen):
 
 
 def build(args):
-    """The DiffFoley the flags ask for: reference checkpoints, or seeded
-    random weights."""
+    """The DiffFoley the flags ask for: each of ``--ldm-ckpt``,
+    ``--cavp-ckpt`` and ``--classifier-ckpt`` a reference checkpoint or a
+    training logdir of this package; seeded random weights otherwise."""
     from ..api import DiffFoley
     from ..diffusion.latent_diffusion import LatentDiffusion
     from ..models.cavp import CAVPModel
     from ..models.unet import ClassifierBackbone
     from ..pipeline import resolve_device
     from ..utils.checkpoint import (is_native_logdir, is_port_logdir,
-                                    load_reference_cavp,
+                                    load_native_cavp, load_native_classifier,
+                                    load_native_ldm, load_reference_cavp,
                                     load_reference_classifier,
-                                    load_reference_ldm)
+                                    load_reference_ldm,
+                                    native_cavp_ingest_size)
     from ..utils.init import randomize_
 
     for flag, trainer in (("ldm_ckpt", "stage-2 trainer"),
                           ("cavp_ckpt", "CAVP trainer"),
                           ("classifier_ckpt", "classifier trainer")):
         path = getattr(args, flag)
-        if is_native_logdir(path) or is_port_logdir(path):
+        if is_native_logdir(path):
             raise SystemExit(
-                f"--{flag.replace('_', '-')} {path} is a training logdir: "
-                "pass a reference torch checkpoint. The JAX package's orbax "
-                "logdirs are not read; a logdir of the port's "
-                f"{trainer} loads with DiffFoley.from_native_checkpoints, "
-                "ROADMAP §1 item 4 (a stage-2 logdir already with "
-                "utils.checkpoint.load_native_ldm)")
+                f"--{flag.replace('_', '-')} {path} is a training logdir of "
+                "the JAX package (orbax checkpoints), which the port does "
+                "not read: pass a reference torch checkpoint or a logdir of "
+                f"the port's {trainer}")
     if not (args.random_weights or (args.cavp_ckpt and args.ldm_ckpt)):
         raise SystemExit("provide --cavp-ckpt/--ldm-ckpt or pass "
                          "--random-weights")
     device = resolve_device(None if args.device == "cuda" else args.device)
     ldm_cfg, cavp_cfg, clf_cfg = model_configs()
-    ldm, cavp = LatentDiffusion(ldm_cfg), CAVPModel(cavp_cfg)
-    if args.ldm_ckpt:
-        load_reference_ldm(args.ldm_ckpt, ldm)
+    frame_size = args.frame_size
+    if is_port_logdir(args.ldm_ckpt):
+        # the EMA weights where the run trained them, the first stage from
+        # the logdir's vae/
+        ldm = load_native_ldm(args.ldm_ckpt)
     else:
-        randomize_(ldm, args.seed + 1)
-    if args.cavp_ckpt:
-        load_reference_cavp(args.cavp_ckpt, cavp)
+        ldm = LatentDiffusion(ldm_cfg)
+        if args.ldm_ckpt:
+            load_reference_ldm(args.ldm_ckpt, ldm)
+        else:
+            randomize_(ldm, args.seed + 1)
+    if is_port_logdir(args.cavp_ckpt):
+        cavp = load_native_cavp(args.cavp_ckpt)
+        if frame_size is None:
+            frame_size = native_cavp_ingest_size(args.cavp_ckpt)
     else:
-        randomize_(cavp, args.seed)
+        cavp = CAVPModel(cavp_cfg)
+        if args.cavp_ckpt:
+            load_reference_cavp(args.cavp_ckpt, cavp)
+        else:
+            randomize_(cavp, args.seed)
+    # guidance feeds the raw CAVP features to the backbone
+    # (alignment_classifier.py:285-287)
     classifier = None
-    if args.cg_scale > 0 and args.classifier_ckpt:
+    if args.cg_scale > 0 and is_port_logdir(args.classifier_ckpt):
+        classifier = load_native_classifier(
+            args.classifier_ckpt)[0].model.backbone
+    elif args.cg_scale > 0 and args.classifier_ckpt:
         classifier = load_reference_classifier(args.classifier_ckpt,
                                                clf_cfg)["backbone"]
     elif args.cg_scale > 0 and args.random_weights:
@@ -147,7 +172,7 @@ def build(args):
     elif args.cg_scale > 0:
         print("no --classifier-ckpt: classifier guidance is off")
     return DiffFoley(ldm, cavp, classifier, bf16=args.bf16,
-                     frame_size=args.frame_size or 224, device=device)
+                     frame_size=frame_size or 224, device=device)
 
 
 def main(argv=None):

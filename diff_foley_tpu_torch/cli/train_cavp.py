@@ -9,15 +9,17 @@ Usage:
       --logdir ./logs/cavp --mixed-precision --uint8-video
 
 It runs on the first CUDA device unless ``--device cpu``. The shards are
-read with Python's ``tarfile`` (``data/cavp_shards.py``); decoding runs in
-the ``DevicePrefetcher``'s feeder thread while the step runs. The logdir
+read with Python's ``tarfile`` (``data/cavp_shards.py``), or with
+``--native-loader`` by the C++ reader (``data/native_loader.py``, built
+with ``g++`` at first use); decoding runs in the ``DevicePrefetcher``'s
+feeder thread while the step runs. The logdir
 holds ``config.json`` (model and train configs, the init shapes: the
 frame size the towers train at), ``ckpt/step_<n>.pt`` (step, parameters,
 AdamW state, BatchNorm statistics, the step generator's state) and
 ``metrics.jsonl``. ``--resume`` continues from the newest checkpoint;
-``utils.checkpoint.load_native_cavp`` rebuilds the towers. Not ported,
-each exiting with a message: ``--native-loader`` (the C++ shard reader)
-and towers other than the shipped SlowOnly × CNN14.
+``utils.checkpoint.load_native_cavp`` rebuilds the towers. Towers other
+than the shipped SlowOnly × CNN14 are not ported: they exit with a
+message.
 """
 from __future__ import annotations
 
@@ -85,7 +87,8 @@ def parse_args(argv=None):
                    help="bf16 tower compute against float32 masters")
     p.add_argument("--resume", action="store_true")
     p.add_argument("--native-loader", action="store_true",
-                   help="the C++ shard reader: not ported")
+                   help="read the shards with the C++ reader "
+                        "(native/shard_reader.cpp)")
     p.add_argument("--uint8-video", action="store_true",
                    help="ship video to the device as raw uint8 and divide "
                         "by 255 there")
@@ -102,14 +105,8 @@ def parse_args(argv=None):
 
 
 def refuse(args) -> None:
-    """Exit with a message naming the ROADMAP item of each option the port
-    does not run."""
-    if args.native_loader:
-        raise SystemExit("--native-loader: the C++ shard reader "
-                         "(data/native_loader.py over native/shard_reader.cpp)"
-                         " is left over from ROADMAP §1 item 4 (stage-1 "
-                         "CAVP), not ported; the Python reader runs without "
-                         "the flag")
+    """Exit with a message naming where each option the port does not
+    run is queued."""
     if (args.video_encode, args.spec_encode) != ("slowonly", "cnn14"):
         raise SystemExit(f"--video-encode {args.video_encode} / "
                          f"--spec-encode {args.spec_encode}: only the shipped "
@@ -188,9 +185,14 @@ def main(argv=None):
             "state": state.state_dict(),
             "generators": {"train": gen.get_state()}}, keep=3)
 
+    if args.native_loader:
+        from ..data.native_loader import iter_shards_native as read_shards
+    else:
+        read_shards = iter_shards
+
     def step_batches(epoch):
         """Stacked step batches of one epoch's stream."""
-        stream = iter_shards(shards, seed=args.seed, epoch=epoch, cfg=scfg)
+        stream = read_shards(shards, seed=args.seed, epoch=epoch, cfg=scfg)
         per_step = args.batch_size * tcfg.accum_freq
         buf = []
         for sample in stream:

@@ -39,6 +39,8 @@ NVCC_FLAGS = (
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+# the sources this process compiled, in order (a warm-up reports them)
+COMPILED: list[str] = []
 
 
 def build_dir() -> Path:
@@ -87,6 +89,7 @@ def build(names=SOURCES) -> dict[str, dict]:
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
             os.replace(tmp, path)
+            COMPILED.append(name)
             report[name] = {"seconds": time.perf_counter() - t0, "ptxas": log}
     finally:
         for proc, tmp, _ in procs.values():

@@ -8,6 +8,17 @@
   re-imposes the known latents every step, and they are re-imposed once
   more before the decode.
 
+``generate(..., bucket_windows=b)`` runs a window stream of any length
+through fixed (b × sample_num) calls, its last chunk padded; serving
+(``serving.py``) batches requests into such buckets. ``aot_warmup`` makes
+one warm call per bucket. The JAX package serialises one compiled
+executable per bucket (``utils/aot.py``) into a persistent compile cache
+(``utils/compile_cache.py``); the port has no executable to serialise, so
+neither module has a counterpart. What survives a restart here is the
+hash-keyed kernel build directory (``ops/cuda_build.py``); the warm call
+builds any kernel library still missing, lets cuDNN pick its algorithms
+and grows the caching allocator to the bucket's size.
+
 Operating point: 25 DPM-Solver++ (or DDIM) steps, CFG 4.5, classifier
 guidance 50, 32 CAVP features per 8.192-s window (131072 samples at
 16 kHz, a 128×512 mel, a 16×64×4 latent), 32 Griffin-Lim iterations.
@@ -15,6 +26,7 @@ guidance 50, 32 CAVP features per 8.192-s window (131072 samples at
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Optional
 
 import numpy as np
@@ -23,6 +35,8 @@ import torch.nn as nn
 
 from .audio.transforms import DEFAULT_MELSPEC, MelSpec, mel_to_wav
 from .diffusion.latent_diffusion import LatentDiffusion, LDMConfig
+from .ops import cuda_build
+from .utils.padding import pad_axis0_to_multiple
 
 WINDOW_FEATS = 32
 WINDOW_SAMPLES = 131072
@@ -38,6 +52,8 @@ class GenerationConfig:
     classifier_scale: float = 50.0
     sample_num: int = 4
     gl_iters: int = 32
+    # False skips the spec's copy to the host: no "spec" key (serving)
+    return_spec: bool = True
     # "float32" keeps Griffin-Lim's output; "int16" quantises as write_wav
     wav_dtype: str = "float32"
 
@@ -61,6 +77,27 @@ def _pack_wav(wavs: torch.Tensor, wav_dtype: str) -> torch.Tensor:
         return (torch.clamp(wavs, -1.0, 1.0) * 32767.0).to(torch.int16)
     raise ValueError(f"unsupported wav_dtype {wav_dtype!r}: use 'float32' "
                      "or 'int16'")
+
+
+def chunk_seed(seed: int, chunk: int) -> int:
+    """The generator seed of chunk ``chunk`` of a bucketed ``generate``
+    with ``seed``: a SeedSequence's 64-bit state of (seed, chunk), so no two
+    chunks share noise (the JAX package folds the chunk into its key)."""
+    return int(np.random.SeedSequence([seed, chunk]).generate_state(
+        1, np.uint64)[0])
+
+
+def _pack_outputs(wavs: np.ndarray, specs: Optional[np.ndarray], w: int,
+                  s: int) -> dict:
+    """(≥ w·S, n) wavs and (≥ w·S, 128, 512) specs (or None) on the host →
+    {"wav": (S, w·n), "spec": (S, 128, w·512)}: the first w windows, each
+    sample's windows concatenated in time."""
+    wv = wavs.reshape(-1, s, wavs.shape[-1])[:w]
+    out = {"wav": wv.transpose(1, 0, 2).reshape(s, -1)}
+    if specs is not None:
+        sp = specs.reshape(-1, s, *specs.shape[1:])[:w]
+        out["spec"] = sp.transpose(1, 2, 0, 3).reshape(s, sp.shape[2], -1)
+    return out
 
 
 def window_features(feats: np.ndarray, window: int = WINDOW_FEATS) -> np.ndarray:
@@ -146,20 +183,25 @@ class DiffFoleyPipeline:
         return torch.clamp(spec_img[..., 0].float(), 0.0, 1.0)
 
     @torch.no_grad()
+    def _invert(self, specs: torch.Tensor, gen: GenerationConfig,
+                generator: torch.Generator,
+                gl_phase: Optional[torch.Tensor]) -> torch.Tensor:
+        """(n, 128, 512) specs → (n, 131072) waveforms in ``wav_dtype``."""
+        wavs = mel_to_wav(specs, self.melspec, n_iter=gen.gl_iters,
+                          length=WINDOW_SAMPLES, phase=gl_phase,
+                          generator=generator)
+        return _pack_wav(wavs, gen.wav_dtype)
+
     def _invert_and_pack(self, specs: torch.Tensor, gen: GenerationConfig,
                          w: int, generator: torch.Generator,
                          gl_phase: Optional[torch.Tensor]) -> dict:
         """(w·S, 128, 512) specs → {"wav": (S, w·131072), "spec": (S, 128,
-        w·512)} numpy, windows concatenated in time."""
-        wavs = mel_to_wav(specs, self.melspec, n_iter=gen.gl_iters,
-                          length=WINDOW_SAMPLES, phase=gl_phase,
-                          generator=generator)
-        wavs = _pack_wav(wavs, gen.wav_dtype)
-        s = gen.sample_num
-        sp = specs.cpu().numpy().reshape(w, s, *specs.shape[1:])
-        return {"wav": wavs.cpu().numpy().reshape(w, s, -1)
-                .transpose(1, 0, 2).reshape(s, -1),
-                "spec": sp.transpose(1, 2, 0, 3).reshape(s, sp.shape[2], -1)}
+        w·512)} numpy, windows concatenated in time; no "spec" without
+        ``gen.return_spec``."""
+        wavs = self._invert(specs, gen, generator, gl_phase).cpu().numpy()
+        return _pack_outputs(
+            wavs, specs.cpu().numpy() if gen.return_spec else None, w,
+            gen.sample_num)
 
     def _windows(self, cavp_feats) -> torch.Tensor:
         return torch.as_tensor(
@@ -169,18 +211,79 @@ class DiffFoleyPipeline:
     def generate(self, cavp_feats: np.ndarray, seed: int = 0,
                  gen: GenerationConfig = GenerationConfig(),
                  x_T: Optional[torch.Tensor] = None,
-                 gl_phase: Optional[torch.Tensor] = None) -> dict:
+                 gl_phase: Optional[torch.Tensor] = None,
+                 bucket_windows: Optional[int] = None) -> dict:
         """(T, 512) CAVP features → {"wav": (S, w·131072), "spec": (S, 128,
         w·512)} numpy, S = sample_num, windows concatenated in time.
 
         Initial noise and Griffin-Lim's initial phase come from a generator
         seeded with ``seed``; ``x_T`` and ``gl_phase`` ((w·S, 513, 512)
-        uniform [0, 1)) override them."""
+        uniform [0, 1)) override them.
+
+        ``bucket_windows`` runs the stream in fixed chunks of that many
+        windows (``_generate_bucketed``): any length reuses one shape."""
+        if bucket_windows is not None:
+            return self._generate_bucketed(cavp_feats, seed, gen,
+                                           bucket_windows, x_T, gl_phase)
         feats_w = self._windows(cavp_feats)
         generator = torch.Generator(self.device).manual_seed(seed)
         specs = self._sample_and_decode(feats_w, gen, generator, x_T)
         return self._invert_and_pack(specs, gen, feats_w.shape[0], generator,
                                      gl_phase)
+
+    def _generate_bucketed(self, cavp_feats, seed: int,
+                           gen: GenerationConfig, bucket: int,
+                           x_T: Optional[torch.Tensor],
+                           gl_phase: Optional[torch.Tensor]) -> dict:
+        """Pad the window stream to a multiple of ``bucket`` by repeating
+        its last window, run one (bucket × S) call per chunk, each drawing
+        from its own generator (``chunk_seed(seed, c)``), and trim the
+        outputs back to the stream's w windows. ``x_T`` and ``gl_phase``
+        of the padded length (n_chunks·bucket·S, …) override the draws."""
+        if bucket < 1:
+            raise ValueError(f"bucket_windows must be ≥ 1, got {bucket}")
+        feats_w = window_features(np.asarray(cavp_feats, np.float32))
+        w = feats_w.shape[0]
+        feats_w = pad_axis0_to_multiple(feats_w, bucket)
+        n_chunks, rows = feats_w.shape[0] // bucket, bucket * gen.sample_num
+        for name, t in (("x_T", x_T), ("gl_phase", gl_phase)):
+            if t is not None and t.shape[0] != n_chunks * rows:
+                raise ValueError(f"{name} must hold {n_chunks * rows} rows "
+                                 f"({n_chunks} chunks of {rows}), got "
+                                 f"{t.shape[0]}")
+        part = lambda t, c: None if t is None else t[c * rows:(c + 1) * rows]
+        wavs, specs = [], []
+        for c in range(n_chunks):
+            chunk = torch.as_tensor(feats_w[c * bucket:(c + 1) * bucket],
+                                    device=self.device)
+            generator = torch.Generator(self.device).manual_seed(
+                chunk_seed(seed, c))
+            sp = self._sample_and_decode(chunk, gen, generator, part(x_T, c))
+            wavs.append(self._invert(sp, gen, generator,
+                                     part(gl_phase, c)).cpu().numpy())
+            if gen.return_spec:
+                specs.append(sp.cpu().numpy())
+        return _pack_outputs(np.concatenate(wavs),
+                             np.concatenate(specs) if specs else None, w,
+                             gen.sample_num)
+
+    def aot_warmup(self, window_buckets, gen: GenerationConfig) -> dict:
+        """One warm bucketed call (zero features, seed 0) per window
+        bucket: it builds any kernel library still missing, lets cuDNN
+        pick its algorithms at the bucket's shapes and grows the caching
+        allocator (the module docstring says why there is no executable
+        cache). Returns {bucket: (status, seconds)}, status "built" when
+        the call compiled a kernel library, else "warm"."""
+        report = {}
+        for b in window_buckets:
+            b = int(b)
+            compiled = len(cuda_build.COMPILED)
+            t0 = time.perf_counter()
+            self.generate(np.zeros((b * WINDOW_FEATS, 512), np.float32), 0,
+                          gen, bucket_windows=b)
+            report[b] = ("built" if len(cuda_build.COMPILED) > compiled
+                         else "warm", time.perf_counter() - t0)
+        return report
 
     def inpaint(self, cavp_feats: np.ndarray, known_spec: np.ndarray,
                 spec_mask: np.ndarray, seed: int = 0,

@@ -156,7 +156,8 @@ def test_port_imports_no_jax():
                  "cnn14.py", "ingest.py", "mux.py", "optim.py",
                  "classifier.py", "train_classifier.py", "align_acc.py",
                  "padding.py", "losses.py", "stage1_cavp.py", "layers.py",
-                 "cavp_shards.py", "train_cavp.py", "extract_features.py"):
+                 "cavp_shards.py", "train_cavp.py", "extract_features.py",
+                 "serving.py", "native_loader.py", "preprocess_audio.py"):
         assert any(p.name == name for p in files), name
     banned = ("jax", "flax", "optax", "orbax", "diff_foley_tpu")
     for path in files:

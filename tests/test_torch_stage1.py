@@ -6,8 +6,10 @@ weight-decay mask's leaves, the AdamW update); the feature-cache
 accumulation against the full batch; the bf16 step; ``decode_sample`` and
 ``iter_shards`` bit for bit on shards the test writes; then
 ``cli.train_cavp --tiny`` with ``--resume`` and the retrieval eval,
-``load_native_cavp``, ``cli.extract_features``, and
-``DiffFoley.from_native_checkpoints`` over three tiny port logdirs.
+``load_native_cavp``, ``cli.extract_features``,
+``DiffFoley.from_native_checkpoints`` and ``cli.generate`` over three tiny
+port logdirs; the C++ shard reader (``data/native_loader.py``) against
+the JAX package's Python reader, and ``cli.train_cavp --native-loader``.
 
 CNN14's dropout draws differ between the frameworks: the JAX step's
 masks are recorded (an interceptor runs each flax ``Dropout`` once on
@@ -15,8 +17,10 @@ ones, the same single draw, and hands the mask out through
 ``jax.debug.callback``) and the port takes them through
 ``cnn14.dropout_keep``.
 """
+import hashlib
 import io
 import os
+import shutil
 import tarfile
 
 import flax.linen as nn
@@ -33,6 +37,7 @@ from diff_foley_tpu.train import losses as jl
 from diff_foley_tpu.train import stage1_cavp as js1
 from diff_foley_tpu_torch.api import DiffFoley
 from diff_foley_tpu_torch.cli import extract_features as ef_cli
+from diff_foley_tpu_torch.cli import generate as generate_cli
 from diff_foley_tpu_torch.cli import train_cavp as cavp_cli
 from diff_foley_tpu_torch.cli import train_classifier as clf_cli
 from diff_foley_tpu_torch.cli import train_stage2 as s2_cli
@@ -45,6 +50,7 @@ from diff_foley_tpu_torch.train import stage1_cavp as ts1
 from diff_foley_tpu_torch.utils import checkpoint as ck
 from diff_foley_tpu_torch.utils.convert import from_jax_params
 from diff_foley_tpu_torch.utils.init import random_flax_params, randomize_
+from diff_foley_tpu_torch.utils.wav import write_wav
 from diff_foley_tpu_torch.video.ingest import extract_cavp_features
 from test_torch_stage2_cli import write_pairs
 from test_torch_video import write_clip
@@ -448,6 +454,43 @@ def test_iter_shards_and_decode_sample_bit_for_bit(shards, uint8):
                               for x, y in zip(a, a[1:]))
 
 
+def _need_gxx():
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ to build native/shard_reader.cpp")
+
+
+def test_native_loader_matches_the_python_reader(shards):
+    """The C++ reader's member bytes equal tarfile's, and its samples (in
+    another order: the reader threads deliver in none) equal the JAX
+    package's Python reader's, bit for bit."""
+    _need_gxx()
+    from diff_foley_tpu_torch.data import native_loader as nl
+
+    native = {}
+    with nl.NativeShardReader(shards, n_threads=2) as reader:
+        for key, spec, video in reader:
+            native[key] = (spec, video)
+    assert len(native) == 8
+    for path in shards:
+        with tarfile.open(path) as tf:
+            for m in tf:
+                key, _, kind = m.name.partition(".")
+                assert native[key][kind == "video.jpg"] == \
+                    tf.extractfile(m).read(), m.name
+    lib = nl.library_path()
+    assert lib.exists() and lib.parent.parts[-2:] == ("build", "native")
+    digest = lambda s: hashlib.sha256(s["video"].tobytes()
+                                      + s["spec"].tobytes()).hexdigest()
+    for uint8 in (False, True):
+        kw = dict(seed=3, epoch=1, shuffle_buffer=3)
+        ref = list(jshards.iter_shards(
+            shards, cfg=jshards.CAVPShardConfig(uint8_video=uint8), **kw))
+        out = list(nl.iter_shards_native(
+            shards, cfg=tshards.CAVPShardConfig(uint8_video=uint8), **kw))
+        assert len(out) == len(ref) == 8
+        assert sorted(map(digest, out)) == sorted(map(digest, ref))
+
+
 # ---- the CLIs and the composition ------------------------------------------------
 
 @pytest.fixture(scope="module")
@@ -491,8 +534,8 @@ def test_cavp_cli_trains_evaluates_and_resumes(cavp_logdir):
 
 def test_cavp_cli_refusals(cavp_logdir):
     base = ["--train-shards", cavp_logdir["pattern"], "--device", "cpu"]
-    with pytest.raises(SystemExit, match="item 4"):
-        cavp_cli.main(base + ["--native-loader"])
+    # the C++ reader is ported: its flag is no longer refused
+    cavp_cli.refuse(cavp_cli.parse_args(base + ["--native-loader"]))
     with pytest.raises(SystemExit, match="long tail"):
         cavp_cli.main(base + ["--video-encode", "x3d"])
     assert cavp_cli.parse_args(base[:2]).device == "cuda"
@@ -559,3 +602,49 @@ def test_from_native_checkpoints_generates(native_logdirs, context):
         DiffFoley.from_native_checkpoints(
             dirs["cavp"], dirs["ldm"], classifier=dirs["clf"],
             classifier_context="other", device="cpu")
+
+
+def test_cavp_cli_trains_with_the_native_loader(shards, tmp_path):
+    _need_gxx()
+    pattern = shards[0].rsplit("/", 1)[0] + "/shard-{000000..000001}.tar"
+    state = cavp_cli.main([
+        "--train-shards", pattern, "--logdir", str(tmp_path / "log"),
+        "--tiny", "--device", "cpu", "--batch-size", "2", "--clip-num", "2",
+        "--steps-per-epoch", "1", "--epochs", "1", "--log-every", "1",
+        "--warmup", "1", "--uint8-video", "--native-loader"])
+    assert state.step == state.opt.count == 1
+    import json
+
+    row = json.loads(open(tmp_path / "log" / "metrics.jsonl").readline())
+    assert row["step"] == 1 and np.isfinite(list(row.values())).all()
+
+
+def test_cli_generate_over_the_port_logdirs(native_logdirs, tmp_path):
+    """``cli.generate`` over the stage-2, CAVP and classifier logdirs
+    writes what ``from_native_checkpoints(classifier_context="raw")``
+    generates from the same clip, seed and settings, bit for bit; a JAX
+    package (orbax) logdir is still refused."""
+    dirs = native_logdirs
+    clip = write_clip(str(tmp_path / "clip.avi"), size=24)
+    out = tmp_path / "out"
+    args = ["--video", clip, "--ldm-ckpt", dirs["ldm"], "--cavp-ckpt",
+            dirs["cavp"], "--classifier-ckpt", dirs["clf"], "--device",
+            "cpu", "--steps", "2", "--sample-num", "1", "--seed", "4"]
+    paths = generate_cli.main(args + ["--out", str(out)])
+    df = DiffFoley.from_native_checkpoints(
+        dirs["cavp"], dirs["ldm"], classifier=dirs["clf"], bf16=False,
+        classifier_context="raw", device="cpu")
+    ref = df.generate_for_video(clip, seed=4 + 5, gen=GenerationConfig(
+        steps=2, sample_num=1))
+    assert [os.path.basename(p) for p in paths] == ["clip_sample0.wav"]
+    np.testing.assert_array_equal(np.load(out / "clip_sample0_spec.npy"),
+                                  ref["spec"][0])
+    write_wav(str(tmp_path / "ref.wav"), ref["wav"][0])
+    assert open(paths[0], "rb").read() == (tmp_path / "ref.wav").read_bytes()
+    orbax = tmp_path / "orbax"
+    orbax.mkdir()
+    (orbax / "config.json").write_text("{}")
+    for i, trainer in ((3, "stage-2"), (5, "CAVP"), (7, "classifier")):
+        bad = args[:i] + [str(orbax)] + args[i + 1:]
+        with pytest.raises(SystemExit, match=f"orbax.*{trainer} trainer"):
+            generate_cli.main(bad)

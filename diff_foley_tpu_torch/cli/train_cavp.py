@@ -8,7 +8,12 @@ Usage:
       --batch-size 30 --clip-num 3 --lr 8e-4 --warmup 200 \\
       --logdir ./logs/cavp --mixed-precision --uint8-video
 
-It runs on the first CUDA device unless ``--device cpu``. The shards are
+It runs on the first CUDA device unless ``--device cpu``. Under torchrun
+(or SLURM) each process trains on ``cuda:LOCAL_RANK`` over NCCL (gloo with
+``--device cpu``) on its shards (every process must hold as many samples
+a step: ``--steps-per-epoch`` bounds an epoch), ``--batch-size`` videos
+per process; the BatchNorms and the contrastive loss see the global batch
+(batch × processes), and rank 0 alone writes the logdir. The shards are
 read with Python's ``tarfile`` (``data/cavp_shards.py``), or with
 ``--native-loader`` by the C++ reader (``data/native_loader.py``, built
 with ``g++`` at first use); decoding runs in the ``DevicePrefetcher``'s
@@ -147,11 +152,11 @@ def main(argv=None):
     from ..data.cavp_shards import CAVPShardConfig, iter_shards
     from ..data.loader import DevicePrefetcher
     from ..models.cavp import CAVPConfig, CAVPModel
-    from ..pipeline import resolve_device
+    from ..parallel.distributed import setup
     from ..train.stage1_cavp import Stage1TrainConfig, Stage1Trainer
     from ..utils.checkpoint import latest_checkpoint, save_checkpoint
 
-    device = resolve_device(None if args.device == "cuda" else args.device)
+    device, mesh, rank, world = setup(args.device)
     shards = expand_braces(args.train_shards)
     print(f"{len(shards)} shards")
     scfg = CAVPShardConfig(clip_num=args.clip_num, shift_lb=args.shift_lb,
@@ -166,10 +171,11 @@ def main(argv=None):
     video_shape = (1, 16, 16, 16, 3) if args.tiny else (1, 16, 224, 224, 3)
     # a self-describing logdir: the frame size the towers train at is the
     # ingest size of every later user (native_cavp_ingest_size)
-    save_run_config(args.logdir, "stage1_cavp", model=model.cfg, train=tcfg,
-                    init_video_shape=list(video_shape),
-                    init_spec_shape=[1, 128, 256])
-    trainer = Stage1Trainer(model, tcfg)
+    if rank == 0:
+        save_run_config(args.logdir, "stage1_cavp", model=model.cfg,
+                        train=tcfg, init_video_shape=list(video_shape),
+                        init_spec_shape=[1, 128, 256])
+    trainer = Stage1Trainer(model, tcfg, mesh=mesh)
     state = trainer.init_train_state(args.seed, device)
     gen = torch.Generator(device).manual_seed(args.seed + 1)
     ckpt_dir = os.path.join(args.logdir, "ckpt")
@@ -181,9 +187,10 @@ def main(argv=None):
         print(f"resumed from step {state.step}")
 
     def save():
-        save_checkpoint(ckpt_dir, state.step, {
-            "state": state.state_dict(),
-            "generators": {"train": gen.get_state()}}, keep=3)
+        if rank == 0:
+            save_checkpoint(ckpt_dir, state.step, {
+                "state": state.state_dict(),
+                "generators": {"train": gen.get_state()}}, keep=3)
 
     if args.native_loader:
         from ..data.native_loader import iter_shards_native as read_shards
@@ -192,7 +199,8 @@ def main(argv=None):
 
     def step_batches(epoch):
         """Stacked step batches of one epoch's stream."""
-        stream = read_shards(shards, seed=args.seed, epoch=epoch, cfg=scfg)
+        stream = read_shards(shards, seed=args.seed, epoch=epoch, cfg=scfg,
+                             process_index=rank, process_count=world)
         per_step = args.batch_size * tcfg.accum_freq
         buf = []
         for sample in stream:
@@ -206,7 +214,9 @@ def main(argv=None):
 
     cast = torch.bfloat16 if args.mixed_precision else None
     t_log, n_log = time.perf_counter(), state.step
-    with open(os.path.join(args.logdir, "metrics.jsonl"), "a") as log:
+    metrics_path = (os.path.join(args.logdir, "metrics.jsonl") if rank == 0
+                    else os.devnull)
+    with open(metrics_path, "a") as log:
         def write(row):
             log.write(json.dumps(row) + "\n")
             log.flush()

@@ -7,7 +7,11 @@ Usage:
   python -m diff_foley_tpu_torch.cli.train_classifier --data-dir /data/vggsound \\
       --logdir ./logs/classifier --batch-size 32 --max-steps 50000
 
-It runs on the first CUDA device unless ``--device cpu``. The logdir holds
+It runs on the first CUDA device unless ``--device cpu``. Under torchrun (or SLURM) each process
+trains on ``cuda:LOCAL_RANK`` over NCCL (gloo with ``--device cpu``) on
+its shard of the data, ``--batch-size`` per process; the step is the
+one-process step on the global batch (batch × processes), and rank 0
+alone writes the logdir. The logdir holds
 ``config.json`` (backbone, VAE and train configs, the cond encoder's
 sequence length), ``vae/step_<n>.pt`` (the frozen VAE the run scored
 latents with, written once per run: align-acc must encode with the same
@@ -51,7 +55,7 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def build_trainer(args):
+def build_trainer(args, mesh=None):
     from ..models.unet import UNetConfig
     from ..models.vae import AutoencoderKL, VAEConfig
     from ..train.classifier import ClassifierTrainConfig, ClassifierTrainer
@@ -68,8 +72,8 @@ def build_trainer(args):
                 num_heads=4, context_dim=512),
             vae=AutoencoderKL(VAEConfig(ch=32, ch_mult=(1, 2, 4, 4),
                                         num_res_blocks=1)),
-            cfg=cfg)
-    return ClassifierTrainer(cfg=cfg)
+            cfg=cfg, mesh=mesh)
+    return ClassifierTrainer(cfg=cfg, mesh=mesh)
 
 
 def frozen_vae(args, vae, device) -> None:
@@ -97,30 +101,32 @@ def main(argv=None):
     from ..config import save_run_config
     from ..data.ldm_dataset import LDMDataConfig, SpecFeatDataset
     from ..data.loader import DevicePrefetcher, PrefetchLoader
-    from ..pipeline import resolve_device
+    from ..parallel.distributed import setup
     from ..utils.checkpoint import latest_checkpoint, save_checkpoint
 
-    device = resolve_device(None if args.device == "cuda" else args.device)
-    trainer = build_trainer(args)
-    save_run_config(args.logdir, "classifier",
-                    backbone=trainer.model.backbone.cfg, vae=trainer.vae.cfg,
-                    train=trainer.cfg,
-                    cond_seq_len=trainer.model.cond.pos_emb.shape[0])
+    device, mesh, rank, world = setup(args.device)
+    trainer = build_trainer(args, mesh)
+    if rank == 0:
+        save_run_config(args.logdir, "classifier",
+                        backbone=trainer.model.backbone.cfg,
+                        vae=trainer.vae.cfg, train=trainer.cfg,
+                        cond_seq_len=trainer.model.cond.pos_emb.shape[0])
     dataset = SpecFeatDataset.from_split_file(
         args.data_dir, "train", alignment_labels=True,
         cfg=LDMDataConfig(duration=args.data_duration,
                           truncate=args.data_truncate))
-    if len(dataset) < args.batch_size:
+    if len(dataset) < args.batch_size * world:
         raise SystemExit(
             f"dataset has {len(dataset)} items < global batch "
-            f"{args.batch_size}: the loader would yield zero batches and "
-            "the training loop would spin forever")
-    loader = PrefetchLoader(dataset, args.batch_size, seed=args.seed)
+            f"{args.batch_size * world}: the loader would yield zero batches "
+            "and the training loop would spin forever")
+    loader = PrefetchLoader(dataset, args.batch_size, seed=args.seed,
+                            process_index=rank, process_count=world)
 
     frozen_vae(args, trainer.vae, device)
     vae_dir = os.path.join(args.logdir, "vae")
     newest_vae = latest_checkpoint(vae_dir)
-    if newest_vae is None or not args.resume:
+    if rank == 0 and (newest_vae is None or not args.resume):
         # a fresh run in a reused logdir writes its own VAE: a stale one
         # would score other latents than this run trained on
         save_checkpoint(vae_dir, 0 if newest_vae is None else
@@ -138,13 +144,16 @@ def main(argv=None):
         print(f"resumed from step {state.step}")
 
     def save():
-        save_checkpoint(ckpt_dir, state.step, {
-            "state": state.state_dict(),
-            "generators": {"train": gen.get_state()}}, keep=3)
+        if rank == 0:
+            save_checkpoint(ckpt_dir, state.step, {
+                "state": state.state_dict(),
+                "generators": {"train": gen.get_state()}}, keep=3)
 
     epoch = 0
     t_log, n_log = time.perf_counter(), state.step
-    with open(os.path.join(args.logdir, "metrics.jsonl"), "a") as log:
+    metrics_path = (os.path.join(args.logdir, "metrics.jsonl") if rank == 0
+                    else os.devnull)
+    with open(metrics_path, "a") as log:
         while state.step < args.max_steps:
             for batch in DevicePrefetcher(loader.epoch(epoch),
                                           device=device):

@@ -7,7 +7,19 @@ Usage:
       --logdir ./logs/stage2 --batch-size 16 --max-steps 100000 \\
       --mixed-precision --use-ema
 
-It runs on the first CUDA device unless ``--device cpu``. The logdir holds
+It runs on the first CUDA device unless ``--device cpu``. Under torchrun
+(or SLURM) each process trains on ``cuda:LOCAL_RANK`` over NCCL (gloo with
+``--device cpu``), on its shard of the data: ``--batch-size`` is per
+process, the global batch is batch × processes, and the step is the
+one-process step on the global batch. ``--fsdp`` splits the masters, AdamW's
+moments and the EMA over the processes::
+
+  torchrun --nproc-per-node 8 -m diff_foley_tpu_torch.cli.train_stage2 \\
+      --data-dir /data/vggsound --batch-size 2 --mixed-precision --use-ema \\
+      --fsdp
+
+Rank 0 alone writes the logdir, whose checkpoints hold the whole state at
+any world size, so ``--resume`` continues at another one. The logdir holds
 ``config.json`` (the model and train configs), ``vae/step_<n>.pt`` (the
 frozen first stage, written once per run), ``ckpt/step_<n>.pt`` (the
 train state: step, float32 masters, AdamW state, EMA, and the step
@@ -61,7 +73,8 @@ def parse_args(argv=None):
     p.add_argument("--data-duration", type=float, default=10.0)
     p.add_argument("--data-truncate", type=int, default=131072)
     p.add_argument("--fsdp", action="store_true",
-                   help="shard params, Adam state and EMA: not ported")
+                   help="split the masters, AdamW's moments and the EMA "
+                        "over the processes")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (the default; fails without a GPU) or 'cpu'")
     return p.parse_args(argv)
@@ -70,9 +83,6 @@ def parse_args(argv=None):
 def refuse(args) -> None:
     """Exit with a message naming the ROADMAP item of each flag the port
     does not run."""
-    if args.fsdp:
-        raise SystemExit("--fsdp: sharded training is ROADMAP §1 item 5 "
-                         "(parallelism), not ported")
     if args.sound_log_every > 0:
         raise SystemExit("--sound-log-every: the SoundLogger callback "
                          "(train/callbacks.py) is in ROADMAP §1's long tail, "
@@ -130,11 +140,11 @@ def main(argv=None):
     from ..config import save_run_config
     from ..data.ldm_dataset import LDMDataConfig, SpecFeatDataset
     from ..data.loader import DevicePrefetcher, PrefetchLoader
-    from ..pipeline import resolve_device
+    from ..parallel.distributed import setup
     from ..train.stage2_ldm import Stage2TrainConfig, Stage2Trainer
     from ..utils.checkpoint import latest_checkpoint, save_checkpoint
 
-    device = resolve_device(None if args.device == "cuda" else args.device)
+    device, mesh, rank, world = setup(args.device)
     ldm = build_ldm(args)
     tcfg = Stage2TrainConfig(
         base_lr=args.base_lr, warmup_steps=args.warmup_steps,
@@ -144,12 +154,14 @@ def main(argv=None):
                          truncate=args.data_truncate)
     dataset = SpecFeatDataset.from_split_file(args.data_dir, "train",
                                               cfg=dcfg)
-    if len(dataset) < args.batch_size:
+    if len(dataset) < args.batch_size * world:
         raise SystemExit(
             f"dataset has {len(dataset)} items < global batch "
-            f"{args.batch_size}: the loader would yield zero batches and "
-            "the training loop would spin forever")
-    loader = PrefetchLoader(dataset, args.batch_size, seed=args.seed)
+            f"{args.batch_size * world}: the loader would yield zero batches "
+            "and the training loop would spin forever")
+    shard = dict(process_index=rank, process_count=world)
+    loader = PrefetchLoader(dataset, args.batch_size, seed=args.seed,
+                            **shard)
     val_loader = None
     if args.val_every:
         try:
@@ -158,44 +170,59 @@ def main(argv=None):
         except FileNotFoundError:
             val_ds = dataset   # no valid split: monitor on the train split
         val_loader = PrefetchLoader(val_ds, args.batch_size,
-                                    seed=args.seed + 99)
+                                    seed=args.seed + 99, **shard)
 
     # a self-describing logdir: the configs and the frozen first stage,
     # so that load_native_ldm rebuilds the model from the logdir alone
     first_stage(args, ldm, device)
-    save_run_config(args.logdir, "stage2_ldm", model=ldm.cfg, train=tcfg)
+    if rank == 0:
+        save_run_config(args.logdir, "stage2_ldm", model=ldm.cfg,
+                        train=tcfg)
     vae_dir = os.path.join(args.logdir, "vae")
     newest_vae = latest_checkpoint(vae_dir)
-    if newest_vae is None or not args.resume:
+    if rank == 0 and (newest_vae is None or not args.resume):
         # a fresh run in a reused logdir writes its own first stage: a
         # stale one would describe another run
         save_checkpoint(vae_dir, 0 if newest_vae is None else
                         newest_vae[0] + 1, {"vae": ldm.vae.state_dict()},
                         keep=1)
 
-    trainer = Stage2Trainer(ldm, tcfg)
+    trainer = Stage2Trainer(ldm, tcfg, mesh=mesh, fsdp=args.fsdp)
     state = trainer.init_train_state(args.seed, device)
-    n_params = sum(p.numel() for p in state.params.values())
-    print(f"LatentDiffusion: {n_params} trained parameters on {device}")
+    n_params = sum(p.numel() for p in trainer.full.values())
+    print(f"LatentDiffusion: {n_params} trained parameters on {device}, "
+          f"rank {rank} of {world}")
+    if args.fsdp:
+        split = sum(trainer.layout.dim(k) is not None for k in trainer.full)
+        part = sum(p.numel() for p in state.params.values())
+        print(f"FSDP: {split} of {len(trainer.full)} trained tensors split "
+              f"over {world} ranks; rank {rank} holds {part} of "
+              f"{n_params} parameters in its masters, moments and EMA")
     gen = torch.Generator(device).manual_seed(args.seed + 2)
     ckpt_dir = os.path.join(args.logdir, "ckpt")
     newest = latest_checkpoint(ckpt_dir) if args.resume else None
     if newest is not None:
-        sd = torch.load(newest[1], map_location=device)
-        state.load_state_dict(sd["state"])
+        # mapped from the file on the host: each rank moves only its parts
+        # to the card (the whole state is 13.8 GB at full width)
+        sd = torch.load(newest[1], map_location="cpu", mmap=True)
+        trainer.load_state_dict(state, sd["state"])
         gen.set_state(sd["generators"]["train"].cpu())
         print(f"resumed from step {state.step}")
 
     def save():   # the newest three stay, as the JAX package keeps them
-        save_checkpoint(ckpt_dir, state.step, {
-            "state": state.state_dict(),
-            "generators": {"train": gen.get_state()}}, keep=3)
+        whole = trainer.state_dict(state)   # every rank joins the gather
+        if rank == 0:
+            save_checkpoint(ckpt_dir, state.step, {
+                "state": whole,
+                "generators": {"train": gen.get_state()}}, keep=3)
 
     cast = torch.bfloat16 if args.mixed_precision else None
     val_name = "loss_simple_ema" if tcfg.use_ema else "loss_simple"
     epoch = 0
     t_log, n_log = time.perf_counter(), state.step
-    with open(os.path.join(args.logdir, "metrics.jsonl"), "a") as log:
+    metrics_path = (os.path.join(args.logdir, "metrics.jsonl") if rank == 0
+                    else os.devnull)
+    with open(metrics_path, "a") as log:
         def write(row):
             log.write(json.dumps(row) + "\n")
             log.flush()
@@ -236,6 +263,9 @@ def main(argv=None):
             epoch += 1
     save()
     print(f"done at step {state.step}; checkpoints in {ckpt_dir}")
+    if device.type == "cuda":
+        print(f"rank {rank}: peak device memory "
+              f"{torch.cuda.max_memory_allocated(device) / 2**30:.3f} GiB")
     return state
 
 

@@ -8,7 +8,11 @@ Usage:
   # or over a flat directory of mel .npy files:
   python -m diff_foley_tpu_torch.cli.train_vae --spec-dir specs/ --logdir ./logs/vae
 
-It runs on the first CUDA device unless ``--device cpu``. Checkpoints
+It runs on the first CUDA device unless ``--device cpu``. Under torchrun (or SLURM) each process
+trains on ``cuda:LOCAL_RANK`` over NCCL (gloo with ``--device cpu``) on
+its shard of the data, ``--batch-size`` per process; the step is the
+one-process step on the global batch (batch × processes), and rank 0
+alone writes the logdir. Checkpoints
 (both models, both optimizers, the step and the noise generator's state)
 are ``torch.save``d under ``<logdir>/ckpt/step_<n>.pt``; ``--resume``
 continues from the newest. Metrics go to ``<logdir>/metrics.jsonl``, one
@@ -66,32 +70,35 @@ def main(argv=None):
     from ..data.ldm_dataset import LDMDataConfig, SpecDataset
     from ..data.loader import PrefetchLoader
     from ..models.vae import SD_VAE, VAEConfig
-    from ..pipeline import resolve_device
+    from ..parallel.distributed import setup
     from ..train.vae import VAETrainConfig, VAETrainer
     from ..train.vae_losses import VAELossConfig
 
-    device = resolve_device(None if args.device == "cuda" else args.device)
+    device, mesh, rank, world = setup(args.device)
     vae_cfg = (VAEConfig(ch=32, ch_mult=(1, 2, 4, 4), num_res_blocks=1)
                if args.tiny else SD_VAE)
     tcfg = VAETrainConfig(
         lr=args.lr, loss=VAELossConfig(kl_weight=args.kl_weight,
                                        disc_start=args.disc_start))
-    trainer = VAETrainer(vae_cfg, cfg=tcfg)
+    trainer = VAETrainer(vae_cfg, cfg=tcfg, mesh=mesh)
 
     dcfg = LDMDataConfig(duration=args.data_duration,
                          truncate=args.data_truncate)
     dataset = (SpecDataset.from_split_file(args.data_dir, "train", cfg=dcfg)
                if args.data_dir else
                SpecDataset.from_dir(args.spec_dir, cfg=dcfg))
-    if len(dataset) < args.batch_size:
+    if len(dataset) < args.batch_size * world:
         raise SystemExit(
-            f"dataset has {len(dataset)} items < batch {args.batch_size}: "
-            "the loader would yield no batch")
-    loader = PrefetchLoader(dataset, args.batch_size, seed=args.seed)
+            f"dataset has {len(dataset)} items < batch "
+            f"{args.batch_size * world} (the global batch, --batch-size × "
+            "processes): the loader would yield no batch")
+    loader = PrefetchLoader(dataset, args.batch_size, seed=args.seed,
+                            process_index=rank, process_count=world)
 
-    save_run_config(args.logdir, "vae", model=vae_cfg, train=tcfg,
-                    sample_shape=[1, 128, args.data_truncate // dcfg.hop_len,
-                                  3])
+    if rank == 0:
+            save_run_config(args.logdir, "vae", model=vae_cfg, train=tcfg,
+                        sample_shape=[1, 128,
+                                      args.data_truncate // dcfg.hop_len, 3])
 
     state = trainer.init_train_state(args.seed, device)
     noise_gen = torch.Generator(device).manual_seed(args.seed + 1)
@@ -105,7 +112,10 @@ def main(argv=None):
 
     epoch = 0
     t_log, n_log = time.perf_counter(), state.step
-    with open(os.path.join(args.logdir, "metrics.jsonl"), "a") as log:
+    save = lambda: rank == 0 and save_checkpoint(ckpt_dir, state, noise_gen)
+    metrics_path = (os.path.join(args.logdir, "metrics.jsonl") if rank == 0
+                    else os.devnull)
+    with open(metrics_path, "a") as log:
         while state.step < args.max_steps:
             for batch in loader.epoch(epoch):
                 x = torch.from_numpy(batch["spec"]).to(device)
@@ -122,11 +132,11 @@ def main(argv=None):
                     print(f"step {state.step}: "
                           f"nll={m['train/nll_loss']:.4f}")
                 if state.step % args.save_every == 0:
-                    save_checkpoint(ckpt_dir, state, noise_gen)
+                    save()
                 if state.step >= args.max_steps:
                     break
             epoch += 1
-    save_checkpoint(ckpt_dir, state, noise_gen)
+    save()
     print(f"done at step {state.step}; checkpoints in {ckpt_dir}")
     return state
 

@@ -18,6 +18,7 @@ import torch.nn.functional as F
 from ..models.cond_encoder import VideoFeatEncoderPosembed
 from ..models.unet import LDM_UNET, UNetConfig, UNetModel
 from ..models.vae import SD_VAE, AutoencoderKL, VAEConfig
+from ..parallel.mesh import draw_rows
 from .guidance import GuidanceSpec, make_guided_eps_fn
 from .samplers import ddim_sample, dpm_solver_sample
 from .schedule import DiffusionSchedule
@@ -94,12 +95,12 @@ class LatentDiffusion(nn.Module):
         b = z_start.shape[0]
         dev = z_start.device
         if draws is None:
-            t = torch.randint(0, self.schedule.num_timesteps, (b,),
-                              generator=generator, device=dev)
-            noise = torch.randn(z_start.shape, generator=generator,
-                                dtype=z_start.dtype, device=dev)
-            keep = torch.rand((b, 1, 1), generator=generator,
-                              device=dev) >= self.cfg.cond_drop_prob
+            t = draw_rows(self.schedule.draw_t, (b,), generator=generator,
+                          device=dev)
+            noise = draw_rows(torch.randn, z_start.shape, generator=generator,
+                              dtype=z_start.dtype, device=dev)
+            keep = draw_rows(torch.rand, (b, 1, 1), generator=generator,
+                             device=dev) >= self.cfg.cond_drop_prob
         else:
             t, noise, keep = draws["t"], draws["noise"], draws["keep"]
         t = t.to(dev, torch.int64)
@@ -156,7 +157,8 @@ class LatentDiffusion(nn.Module):
                          classifier_scale=classifier_scale),
             classifier_fn, video_feat if classifier is not None else None)
         if x_T is None:
-            x_T = torch.randn(
+            x_T = draw_rows(
+                torch.randn,
                 (video_feat.shape[0], *latent_hw, self.cfg.unet.in_channels),
                 generator=generator, device=video_feat.device)
         if sampler == "ddim":

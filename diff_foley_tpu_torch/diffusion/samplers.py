@@ -18,6 +18,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..parallel.mesh import draw_rows
 from .schedule import (DiffusionSchedule, make_ddim_sampling_parameters,
                        make_ddim_timesteps)
 
@@ -113,8 +114,8 @@ def ddim_sample(eps_fn: EpsFn, schedule: DiffusionSchedule, x_T: torch.Tensor,
     x = x_T
     for i, j in enumerate(reversed(range(len(ts)))):
         if mask is not None:
-            noise = mask_noise[i] if mask_noise is not None else torch.randn(
-                x0.shape, generator=generator, dtype=x0.dtype,
+            noise = mask_noise[i] if mask_noise is not None else draw_rows(
+                torch.randn, x0.shape, generator=generator, dtype=x0.dtype,
                 device=x0.device)
             x_known = schedule.q_sample(x0, int(ts[j]), noise)
             x = (x_known * mask + (1.0 - mask) * x).to(x.dtype)

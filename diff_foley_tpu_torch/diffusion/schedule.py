@@ -57,6 +57,10 @@ class DiffusionSchedule:
     def _on_device(self) -> dict:
         return {}
 
+    def draw_t(self, shape, **kw) -> torch.Tensor:
+        """Timesteps uniform in [0, T) (``torch.randint``'s keywords)."""
+        return torch.randint(0, self.num_timesteps, shape, **kw)
+
     def gather(self, name: str, t: torch.Tensor) -> torch.Tensor:
         """Table ``name`` at the steps ``t`` (int64, any device), float32.
         Each table is copied to a device once: a copy per call would wait

@@ -17,7 +17,10 @@ BatchNorm on batch statistics, updating its running ones as flax does,
 and CNN14's dropout, its masks drawn from the ``generator`` the forward
 is given. ``CAVPConfig.dtype="bfloat16"`` runs the towers in bf16 against
 float32 parameters (BatchNorm statistics float32); ``logit_scale`` stays
-float32. Cross-replica BatchNorm (``axis_name``) is not ported.
+float32. ``axis_name="data"`` names the mesh axis over whose group a
+meshed trainer takes the BatchNorm statistics (``train/stage1_cavp.py``);
+None means "data" there too, since the JAX package's meshed step
+normalises the global batch either way.
 """
 from __future__ import annotations
 
@@ -43,7 +46,7 @@ class CAVPConfig:
     pool_kernel: int = 16
     video_arch: str = "slowonly"
     spec_arch: str = "cnn14"
-    axis_name: Optional[str] = None   # cross-replica BatchNorm: refused
+    axis_name: Optional[str] = None   # cross-replica BatchNorm's axis
     dtype: Optional[str] = None       # "bfloat16": the towers' compute type
     video_stage_blocks: Optional[tuple] = None
     video_base_channels: Optional[int] = None
@@ -78,10 +81,9 @@ class CAVPModel(nn.Module):
                 f"towers ({cfg.video_arch!r}, {cfg.spec_arch!r}) are not "
                 "ported: only (slowonly, cnn14); the other factory towers "
                 "are on ROADMAP §1's long tail")
-        if cfg.axis_name is not None:
-            raise NotImplementedError(
-                f"axis_name={cfg.axis_name!r}: cross-replica BatchNorm "
-                "(SyncBN) is ROADMAP §1 item 5 (parallelism), not ported")
+        if cfg.axis_name not in (None, "data"):
+            raise ValueError(f"axis_name={cfg.axis_name!r}: the BatchNorm "
+                             "statistics are taken over the 'data' axis")
         if cfg.dtype not in (None, "float32", "bfloat16"):
             raise ValueError(f"dtype {cfg.dtype!r}: float32 or bfloat16")
         self.cfg = cfg

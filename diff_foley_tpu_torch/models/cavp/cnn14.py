@@ -19,6 +19,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ...parallel.mesh import draw_rows
 from .layers import BatchNorm1d, BatchNorm2d, Conv2d, Linear
 
 N_MELS = 128
@@ -43,7 +44,8 @@ class ConvBlock(nn.Module):
 
 def dropout_keep(shape, keep_prob: float, generator, device) -> torch.Tensor:
     """The keep mask of one dropout: uniform draws below ``keep_prob``."""
-    return torch.rand(shape, generator=generator, device=device) < keep_prob
+    return draw_rows(torch.rand, shape, generator=generator,
+                     device=device) < keep_prob
 
 
 class Cnn14(nn.Module):

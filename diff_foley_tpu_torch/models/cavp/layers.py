@@ -6,7 +6,13 @@
   variance, the variance with the *biased* batch variance, as flax does
   (torch's own update takes the unbiased one). The statistics stay float32
   whatever the activation type. ``frozen_statistics`` runs train-mode
-  normalisation without the update.
+  normalisation without the update. With a ``process_group`` of more than
+  one rank (``parallel.collectives.sync_batchnorm_``) the train-mode
+  statistics are the group's: Σx, Σx² and the count all-reduced, flax's
+  fast variance E[x²] − E[x]² as its ``axis_name`` path takes it, and the
+  normalisation written out in elementwise products, so its backward is
+  autograd's of those products and the all-reduce's (never
+  ``F.batch_norm``'s: torch.nn.SyncBatchNorm refuses CPU tensors).
 - ``Conv2d``/``Conv3d``/``Linear``: their parameters cast to the
   activation's type in the forward, a differentiable cast (flax's
   ``dtype``): bf16 activations run bf16 products whose gradients land on
@@ -20,11 +26,16 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ...parallel import collectives
+
 
 class _FlaxStatistics:
     update_statistics = True
+    process_group = None
 
     def forward(self, x):
+        if self.training and collectives.size(self.process_group) > 1:
+            return self._group_forward(x)
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
@@ -44,6 +55,27 @@ class _FlaxStatistics:
             self.running_var.copy_((var - kept) * ((n - 1) / n) + kept)
             self.running_mean.copy_(mean)
         return y
+
+    def _group_forward(self, x):
+        dims = [0, *range(2, x.dim())]
+        xf = x if x.dtype == torch.float64 else x.float()
+        s1 = xf.sum(dims)
+        local = torch.stack([s1, xf.square().sum(dims),
+                             torch.full_like(s1, x.numel() // x.shape[1])])
+        s1, s2, n = collectives.all_reduce_with_grad(local,
+                                                     self.process_group)
+        mean = s1 / n
+        var = torch.clamp(s2 / n - mean.square(), min=0.0)
+        if self.update_statistics:
+            with torch.no_grad():
+                m = self.momentum   # torch's convention: 1 − flax's
+                self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+                self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean.reshape(shape)) * mul.reshape(shape) \
+            + self.bias.reshape(shape)
+        return y.to(x.dtype)
 
 
 class BatchNorm1d(_FlaxStatistics, nn.BatchNorm1d):

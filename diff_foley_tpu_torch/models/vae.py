@@ -20,6 +20,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.attention import multi_head_attention
+from ..parallel.mesh import draw_rows
 from .layers import Conv2d, GroupNorm32, conv1x1, conv3x3
 
 
@@ -180,8 +181,9 @@ class DiagonalGaussian:
         """mean + σ·ε, with ε drawn from ``generator`` or given as ``noise``
         (the mean's shape)."""
         if noise is None:
-            noise = torch.randn(self.mean.shape, generator=generator,
-                                dtype=self.mean.dtype, device=self.mean.device)
+            noise = draw_rows(torch.randn, self.mean.shape,
+                              generator=generator, dtype=self.mean.dtype,
+                              device=self.mean.device)
         return self.mean + self.std * noise
 
     def mode(self) -> torch.Tensor:

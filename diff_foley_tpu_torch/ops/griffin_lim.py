@@ -12,6 +12,7 @@ import math
 import numpy as np
 import torch
 
+from ..parallel.mesh import draw_rows
 from .mel import mel_filterbank
 from .stft import istft, stft
 
@@ -59,8 +60,8 @@ def griffin_lim(spec_mag: torch.Tensor, phase: torch.Tensor | None = None,
     The initial phase, in turns, is ``phase`` (uniform [0, 1) of the
     magnitude's shape) when given, else drawn from ``generator``."""
     if phase is None:
-        phase = torch.rand(spec_mag.shape, generator=generator,
-                           dtype=torch.float32, device=spec_mag.device)
+        phase = draw_rows(torch.rand, spec_mag.shape, generator=generator,
+                          dtype=torch.float32, device=spec_mag.device)
     angles = torch.exp(2j * math.pi * phase.to(spec_mag.device, torch.float32))
     spec_c = spec_mag.to(torch.complex64)
     rebuilt_prev = torch.zeros_like(angles)

@@ -19,6 +19,15 @@ hash-keyed kernel build directory (``ops/cuda_build.py``); the warm call
 builds any kernel library still missing, lets cuDNN pick its algorithms
 and grows the caching allocator to the bucket's size.
 
+With a ``mesh`` (``parallel/mesh.py``) the ranks of its data group split
+the windows, as the JAX package's meshed pipeline does: the windows are
+padded to a multiple of the data degree, each rank samples, decodes and
+inverts its rows, and the outputs are all-gathered, so every rank returns
+the whole result. A rank draws the initial noise, DDIM's forward noise
+and Griffin-Lim's phase at the stream's whole row count from the shared
+generator and keeps its rows (``global_rows``): a meshed call equals the
+one-process call. A bucket must divide over the data group.
+
 Operating point: 25 DPM-Solver++ (or DDIM) steps, CFG 4.5, classifier
 guidance 50, 32 CAVP features per 8.192-s window (131072 samples at
 16 kHz, a 128×512 mel, a 16×64×4 latent), 32 Griffin-Lim iterations.
@@ -36,7 +45,9 @@ import torch.nn as nn
 from .audio.transforms import DEFAULT_MELSPEC, MelSpec, mel_to_wav
 from .diffusion.latent_diffusion import LatentDiffusion, LDMConfig
 from .ops import cuda_build
-from .utils.padding import pad_axis0_to_multiple
+from .parallel.collectives import all_gather
+from .parallel.mesh import global_rows
+from .utils.padding import pad_axis0, pad_axis0_to_multiple
 
 WINDOW_FEATS = 32
 WINDOW_SAMPLES = 131072
@@ -127,14 +138,17 @@ def spec_mask_to_latent(mask_w: np.ndarray) -> np.ndarray:
 
 class DiffFoleyPipeline:
     """The LDM, the optional alignment classifier and the mel inversion on
-    one device. ``vae_dtype="bfloat16"`` encodes and decodes in bf16
-    (GroupNorm statistics stay float32)."""
+    one device a rank. ``vae_dtype="bfloat16"`` encodes and decodes in bf16
+    (GroupNorm statistics stay float32). ``mesh``: the module docstring;
+    every rank of it builds the pipeline from the same weights."""
 
     def __init__(self, ldm: Optional[LatentDiffusion] = None,
                  classifier: Optional[nn.Module] = None,
                  melspec: MelSpec = DEFAULT_MELSPEC,
-                 vae_dtype: Optional[str] = None, device=None):
+                 vae_dtype: Optional[str] = None, device=None, mesh=None):
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.group = None if mesh is None else mesh.data_group
         self.ldm = (ldm or LatentDiffusion(LDMConfig())).to(self.device)
         self.ldm.eval().requires_grad_(False)
         self.vae_compute = getattr(torch, vae_dtype) if vae_dtype else None
@@ -195,18 +209,44 @@ class DiffFoleyPipeline:
     def _invert_and_pack(self, specs: torch.Tensor, gen: GenerationConfig,
                          w: int, generator: torch.Generator,
                          gl_phase: Optional[torch.Tensor]) -> dict:
-        """(w·S, 128, 512) specs → {"wav": (S, w·131072), "spec": (S, 128,
-        w·512)} numpy, windows concatenated in time; no "spec" without
-        ``gen.return_spec``."""
-        wavs = self._invert(specs, gen, generator, gl_phase).cpu().numpy()
+        """(w·S, 128, 512) specs (this rank's rows on a mesh) → {"wav": (S,
+        w·131072), "spec": (S, 128, w·512)} numpy, windows concatenated in
+        time; no "spec" without ``gen.return_spec``."""
+        wavs = self._invert(specs, gen, generator, gl_phase)
         return _pack_outputs(
-            wavs, specs.cpu().numpy() if gen.return_spec else None, w,
-            gen.sample_num)
+            self._host(wavs), self._host(specs) if gen.return_spec else None,
+            w, gen.sample_num)
 
-    def _windows(self, cavp_feats) -> torch.Tensor:
-        return torch.as_tensor(
-            window_features(np.asarray(cavp_feats, np.float32)),
-            device=self.device)
+    def _host(self, t: torch.Tensor) -> np.ndarray:
+        """Every rank's rows (this rank's without a mesh), on the host.
+        int16 waveforms cross as their bytes: neither NCCL nor gloo
+        reduces or gathers int16."""
+        t = t.contiguous()
+        if t.dtype == torch.int16:
+            return all_gather(t.view(torch.uint8), self.group).view(
+                torch.int16).cpu().numpy()
+        return all_gather(t, self.group).cpu().numpy()
+
+    def _my_windows(self, w: int) -> tuple:
+        """(padded window count, this rank's windows of it)."""
+        if self.mesh is None:
+            return w, slice(None)
+        wp = -(-w // self.mesh.shape["data"]) * self.mesh.shape["data"]
+        return wp, self.mesh.rows(wp)
+
+    def _my_rows(self, t: Optional[torch.Tensor], rows: int, dim: int = 0):
+        """This rank's rows of an override drawn for the whole stream
+        (``rows`` padded rows, zeros past its end)."""
+        if t is None or self.mesh is None:
+            return t
+        t = t.movedim(dim, 0)
+        if t.shape[0] < rows:
+            t = torch.cat([t, t.new_zeros((rows - t.shape[0],
+                                           *t.shape[1:]))])
+        return t[self.mesh.rows(rows)].movedim(0, dim)
+
+    def _windows(self, cavp_feats) -> np.ndarray:
+        return window_features(np.asarray(cavp_feats, np.float32))
 
     def generate(self, cavp_feats: np.ndarray, seed: int = 0,
                  gen: GenerationConfig = GenerationConfig(),
@@ -226,10 +266,16 @@ class DiffFoleyPipeline:
             return self._generate_bucketed(cavp_feats, seed, gen,
                                            bucket_windows, x_T, gl_phase)
         feats_w = self._windows(cavp_feats)
+        w, s = feats_w.shape[0], gen.sample_num
+        wp, mine = self._my_windows(w)
+        feats = torch.as_tensor(pad_axis0(feats_w, wp)[mine],
+                                device=self.device)
         generator = torch.Generator(self.device).manual_seed(seed)
-        specs = self._sample_and_decode(feats_w, gen, generator, x_T)
-        return self._invert_and_pack(specs, gen, feats_w.shape[0], generator,
-                                     gl_phase)
+        with global_rows(self.mesh, w * s):
+            specs = self._sample_and_decode(feats, gen, generator,
+                                            self._my_rows(x_T, wp * s))
+            return self._invert_and_pack(specs, gen, w, generator,
+                                         self._my_rows(gl_phase, wp * s))
 
     def _generate_bucketed(self, cavp_feats, seed: int,
                            gen: GenerationConfig, bucket: int,
@@ -242,7 +288,10 @@ class DiffFoleyPipeline:
         of the padded length (n_chunks·bucket·S, …) override the draws."""
         if bucket < 1:
             raise ValueError(f"bucket_windows must be ≥ 1, got {bucket}")
-        feats_w = window_features(np.asarray(cavp_feats, np.float32))
+        if self.mesh is not None and bucket % self.mesh.shape["data"]:
+            raise ValueError(f"bucket {bucket} does not divide over the "
+                             f"data group ({self.mesh.shape['data']})")
+        feats_w = self._windows(cavp_feats)
         w = feats_w.shape[0]
         feats_w = pad_axis0_to_multiple(feats_w, bucket)
         n_chunks, rows = feats_w.shape[0] // bucket, bucket * gen.sample_num
@@ -251,18 +300,22 @@ class DiffFoleyPipeline:
                 raise ValueError(f"{name} must hold {n_chunks * rows} rows "
                                  f"({n_chunks} chunks of {rows}), got "
                                  f"{t.shape[0]}")
-        part = lambda t, c: None if t is None else t[c * rows:(c + 1) * rows]
+        part = lambda t, c: self._my_rows(
+            None if t is None else t[c * rows:(c + 1) * rows], rows)
+        _, mine = self._my_windows(bucket)
         wavs, specs = [], []
         for c in range(n_chunks):
-            chunk = torch.as_tensor(feats_w[c * bucket:(c + 1) * bucket],
+            chunk = torch.as_tensor(feats_w[c * bucket:(c + 1) * bucket][mine],
                                     device=self.device)
             generator = torch.Generator(self.device).manual_seed(
                 chunk_seed(seed, c))
-            sp = self._sample_and_decode(chunk, gen, generator, part(x_T, c))
-            wavs.append(self._invert(sp, gen, generator,
-                                     part(gl_phase, c)).cpu().numpy())
+            with global_rows(self.mesh):
+                sp = self._sample_and_decode(chunk, gen, generator,
+                                             part(x_T, c))
+                wavs.append(self._host(self._invert(sp, gen, generator,
+                                                    part(gl_phase, c))))
             if gen.return_spec:
-                specs.append(sp.cpu().numpy())
+                specs.append(self._host(sp))
         return _pack_outputs(np.concatenate(wavs),
                              np.concatenate(specs) if specs else None, w,
                              gen.sample_num)
@@ -310,7 +363,7 @@ class DiffFoleyPipeline:
             raise ValueError(f"inpainting needs sampler 'ddim' (ddim.py:210),"
                              f" got {gen.sampler!r}")
         feats_w = self._windows(cavp_feats)
-        w = feats_w.shape[0]
+        w, s = feats_w.shape[0], gen.sample_num
         n_mels, frames = SPEC_HW[0], w * SPEC_HW[1]
         known_spec = np.asarray(known_spec, np.float32)
         spec_mask = np.asarray(spec_mask, np.float32)
@@ -323,20 +376,25 @@ class DiffFoleyPipeline:
         # (mels, w·512) → per window (w, mels, 512)
         to_w = lambda a: np.ascontiguousarray(
             a[:, :frames].reshape(n_mels, w, SPEC_HW[1]).transpose(1, 0, 2))
-        spec_w = torch.as_tensor(to_w(known_spec), device=self.device)
-        mask = torch.as_tensor(spec_mask_to_latent(to_w(spec_mask)),
-                               device=self.device)
-        s = gen.sample_num
+        wp, mine = self._my_windows(w)
+        mine_of = lambda a: torch.as_tensor(pad_axis0(a, wp)[mine],
+                                            device=self.device)
+        spec_w = mine_of(to_w(known_spec))
+        mask = mine_of(spec_mask_to_latent(to_w(spec_mask)))
+        feats = mine_of(feats_w)
         generator = torch.Generator(self.device).manual_seed(seed)
-        with torch.no_grad():
+        with torch.no_grad(), global_rows(self.mesh, w * s):
             z0 = self.encode_canvas(spec_w).repeat_interleave(s, dim=0)
             mask = mask.repeat_interleave(s, dim=0)
             z = self.ldm.sample(
-                feats_w.repeat_interleave(s, dim=0), latent_hw=LATENT_HW,
-                x_T=x_T, generator=generator, mask=mask, x0=z0,
-                mask_noise=mask_noise, **self.sampler_kwargs(gen))
+                feats.repeat_interleave(s, dim=0), latent_hw=LATENT_HW,
+                x_T=self._my_rows(x_T, wp * s), generator=generator,
+                mask=mask, x0=z0,
+                mask_noise=self._my_rows(mask_noise, wp * s, dim=1),
+                **self.sampler_kwargs(gen))
             # the last update moves the known region by one denoising step:
             # re-impose the canvas exactly before the decode
             z = z0 * mask + (1.0 - mask) * z
             specs = self.decode_specs(z)
-        return self._invert_and_pack(specs, gen, w, generator, gl_phase)
+            return self._invert_and_pack(specs, gen, w, generator,
+                                         self._my_rows(gl_phase, wp * s))

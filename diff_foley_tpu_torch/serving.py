@@ -22,9 +22,19 @@ pipeline, and a stdlib HTTP front end.
 Each batch, and each continuation, takes its seed from a lock-guarded
 counter that starts at ``seed`` (the JAX package splits a PRNG key
 instead). A batch that fails reports its exception to every request in it;
-nothing falls back to the CPU or to a plain version. The JAX engine's
-mesh branches (buckets rounded up to the data-mesh degree) wait for
-parallelism (ROADMAP §1 item 5): the port serves on one device.
+nothing falls back to the CPU or to a plain version.
+
+On a meshed pipeline (``DiffFoleyPipeline(mesh=…)``) the buckets, and the
+cap, are rounded up to a multiple of the data degree (JAX :53-58,
+121-132, 152-154). The port is SPMD, so every rank must enter the same
+collective calls: the engine and the ``FoleyServer`` run on rank 0, which
+broadcasts each pipeline call (method and arguments) before it makes it,
+and every other rank runs ``follow(pipe)``, which makes the same calls
+until the engine's ``stop`` broadcasts the end. A failed call leaves the
+ranks' collectives out of step: a follower re-raises its failure (its
+process ends, and the launcher or the group's closed connections end the
+others), and rank 0's engine, after reporting its failure to the batch,
+refuses every later call without entering another collective.
 """
 from __future__ import annotations
 
@@ -39,6 +49,8 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+
+import torch.distributed as dist
 
 from .audio.transforms import wav_to_mel
 from .pipeline import (SPEC_HW, WINDOW_FEATS, DiffFoleyPipeline,
@@ -68,7 +80,12 @@ class BatchingEngine:
                  seed: int = 0):
         self.pipe = pipe
         self.gen = gen
-        self.max_windows = max_batch_windows
+        # a pipeline-like object without a mesh serves on one device
+        self.mesh = getattr(pipe, "mesh", None)
+        self.data = 1 if self.mesh is None else self.mesh.shape["data"]
+        # _run rounds each bucket up to a multiple of the data degree:
+        # the cap is rounded with it, so a bucket never exceeds it
+        self.max_windows = self._round(max_batch_windows)
         self.max_wait = max_wait_ms / 1000.0
         self._q: "queue.Queue[_Request]" = queue.Queue()
         # the batcher thread and the HTTP threads' continuations draw seeds
@@ -76,9 +93,31 @@ class BatchingEngine:
         self._seed = seed
         self._seed_lock = threading.Lock()
         self._device_lock = threading.Lock()
+        # on a mesh: the failure that put the ranks out of step
+        self._failed: Optional[str] = None
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
+
+    def _round(self, b: int) -> int:
+        return -(-int(b) // self.data) * self.data
+
+    def _call(self, method: str, *args):
+        """``pipe.<method>(*args)``, announced to the followers first on a
+        mesh; under the device lock, so that every rank makes the calls
+        in one order. On a mesh, a call after a failed one raises."""
+        with self._device_lock:
+            if self.mesh is None:
+                return getattr(self.pipe, method)(*args)
+            if self._failed:
+                raise RuntimeError(f"the meshed engine stopped after a "
+                                   f"failed call: {self._failed}")
+            dist.broadcast_object_list([(method, args)], src=0)
+            try:
+                return getattr(self.pipe, method)(*args)
+            except Exception as e:
+                self._failed = f"{method}: {type(e).__name__}: {e}"
+                raise
 
     def _next_seed(self) -> int:
         with self._seed_lock:
@@ -136,8 +175,8 @@ class BatchingEngine:
                 buckets.append(b)
                 b *= 2
             buckets.append(self.max_windows)
-        with self._device_lock:
-            return self.pipe.aot_warmup(buckets, self.gen)
+        buckets = list(dict.fromkeys(self._round(b) for b in buckets))
+        return self._call("aot_warmup", buckets, self.gen)
 
     @staticmethod
     def _bucket(n: int, max_windows: int) -> int:
@@ -153,13 +192,12 @@ class BatchingEngine:
         try:
             feats = np.concatenate([r.feats for r in batch], axis=0)
             n_windows = feats.shape[0]
-            bucket = self._bucket(n_windows, self.max_windows)
+            bucket = self._round(self._bucket(n_windows, self.max_windows))
             seed = self._next_seed()
-            with self._device_lock:
-                # the bucketed path pads, chunks and trims: the output
-                # covers exactly n_windows
-                out = self.pipe.generate(feats.reshape(-1, feats.shape[-1]),
-                                         seed, self.gen, bucket_windows=bucket)
+            # the bucketed path pads, chunks and trims: the output covers
+            # exactly n_windows
+            out = self._call("generate", feats.reshape(-1, feats.shape[-1]),
+                             seed, self.gen, None, None, bucket)
             wav = out["wav"][0]  # sample 0, every window in time
             win_len = wav.shape[-1] // n_windows
             i = 0
@@ -198,13 +236,38 @@ class BatchingEngine:
                            / self.pipe.melspec.hop_length))
         mask = continuation_mask(need, min(frames, need))
         seed = self._next_seed()
-        with self._device_lock:
-            out = self.pipe.inpaint(feats, known_spec, mask, seed, gen)
+        out = self._call("inpaint", feats, known_spec, mask, seed, gen)
         return out["wav"][0]
 
     def stop(self):
+        """Stop the batcher, and on a mesh release the followers (unless a
+        failed call has put them out of step)."""
         self._stop.set()
         self._thread.join(timeout=2)
+        if self.mesh is not None:
+            with self._device_lock:
+                if not self._failed:
+                    dist.broadcast_object_list([None], src=0)
+
+
+def follow(pipe: DiffFoleyPipeline) -> int:
+    """A rank > 0 of a meshed engine: make each pipeline call rank 0's
+    engine announces, until its ``stop``. Returns the calls made. A call
+    that fails raises: this rank's collectives are out of step with rank
+    0's, so the loop cannot go on."""
+    calls = 0
+    while True:
+        msg = [None]
+        dist.broadcast_object_list(msg, src=0)
+        if msg[0] is None:
+            return calls
+        method, args = msg[0]
+        calls += 1
+        try:
+            getattr(pipe, method)(*args)
+        except Exception as e:
+            raise RuntimeError(f"rank {dist.get_rank()}: announced call "
+                               f"{calls} ({method}) failed") from e
 
 
 def _wav_reply(sr: int, wav: np.ndarray) -> dict:

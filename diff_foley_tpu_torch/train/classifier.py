@@ -30,6 +30,8 @@ from ..models.cond_encoder import VideoFeatEncoderPosembed
 from ..models.layers import ResBlock
 from ..models.unet import CLASSIFIER_BACKBONE, ClassifierBackbone, UNetConfig
 from ..models.vae import AutoencoderKL
+from ..parallel import collectives
+from ..parallel.mesh import Mesh, draw_rows, global_rows
 from ..pipeline import resolve_device
 from .optim import AdamW, TrainState, global_norm
 from .vae import init_weights_
@@ -101,13 +103,17 @@ def init_classifier_weights_(model: AlignmentClassifier,
 class ClassifierTrainer:
     """The train step of the classifier against a frozen VAE, in float32.
     ``model`` (an :class:`AlignmentClassifier`) holds the trained weights;
-    ``vae`` is frozen and kept in eval mode."""
+    ``vae`` is frozen and kept in eval mode. On a ``mesh`` each rank takes
+    its rows of the global batch, draws the global ε, t and noise and keeps
+    its rows; the gradients and the metrics are the data group's means."""
 
     def __init__(self, backbone_cfg: UNetConfig = CLASSIFIER_BACKBONE,
                  vae: Optional[AutoencoderKL] = None,
                  cfg: ClassifierTrainConfig = ClassifierTrainConfig(),
-                 cond_seq_len: int = 40):
+                 cond_seq_len: int = 40, mesh: Optional[Mesh] = None):
         self.cfg = cfg
+        self.mesh = mesh
+        self.group = None if mesh is None else mesh.data_group
         self.model = AlignmentClassifier(backbone_cfg, cond_seq_len)
         self.vae = (vae or AutoencoderKL()).eval().requires_grad_(False)
         self.schedule = DiffusionSchedule.create(
@@ -143,8 +149,8 @@ class ClassifierTrainer:
             if "z_mu" in batch:
                 mu, sigma = batch["z_mu"], batch["z_sigma"]
                 if eps is None:
-                    eps = torch.randn(mu.shape, generator=generator,
-                                      device=mu.device)
+                    eps = draw_rows(torch.randn, mu.shape,
+                                    generator=generator, device=mu.device)
                 z = mu + sigma * eps
             else:
                 z = self.vae.encode(batch["spec"]).sample(generator, eps)
@@ -160,12 +166,12 @@ class ClassifierTrainer:
         b = z.shape[0]
         t = draws.get("t")
         if t is None:
-            t = torch.randint(0, self.schedule.num_timesteps, (b,),
-                              generator=generator, device=z.device)
+            t = draw_rows(self.schedule.draw_t, (b,), generator=generator,
+                          device=z.device)
         noise = draws.get("noise")
         if noise is None:
-            noise = torch.randn(z.shape, generator=generator,
-                                device=z.device)
+            noise = draw_rows(torch.randn, z.shape, generator=generator,
+                              device=z.device)
         t = t.to(z.device, torch.int64)
         z_noisy = self.schedule.q_sample(z, t, noise.to(z.device))
         p = self.model(z_noisy, t.float(), batch["video_feat"])
@@ -180,9 +186,12 @@ class ClassifierTrainer:
         params = list(state.params.values())
         for p in params:
             p.grad = None
-        loss, metrics = self.loss(batch, generator, draws)
+        with global_rows(self.mesh):
+            loss, metrics = self.loss(batch, generator, draws)
         loss.backward(inputs=params)
-        return {k: v.detach() for k, v in metrics.items()}
+        collectives.grad_mean_(params, self.group)
+        return {k: collectives.all_reduce_mean(v.detach(), self.group)
+                for k, v in metrics.items()}
 
     def train_step(self, state: TrainState, batch: dict,
                    generator: Optional[torch.Generator] = None,

@@ -10,8 +10,11 @@
   and :func:`intra_contrast_temporal_mean_loss`: the temporal variants;
 - :func:`retrieval_metrics`: R@1/5/10 and the mean and median rank.
 
-The logits are plain products (``torch.matmul``/``einsum``) on one device:
-the batch is the whole batch, with no gather across processes.
+The logits are plain products (``torch.matmul``/``einsum``) over the
+batch they are given: these are global-batch functions, as the JAX
+package's are under GSPMD. On a mesh the caller hands them every rank's
+features through ``parallel.collectives.all_gather_with_grad`` (the
+reference's ``--gather-with-grad``), as ``Stage1Trainer`` does.
 """
 from __future__ import annotations
 

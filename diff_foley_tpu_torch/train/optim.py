@@ -34,15 +34,19 @@ class AdamW:
     ``mask``) leaves the False tensors out of the weight decay only: they
     still take the Adam update. With ``accum_steps`` K the gradients of K
     calls are averaged (a running mean, as MultiSteps') and the K-th call
-    updates; the others leave the parameters as they are."""
+    updates; the others leave the parameters as they are. ``norm`` takes
+    the clip's global norm (``parallel.collectives.sharded_global_norm``
+    over tensors split across ranks)."""
 
     b1, b2, eps = 0.9, 0.999, 1e-8
 
     def __init__(self, params: Sequence[torch.Tensor], lr, *,
                  weight_decay: float = 0.0, mu_dtype: torch.dtype = None,
                  grad_clip: Optional[float] = None, accum_steps: int = 1,
-                 decay_mask: Optional[Sequence[bool]] = None):
+                 decay_mask: Optional[Sequence[bool]] = None,
+                 norm=global_norm):
         self.params = list(params)
+        self.norm = norm
         self.lr = lr
         self.weight_decay, self.grad_clip = weight_decay, grad_clip
         if decay_mask is not None and len(decay_mask) != len(self.params):
@@ -77,7 +81,7 @@ class AdamW:
     @torch.no_grad()
     def _update(self, grads):
         if self.grad_clip:
-            norm = global_norm(grads)
+            norm = self.norm(grads)
             factor = torch.where(norm < self.grad_clip,
                                  torch.ones_like(norm),
                                  self.grad_clip / norm)

@@ -17,6 +17,14 @@ contrastive pretraining of the video and audio towers.
 - :meth:`Stage1Trainer.accum_train_step`: the feature-cache accumulation
   (the reference's ``--accum-freq``), whose gradient is the full K·B
   contrastive batch's.
+
+On a ``mesh`` each rank takes its rows of each (micro-)batch and the step
+is the one-process step on the global batch: the BatchNorms take their
+statistics over the data group (the group ``CAVPConfig.axis_name``
+names, "data" by default), CNN14's dropout masks are the global draw's
+rows, the contrastive loss reads every rank's features through
+``all_gather_with_grad`` (every rank computes the global loss), and the
+gradients are averaged over the group before AdamW.
 """
 from __future__ import annotations
 
@@ -28,6 +36,8 @@ import torch
 
 from ..models.cavp import CAVPModel
 from ..models.cavp.layers import frozen_statistics
+from ..parallel import collectives
+from ..parallel.mesh import Mesh, global_rows
 from ..pipeline import resolve_device
 from ..utils.lr_schedules import cosine_with_warmup
 from .losses import intra_contrast_loss
@@ -117,14 +127,20 @@ def init_cavp_weights_(model: CAVPModel, generator: torch.Generator):
 
 class Stage1Trainer:
     """The train steps of ``model`` under ``cfg``. Under mixed precision
-    the model's compute type becomes bf16 (``CAVPConfig.dtype``)."""
+    the model's compute type becomes bf16 (``CAVPConfig.dtype``).
+    ``mesh``: the module docstring."""
 
     def __init__(self, model: CAVPModel,
-                 cfg: Stage1TrainConfig = Stage1TrainConfig()):
+                 cfg: Stage1TrainConfig = Stage1TrainConfig(),
+                 mesh: Optional[Mesh] = None):
         if cfg.compute_dtype not in (None, "float32", "bfloat16"):
             raise ValueError(f"compute_dtype {cfg.compute_dtype!r}: "
                              "float32 or bfloat16")
         self.model, self.cfg = model, cfg
+        self.mesh = mesh
+        self.group = (None if mesh is None
+                      else mesh.group(model.cfg.axis_name or "data"))
+        collectives.sync_batchnorm_(model, self.group)
         if cfg.compute_dtype == "bfloat16" and model.cfg.dtype != "bfloat16":
             model.cfg = dataclasses.replace(model.cfg, dtype="bfloat16")
 
@@ -157,7 +173,8 @@ class Stage1Trainer:
         return video, spec
 
     def _features(self, batch: dict, generator) -> dict:
-        out = self.model(*self._flat(batch), generator=generator)
+        with global_rows(self.mesh):
+            out = self.model(*self._flat(batch), generator=generator)
         out["video_features"] = out["video_features"].float()
         out["spec_features"] = out["spec_features"].float()
         return out
@@ -169,6 +186,7 @@ class Stage1Trainer:
 
     def _update(self, state: CAVPTrainState, losses: dict) -> dict:
         """AdamW on the gradients in ``.grad``, the clamp, the metrics."""
+        collectives.grad_mean_(list(state.params.values()), self.group)
         grads = [p.grad for p in state.params.values()]
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics["grad_norm"] = global_norm(grads)
@@ -192,8 +210,9 @@ class Stage1Trainer:
         for p in params:
             p.grad = None
         out = self._features(batch, generator)
-        losses = self._loss(out["video_features"], out["spec_features"],
-                            out["logit_scale"])
+        gather = lambda x: collectives.all_gather_with_grad(x, self.group)
+        losses = self._loss(gather(out["video_features"]),
+                            gather(out["spec_features"]), out["logit_scale"])
         losses["total_loss"].backward(inputs=params)
         return self._update(state, losses)
 
@@ -227,8 +246,11 @@ class Stage1Trainer:
                 rewind.append(None if generator is None
                               else generator.get_state())
                 out = self._features(mb, generator)
-                cache_v.append(out["video_features"])
-                cache_s.append(out["spec_features"])
+                # every rank's rows of micro-batch j, in rank order
+                cache_v.append(collectives.all_gather(out["video_features"],
+                                                      self.group))
+                cache_s.append(collectives.all_gather(out["spec_features"],
+                                                      self.group))
         params = list(state.params.values())
         for p in params:
             p.grad = None
@@ -237,10 +259,11 @@ class Stage1Trainer:
                 if generator is not None:
                     generator.set_state(rewind[j])
                 out = self._features(mb, generator)
-                v = torch.cat(cache_v[:j] + [out["video_features"]]
-                              + cache_v[j + 1:])
-                s = torch.cat(cache_s[:j] + [out["spec_features"]]
-                              + cache_s[j + 1:])
+                live_v, live_s = (
+                    collectives.all_gather_with_grad(out[k], self.group)
+                    for k in ("video_features", "spec_features"))
+                v = torch.cat(cache_v[:j] + [live_v] + cache_v[j + 1:])
+                s = torch.cat(cache_s[:j] + [live_s] + cache_s[j + 1:])
                 losses = self._loss(v, s, out["logit_scale"])
                 losses["total_loss"].backward(inputs=params)
         self.model.logit_scale.grad.div_(k)

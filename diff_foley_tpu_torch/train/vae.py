@@ -19,6 +19,12 @@ The backward of step 1 runs through the VAE's two mid-attention blocks
 (the per-head attention backward kernel on CUDA tensors) and every
 ``GroupNorm32`` (forward kernels; the backward recomputes the plain
 formula).
+
+On a ``mesh`` each rank takes its rows of the global batch and the step
+is the one-process step on it: the posterior's ε is the global draw's
+rows, the PatchGAN's BatchNorm takes its statistics over the data group,
+the adaptive weight's two probe gradients and every gradient are
+averaged over the group before Adam, and so are the metrics.
 """
 from __future__ import annotations
 
@@ -29,6 +35,8 @@ from typing import Callable, Optional
 import torch
 
 from ..models.vae import AutoencoderKL, VAEConfig
+from ..parallel import collectives
+from ..parallel.mesh import Mesh, global_rows
 from ..pipeline import resolve_device
 from .vae_losses import (NLayerDiscriminator, VAELossConfig,
                          discriminator_loss, generator_loss)
@@ -79,13 +87,16 @@ def init_weights_(module: torch.nn.Module, generator: torch.Generator):
 class VAETrainer:
     def __init__(self, vae_cfg: VAEConfig = VAEConfig(),
                  cfg: VAETrainConfig = VAETrainConfig(),
-                 perceptual_fn: Optional[Callable] = None):
+                 perceptual_fn: Optional[Callable] = None,
+                 mesh: Optional[Mesh] = None):
         """``perceptual_fn(x, rec) -> scalar`` supplies the LPIPS/LPAPS term
         (``train.perceptual.make_lpips_fn`` / ``make_lpaps_fn``); active
         when ``cfg.loss.perceptual_weight > 0``."""
         self.vae_cfg = vae_cfg
         self.cfg = cfg
         self.perceptual_fn = perceptual_fn
+        self.mesh = mesh
+        self.group = None if mesh is None else mesh.data_group
 
     def init_train_state(self, seed: int = 0, device=None) -> VAETrainState:
         """Seeded initial state on ``device``; ``None`` means the first CUDA
@@ -95,6 +106,7 @@ class VAETrainer:
         vae = init_weights_(AutoencoderKL(self.vae_cfg), g).to(device)
         disc = init_weights_(
             NLayerDiscriminator(self.vae_cfg.out_channels), g).to(device)
+        collectives.sync_batchnorm_(disc, self.group)
         adam = lambda m: torch.optim.Adam(m.parameters(), lr=self.cfg.lr,
                                           betas=(0.5, 0.9))
         return VAETrainState(vae, disc, adam(vae), adam(disc))
@@ -110,8 +122,9 @@ class VAETrainer:
                        generator: Optional[torch.Generator] = None):
         """One Adam step on the VAE → (logs, the detached reconstruction)."""
         lcfg = self.cfg.loss
-        rec, posterior = state.vae(x, noise=noise, sample_posterior=True,
-                                   generator=generator)
+        with global_rows(self.mesh):
+            rec, posterior = state.vae(x, noise=noise, sample_posterior=True,
+                                       generator=generator)
         logits_fake = state.disc(rec, train=False)
 
         # The adaptive weight: the gradient norms of the reconstruction
@@ -124,6 +137,8 @@ class VAETrainer:
                                         retain_graph=True)
         g_grad, = torch.autograd.grad(-logits_fake.mean(), last,
                                       retain_graph=True)
+        nll_grad = collectives.all_reduce_mean(nll_grad, self.group)
+        g_grad = collectives.all_reduce_mean(g_grad, self.group)
         d_weight = torch.linalg.vector_norm(nll_grad) / (
             torch.linalg.vector_norm(g_grad) + 1e-4)
         d_weight = (torch.clamp(d_weight, 0.0, 1e4) * lcfg.disc_weight).detach()
@@ -134,10 +149,15 @@ class VAETrainer:
         # the GAN term reaches the discriminator's parameters too: only
         # the VAE's take this gradient
         loss.backward(inputs=list(state.vae.parameters()))
+        collectives.grad_mean_(list(state.vae.parameters()), self.group)
         state.opt.step()
         logs = {k: v.detach() for k, v in logs.items()}
         logs["total_loss"] = loss.detach()
-        return logs, rec.detach()
+        return self._mean(logs), rec.detach()
+
+    def _mean(self, metrics: dict) -> dict:
+        return {k: collectives.all_reduce_mean(v, self.group)
+                for k, v in metrics.items()}
 
     def discriminator_step(self, state: VAETrainState, x: torch.Tensor,
                            rec: torch.Tensor) -> torch.Tensor:
@@ -148,8 +168,9 @@ class VAETrainer:
                                     self.cfg.loss)
         state.disc_opt.zero_grad(set_to_none=True)
         d_loss.backward()
+        collectives.grad_mean_(list(state.disc.parameters()), self.group)
         state.disc_opt.step()
-        return d_loss.detach()
+        return collectives.all_reduce_mean(d_loss.detach(), self.group)
 
     def train_step(self, state: VAETrainState, x: torch.Tensor,
                    noise: Optional[torch.Tensor] = None,

@@ -28,10 +28,13 @@ from ..audio.transforms import MelSpec
 from ..models.layers import Conv2d
 from ..ops.mel import mel_filterbank
 from ..ops.stft import stft_magnitude
+from ..parallel import collectives
 
 
 class BatchNorm(nn.Module):
     """flax nn.BatchNorm over the channels of an NCHW map (ε 1e-5)."""
+
+    process_group = None
 
     def __init__(self, channels: int, momentum: float = 0.9,
                  eps: float = 1e-5):
@@ -45,9 +48,16 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         if train:
             xf = x.float()
-            mean = xf.mean((0, 2, 3))
-            var = torch.clamp(xf.square().mean((0, 2, 3)) - mean.square(),
-                              min=0.0)
+            if collectives.size(self.process_group) > 1:
+                s = collectives.all_reduce_with_grad(torch.stack(
+                    [xf.sum((0, 2, 3)), xf.square().sum((0, 2, 3))]),
+                    self.process_group)
+                n = x.numel() // x.shape[1] \
+                    * collectives.size(self.process_group)
+                mean, mean_sq = s[0] / n, s[1] / n
+            else:
+                mean, mean_sq = xf.mean((0, 2, 3)), xf.square().mean((0, 2, 3))
+            var = torch.clamp(mean_sq - mean.square(), min=0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.mul_(m).add_(mean, alpha=1.0 - m)

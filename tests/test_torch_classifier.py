@@ -280,9 +280,13 @@ def test_alignment_accuracy_matches_jax_over_a_ragged_stream(run, centred):
     out = tacc.alignment_accuracy(stream(), trainer.model, trainer.vae,
                                   device="cpu")
     assert out == ref and 0.0 < out < 1.0
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tacc.alignment_accuracy(stream(), trainer.model, trainer.vae,
-                                mesh=object(), device="cpu")
+    # a mesh is taken (it used to raise): a process alone has the one-rank
+    # mesh, whose counts need no sum (7 rows over two gloo ranks against
+    # JAX's 2-device mesh: tests/test_torch_parallel_entries.py)
+    from diff_foley_tpu_torch.parallel.mesh import make_mesh
+
+    assert tacc.alignment_accuracy(stream(), trainer.model, trainer.vae,
+                                   mesh=make_mesh(), device="cpu") == out
 
 
 # ---- the CLIs ------------------------------------------------------------------

@@ -148,16 +148,21 @@ def _imports(path: pathlib.Path):
 def test_port_imports_no_jax():
     files = sorted((REPO / "diff_foley_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
-    assert len(files) > 38
-    # the trainers' modules, the evaluation's and the video entry's are in
-    for sub in ("train", "data", "cli", "video", "cavp", "eval"):
+    # the gloo ranks of the parallel tests import torch, numpy, the port
+    files.append(REPO / "tests" / "test_torch_parallel_ranks.py")
+    assert len(files) > 43
+    # the trainers' modules, the evaluation's, the video entry's and the
+    # parallelism's are in
+    for sub in ("train", "data", "cli", "video", "cavp", "eval", "parallel"):
         assert any(p.parent.name == sub for p in files), sub
     for name in ("api.py", "generate.py", "checkpoint.py", "slowonly.py",
                  "cnn14.py", "ingest.py", "mux.py", "optim.py",
                  "classifier.py", "train_classifier.py", "align_acc.py",
                  "padding.py", "losses.py", "stage1_cavp.py", "layers.py",
                  "cavp_shards.py", "train_cavp.py", "extract_features.py",
-                 "serving.py", "native_loader.py", "preprocess_audio.py"):
+                 "serving.py", "native_loader.py", "preprocess_audio.py",
+                 "distributed.py", "mesh.py", "collectives.py",
+                 "sharding_rules.py", "test_torch_parallel_ranks.py"):
         assert any(p.name == name for p in files), name
     banned = ("jax", "flax", "optax", "orbax", "diff_foley_tpu")
     for path in files:

@@ -393,9 +393,30 @@ def test_bf16_step_runs_on_float32_masters(accum):
     assert all(v.dtype == torch.float32 for v in state.batch_stats.values())
 
 
-def test_sync_batchnorm_is_refused():
-    with pytest.raises(NotImplementedError, match="item 5"):
-        CAVPModel(CAVPConfig(axis_name="data"))
+def test_sync_batchnorm_axis_name():
+    # axis_name="data" names the data group a meshed trainer takes the
+    # BatchNorm statistics over (two ranks against one process:
+    # tests/test_torch_parallel.py); on the one-rank mesh of a process
+    # without a group the step is the unmeshed step, bit for bit
+    from diff_foley_tpu_torch.parallel.mesh import make_mesh
+
+    with pytest.raises(ValueError, match="'data' axis"):
+        CAVPModel(CAVPConfig(**CAVP_KW, axis_name="model"))
+    out = []
+    for axis, mesh in ((None, None), ("data", make_mesh())):
+        model = CAVPModel(CAVPConfig(**CAVP_KW, axis_name=axis))
+        trainer = ts1.Stage1Trainer(model, ts1.Stage1TrainConfig(
+            lr=LR, warmup_steps=0, clip_num=CLIP), mesh=mesh)
+        state = trainer.init_train_state(49, "cpu")
+        m = trainer.train_step(state, _batch(50),
+                               torch.Generator().manual_seed(3))
+        out.append((m, state.state_dict()))
+    (m0, sd0), (m1, sd1) = out
+    assert all(torch.equal(m0[k], m1[k]) for k in m0)
+    for k in sd0["params"]:
+        assert torch.equal(sd0["params"][k], sd1["params"][k]), k
+    for k in sd0["batch_stats"]:
+        assert torch.equal(sd0["batch_stats"][k], sd1["batch_stats"][k]), k
 
 
 # ---- shards ---------------------------------------------------------------------

@@ -128,8 +128,28 @@ def test_load_native_vae_reads_a_train_vae_logdir(tmp_path):
         ck.load_native_vae(str(tmp_path / "vae"), expect_cfg=SD_VAE)
 
 
+def test_cli_fsdp_runs(logdir):
+    # --fsdp trains (it used to exit): in a process alone its mesh has one
+    # rank, FSDP splits nothing and the run is the unsplit run's, metric
+    # for metric and tensor for tensor (two gloo ranks against one:
+    # tests/test_torch_parallel_entries.py)
+    root = logdir["root"]
+    args = [a for a in logdir["args"]]
+    args[args.index(str(root / "log"))] = str(root / "fsdp")
+    state = cli.main(args + ["--max-steps", "3", "--fsdp"])
+    rows = lambda d: [json.loads(line) for line in (root / d / "metrics.jsonl")
+                      .read_text().splitlines()]
+    drop = lambda r: {k: v for k, v in r.items() if k != "step_s"}
+    assert [drop(r) for r in rows("fsdp")] == [drop(r) for r in
+                                               rows("log")[:4]]
+    saved = logdir["saved"]["state"]
+    for k, v in state.params.items():
+        assert torch.equal(v.detach(), saved["params"][k]), k
+    assert ck.load_native_ldm(str(root / "fsdp")).cfg.unet.model_channels \
+        == 32
+
+
 @pytest.mark.parametrize("extra,message", [
-    (["--fsdp"], "item 5"),
     (["--sound-log-every", "1"], "SoundLogger"),
     (["--base", "x.yaml"], "YAML"),
     (["--batch-size", "64"], "4 items < global batch 64"),

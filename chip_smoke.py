@@ -49,7 +49,11 @@
    against the CPU's. Then
    ``cli.generate --random-weights --bf16`` once on the same clip: four
    int16 16-kHz wavs of 131072 samples and four spec files.
-   Before each main-path run (3, 4, 5, 5's CLI run, 6, 7, 8, 9 and 10) the
+   ``cli.transform_spec`` then takes 3's specs to the SpecVQGAN format
+   (80 mels, 22.05 kHz) and back: shapes, range, the round trip's
+   distance, seconds per file.
+   Before each main-path run (3, 4, 5, 5's CLI run, 6, 7, 7b, 8 and its
+   SoundLogger calls, 9 and 10) the
    launch counts are reset; read just after, they must equal what the model
    structure predicts, by kernel and operand dtype.
 6. Serving, ``BatchingEngine`` and ``FoleyServer``, at the same full width
@@ -72,6 +76,12 @@
    saved step. First-step and warm seconds per step, split generator /
    discriminator, peak memory, the plain GroupNorm backward's cost, and one
    step with the LPIPS hook on (random weights).
+7b. ``cli.train_sound_vae`` at the CLI's own width (channels 32, z 128,
+   65536-sample crops of seeded int16 wavs, batch 8, the multi-scale
+   STFT losses' defaults), the GAN on from step 0: six steps, the resume
+   to a seventh, every loss finite, no kernel of the TPU's launched, the
+   warm step and peak memory; ``load_native_sound_vae`` then reconstructs
+   a window on the card.
 8. ``cli.train_stage2`` at the full width of ``LDM_UNET`` (and its cond
    encoder) against the frozen ``SD_VAE``: bf16 compute on fp32 masters,
    AdamW, EMA, batch 16, seeded random weights, 32 seeded (mel spec, CAVP
@@ -82,7 +92,14 @@
    than the parameters; the resume continues the step, AdamW's count, the
    EMA and the generator; ``load_native_ldm`` reads the logdir and the
    model generates on the card. The CLI's step times, warm steps split
-   into forward and backward, AdamW and EMA, and peak memory.
+   into forward and backward, AdamW and EMA, and peak memory. The
+   main-path call runs the SoundLogger every third step (two calls, each
+   with its own launch counts: the UNet at the CFG batch 4 over 25
+   DPM-Solver++ steps at CFG 6.5 with no classifier in bf16, the VAE
+   encode and two decodes at batch 2 in fp32; its files finite), and a
+   SIGUSR1 raised during the last step makes the CLI save at that step's
+   boundary, the call's only save. ``--base configs/stage2_ldm.yaml``
+   builds the flagship's config (where PyYAML imports).
 9. ``cli.train_classifier`` at ``CLASSIFIER_BACKBONE`` in fp32 with its
    cond encoder (512 → 512, 40 positions) against the frozen full
    ``SD_VAE`` in fp32, batch 32, seeded random weights, 32 seeded pairs
@@ -111,7 +128,8 @@
 12. Agreement: tiny ``generate``, ``inpaint``, ``DiffFoley.extract_features``
    plus ``generate_from_features``, two tiny VAE train steps, one tiny
    stage-2 train step, one tiny classifier train step (D 32, 40 keys) and
-   one tiny CAVP train step in float32 on the GPU (kernels) against the
+   one tiny CAVP train step and one tiny waveform-VAE step (against the
+   CPU in float64) in float32 on the GPU (kernels) against the
    same on the CPU (plain versions), shared noise, phase, draws and
    dropout masks. Each VAE train step starts from equal states, and the
    CPU takes the GPU's branch at every leaky_relu input within rounding of
@@ -139,12 +157,14 @@ before it. With no GPU it exits non-zero and prints no result.
 from __future__ import annotations
 
 import collections
+import contextlib
 import copy
 import dataclasses
 import json
 import os
 import re
 import shutil
+import signal
 import socket
 import statistics
 import subprocess
@@ -168,8 +188,10 @@ from diff_foley_tpu_torch.cli import extract_features as extract_features_cli
 from diff_foley_tpu_torch.cli import generate as generate_cli
 from diff_foley_tpu_torch.cli import train_cavp as train_cavp_cli
 from diff_foley_tpu_torch.cli import train_classifier as train_classifier_cli
+from diff_foley_tpu_torch.cli import train_sound_vae as train_sound_vae_cli
 from diff_foley_tpu_torch.cli import train_stage2 as train_stage2_cli
 from diff_foley_tpu_torch.cli import train_vae as train_vae_cli
+from diff_foley_tpu_torch.cli import transform_spec as transform_spec_cli
 from diff_foley_tpu_torch.data.ldm_dataset import SpecDataset, SpecFeatDataset
 from diff_foley_tpu_torch.data.loader import DevicePrefetcher, PrefetchLoader
 from diff_foley_tpu_torch.diffusion.latent_diffusion import (LatentDiffusion,
@@ -179,6 +201,7 @@ from diff_foley_tpu_torch.eval.align_acc import (alignment_accuracy,
 from diff_foley_tpu_torch.models.attention import SpatialTransformer
 from diff_foley_tpu_torch.models.cavp import CAVPConfig, CAVPModel
 from diff_foley_tpu_torch.models.cavp import cnn14 as cnn14_module
+from diff_foley_tpu_torch.models.sound_vae import SoundVAEConfig
 from diff_foley_tpu_torch.models.layers import (Downsample, GroupNorm32,
                                                 Upsample)
 from diff_foley_tpu_torch.models.unet import (CLASSIFIER_BACKBONE, LDM_UNET,
@@ -199,10 +222,13 @@ from diff_foley_tpu_torch.pipeline import (LATENT_HW, SPEC_HW, WINDOW_FEATS,
                                            spec_mask_to_latent,
                                            window_features)
 from diff_foley_tpu_torch.serving import BatchingEngine, FoleyServer
+from diff_foley_tpu_torch.train import callbacks as callbacks_module
 from diff_foley_tpu_torch.train.classifier import (AlignmentClassifier,
                                                    ClassifierTrainer)
 from diff_foley_tpu_torch.train.optim import TrainState, global_norm
 from diff_foley_tpu_torch.train.perceptual import LPIPS, make_lpips_fn
+from diff_foley_tpu_torch.train.sound_gan import (AudioGANConfig,
+                                                  SoundVAETrainer)
 from diff_foley_tpu_torch.train.stage1_cavp import (Stage1TrainConfig,
                                                     Stage1Trainer)
 from diff_foley_tpu_torch.train.stage2_ldm import (Stage2TrainConfig,
@@ -211,10 +237,13 @@ from diff_foley_tpu_torch.train.stage2_ldm import (Stage2TrainConfig,
 from diff_foley_tpu_torch.train.vae import (VAETrainConfig, VAETrainer,
                                             init_weights_)
 from diff_foley_tpu_torch.train.vae_losses import VAELossConfig
-from diff_foley_tpu_torch.utils.checkpoint import load_native_ldm
+from diff_foley_tpu_torch.utils import checkpoint as checkpoint_module
+from diff_foley_tpu_torch.utils.checkpoint import (load_native_ldm,
+                                                   load_native_sound_vae)
 from diff_foley_tpu_torch.utils.ema import ema_update
 from diff_foley_tpu_torch.utils.init import randomize_
 from diff_foley_tpu_torch.utils.padding import pad_axis0
+from diff_foley_tpu_torch.utils.wav import read_wav, write_wav
 from diff_foley_tpu_torch.video.ingest import encode_frames, extract_frames
 
 PEAK_BF16 = 989e12    # H100 SXM dense bf16 tensor-core FLOP/s
@@ -264,6 +293,16 @@ SERVE_WINDOWS = (1, 2, 3, 1, 2, 3, 2, 1)
 # 30-video contrastive batch (the feature cache)
 CAVP_BATCH, CAVP_CLIPS, CAVP_STEPS, CAVP_ACCUM = 30, 3, 3, 3
 CAVP_SAMPLES = CAVP_BATCH * CAVP_STEPS + 6
+# the stage-2 CLI's SoundLogger: every SL_EVERY steps of the main-path
+# call (SL_CALLS calls), SL_N items (the UNet at the CFG batch 2·SL_N,
+# the VAE encoder once and the decoder twice at SL_N), the JAX logger's
+# 25 DPM-Solver++ steps at CFG 6.5 with no classifier
+SL_N, SL_EVERY = 2, 3
+SL_CALLS = S2_STEPS // SL_EVERY
+# the waveform VAE's trainer at the CLI's own width and crop: channels 32,
+# z 128, 65536-sample crops, batch 8, AudioGANConfig's defaults; steps of
+# the main-path call (a resume adds one)
+SV_WINDOW, SV_BATCH, SV_STEPS = 65536, 8, 6
 # Agreement with the plain version, per output tensor, against the size of
 # the plain output: max|Δ| ≤ MAX_TOL·rms(plain) and rms(Δ) ≤ RMS_TOL·rms(plain).
 # The max catches a local fault (a tile, an edge), the rms a small fault
@@ -311,17 +350,20 @@ SYMBOLS = {"fwd": ("attn_packed_fwd",), "bwd": ("head_bwd_",),
            "gn": ("gn_block_kernel",), "stats": ("gn_stream_stats_kernel",),
            "apply": ("gn_stream_apply_kernel",)}
 RUNS = ("generate", "inpaint", "train_vae", "video", "train_stage2",
-        "train_classifier", "align_acc", "serve")
+        "train_classifier", "align_acc", "serve", "sound_log",
+        "train_sound_vae")
 
 
 def calls(generate: int = 0, inpaint: int = 0, train_vae: int = 0,
           video: int = 0, train_stage2: int = 0, train_classifier: int = 0,
-          align_acc: int = 0, serve: int = 0) -> dict:
+          align_acc: int = 0, serve: int = 0, sound_log: int = 0,
+          train_sound_vae: int = 0) -> dict:
     """Calls of one kernel shape in each main-path run."""
     return {"generate": generate, "inpaint": inpaint, "train_vae": train_vae,
             "video": video, "train_stage2": train_stage2,
             "train_classifier": train_classifier, "align_acc": align_acc,
-            "serve": serve}
+            "serve": serve, "sound_log": sound_log,
+            "train_sound_vae": train_sound_vae}
 
 
 def log(*a):
@@ -341,28 +383,65 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+# the H100's L2 holds 50 MB: ``device_ms`` reads a buffer of five times
+# that before each call, so that no operand of the call is left there and
+# the call reads its bytes from HBM, as its byte bound counts them
+L2_FLUSH_BYTES = 256 * 2**20
+_FLUSH_SYMBOLS = set()
+
+
+def flush_l2(buf: torch.Tensor) -> torch.Tensor:
+    # a read, not a write: written lines would go back to HBM while the
+    # timed call runs
+    return buf.sum(dtype=torch.int64)
+
+
 def device_ms(fn, symbols=None, iters: int = 10, split: bool = False):
     """Device time per call of fn: torch.profiler's CUDA events over
-    ``iters`` calls, only those whose names hold one of ``symbols`` (all
-    when None), summed and divided by the calls; with ``split`` also
-    {kernel: ms per call} by kernel name. Some traces come back without
-    any device event (the first row of a run): up to five are tried. A
-    trace with device events but none of ``symbols`` fails; five with no
-    device event at all raise ``ProfilerBlind``: the profiler cannot see
-    the card in this process, and the script runs again in a new one."""
+    ``iters`` calls, each after ``flush_l2`` (whose kernels are left
+    out), only those whose names hold one of ``symbols`` (all when None),
+    summed and divided by the calls; with ``split`` also {kernel: ms per
+    call} by kernel name. Some traces come back without any device event
+    (the first row of a run), or with a count of the call's events that
+    the calls do not divide (events lost): up to five are tried. A trace
+    with device events but none of ``symbols`` fails, and so do five that
+    lost events; five with no device event at all raise
+    ``ProfilerBlind``: the profiler cannot see the card in this process,
+    and the script runs again in a new one."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    buf = torch.ones(L2_FLUSH_BYTES, dtype=torch.int8, device="cuda")
+    for _ in range(0 if _FLUSH_SYMBOLS else 5):   # the flush's kernels
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            flush_l2(buf)
+            torch.cuda.synchronize()
+        _FLUSH_SYMBOLS.update(e.name for e in prof.events()
+                              if e.device_type == DeviceType.CUDA)
+        if _FLUSH_SYMBOLS:
+            break
+    else:
+        if not _FLUSH_SYMBOLS:
+            raise ProfilerBlind("torch.profiler recorded no device event in "
+                                "five traces of the L2 flush")
     fn()
     torch.cuda.synchronize()
     for _ in range(5):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
+                flush_l2(buf)
                 fn()
             torch.cuda.synchronize()
         events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        mine = [e for e in events
-                if symbols is None or any(s in e.name for s in symbols)]
+        mine = [e for e in events if e.name not in _FLUSH_SYMBOLS and (
+            symbols is None or any(s in e.name for s in symbols))]
+        if len(mine) % iters:
+            # every call launches the same kernels: a count that the calls
+            # do not divide is a trace that lost events; tried again
+            lost = len(mine)
+            log(f"device_ms: {lost} events of {symbols or 'the call'} over "
+                f"{iters} calls; tracing again")
+            continue
         if mine:
             total = sum(e.time_range.elapsed_us() for e in mine) / 1e3 / iters
             if not split:
@@ -375,6 +454,10 @@ def device_ms(fn, symbols=None, iters: int = 10, split: bool = False):
     if not events:
         raise ProfilerBlind(f"torch.profiler recorded no device event in "
                             f"five traces of {symbols or 'any kernel'}")
+    if mine:
+        raise AssertionError(f"torch.profiler lost device events of "
+                             f"{symbols or 'the call'} in five traces "
+                             f"({lost} events over {iters} calls)")
     raise AssertionError(f"torch.profiler shows no device time for "
                          f"{symbols or 'any kernel'} (device events: "
                          f"{sorted({e.name[:60] for e in events})[:5]})")
@@ -393,6 +476,18 @@ def read_counts() -> dict:
     """{"kernel/dtype": launches} since the last reset."""
     both = {**ha.LAUNCHES_BY_DTYPE, **hg.LAUNCHES_BY_DTYPE}
     return {f"{k}/{dt}": n for (k, dt), n in sorted(both.items()) if n}
+
+
+def saved_counts() -> list:
+    return [(dict(m.LAUNCHES), collections.Counter(m.LAUNCHES_BY_DTYPE))
+            for m in (ha, hg)]
+
+
+def add_counts(saved: list) -> None:
+    for m, (launches, by_dtype) in zip((ha, hg), saved):
+        for k, n in launches.items():
+            m.LAUNCHES[k] += n
+        m.LAUNCHES_BY_DTYPE.update(by_dtype)
 
 
 def by_kernel(counts: dict) -> dict:
@@ -468,7 +563,11 @@ def gn_path(pipe, n: int, steps: int):
     trainer and align-acc run the classifier and the frozen VAE encoder in
     float32 at their batches, once a step or a batch. The serving run (one
     bucket-16 call of one sample) runs the UNet, the classifier and the
-    decoder as ``generate`` does, at the bucket's batches."""
+    decoder as ``generate`` does, at the bucket's batches. The stage-2
+    CLI's SoundLogger (``sound_log``) runs the UNet bf16 at the CFG batch
+    2·SL_N each sampler step, the VAE encoder once and its decoder twice
+    at SL_N a call in fp32 (the VAE's fp32 weights swapped in, as the JAX
+    logger decodes). The waveform VAE's trainer runs no GroupNorm."""
     vae = pipe.ldm.vae
     models = (("unet", pipe.ldm.unet, LATENT_HW, 2 * n, BF16,
                calls(steps, steps, video=steps)),
@@ -499,7 +598,13 @@ def gn_path(pipe, n: int, steps: int):
               ("e-clf", pipe.classifier, LATENT_HW, SERVE_BUCKET, BF16,
                calls(serve=steps)),
               ("e-dec", vae.decoder, LATENT_HW, SERVE_BUCKET, BF16,
-               calls(serve=1)))
+               calls(serve=1)),
+              ("sl-unet", pipe.ldm.unet, LATENT_HW, 2 * SL_N, BF16,
+               calls(sound_log=SL_CALLS * steps)),
+              ("sl-enc", vae.encoder, SPEC_HW, SL_N, FP32,
+               calls(sound_log=SL_CALLS)),
+              ("sl-dec", vae.decoder, LATENT_HW, SL_N, FP32,
+               calls(sound_log=2 * SL_CALLS)))
     out = collections.defaultdict(calls)
     for name, model, hw, batch, dtype, per_run in models:
         for site in gn_sites(model, hw):
@@ -553,6 +658,12 @@ def predicted_launches(pipe, steps: int):
     a = pred["align_acc"]
     a["attn_packed_fwd/float32"] = AA_CALLS * clf
     a["attn_fwd/float32"] = AA_CALLS
+    # the SoundLogger: the UNet's attention forward each sampler step (no
+    # classifier: no backward), the fp32 VAE's mid attention in the encode
+    # and the two decodes; the waveform VAE's trainer: no kernel at all
+    sl = pred["sound_log"]
+    sl["attn_packed_fwd/bfloat16"] = SL_CALLS * steps * unet
+    sl["attn_fwd/float32"] = 3 * SL_CALLS
     for (_, _, c, h, w, _, _, dtype), per_run in gn_path(
             pipe, WINDOWS * SAMPLES, steps).items():
         for k in gn_kernels(c, h, w, dtype.itemsize):
@@ -1084,7 +1195,8 @@ def check_apply_edge(tag, shape, dtype, act, offset, fault, gen):
 
 def kernel_phase(pipe):
     """Every kernel at every shape of the main paths (bf16 in ``generate``,
-    ``inpaint``, ``train_stage2`` and ``serve``, fp32 in ``train_vae``),
+    ``inpaint``, ``train_stage2``, ``serve`` and ``sound_log``'s UNet, fp32
+    in ``train_vae`` and ``sound_log``'s VAE),
     with its calls per run; the kernels of the bf16 paths also once in
     fp32, the per-head backward also once in bf16, both per-head kernels
     at ragged lengths, and the apply kernel at its edges
@@ -1133,6 +1245,19 @@ def kernel_phase(pipe):
     rows.append(("attn_fwd", {**check_head("e-vae-dec-mid", SERVE_BUCKET, l,
                                            l, d, BF16, gen),
                               "calls": calls(serve=1)}))
+    # the stage-2 CLI's SoundLogger: the UNet's attention forward at the
+    # CFG batch 2·SL_N over the training crops' S2_TOKENS tokens, every
+    # sampler step, bf16; the VAE's mid attention at SL_N in the encode
+    # and the two decodes (the encoder's and the decoder's are one shape),
+    # fp32
+    for tag, b, lq, lk, hd, heads, per in attention_sites(
+            "sl-unet", LDM_UNET, 2 * SL_N, S2_TOKENS, True):
+        rows.append(("attn_packed_fwd", {**check_packed(
+            "fwd", tag, b, lq, lk, hd, heads, BF16, gen),
+            "calls": calls(sound_log=SL_CALLS * STEPS * per)}))
+    rows.append(("attn_fwd", {**check_head("sl-vae-mid", SL_N, l, l, d, FP32,
+                                           gen),
+                              "calls": calls(sound_log=3 * SL_CALLS)}))
     # the train step's mid attention, encoder and decoder alike: forward
     # and backward in fp32 at the train batch
     both = calls(train_vae=2 * TRAIN_STEPS)
@@ -1213,6 +1338,12 @@ def kernel_phase(pipe):
     # reset after the comparisons: they are not the main paths' launches
     reset_counts()
     log("kernels " + json.dumps([dict(kernel=k, **r) for k, r in rows]))
+    # the bound is the least time the card could take; a device time under
+    # it (operands left in L2, or a bound that misses the work) is listed
+    under = [(k, r["shape"], r["dtype"], r["device_ms"], r["bound_ms"])
+             for k, r in rows if r["device_ms"] < r["bound_ms"]]
+    log(f"kernel rows whose device time is under their bound: {len(under)} "
+        f"of {len(rows)} {json.dumps(under)}")
     bad = [(k, r["shape"], r["dtype"], r["max_ratio"], r["rms_ratio"])
            for k, r in rows if not r["ok"]]
     if bad:
@@ -2019,6 +2150,152 @@ def train_phase(pipe, expect, profile: bool):
         "lpips_step_s": stages["lpips_step_s"], **gn_cost}
 
 
+# ---- the waveform VAE's trainer ---------------------------------------------------
+
+def write_wavs(root: str, n: int = SV_BATCH,
+               samples: int = SV_WINDOW + 16000, seed: int = 0):
+    """Seeded int16 16-kHz wavs: a few tones with noise, 0.3 of full
+    scale."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(samples) / 16000.0
+    for i in range(n):
+        wav = sum(np.sin(2 * np.pi * f * t + ph) for f, ph in zip(
+            rng.uniform(80, 4000, 4), rng.uniform(0, 2 * np.pi, 4)))
+        wav = 0.3 * wav / 4 + 0.02 * rng.standard_normal(samples)
+        write_wav(os.path.join(root, f"w{i}.wav"),
+                  (wav * 32767).astype(np.int16))
+
+
+def train_sound_vae_phase(expect):
+    """``cli.train_sound_vae`` at the CLI's own width (channels 32, z 128,
+    65536-sample crops, batch 8, AudioGANConfig's defaults: mel windows
+    32–2048, STFT windows 512–2048, n_fft 2048) on seeded wavs, the GAN on
+    from step 0: the main-path call of SV_STEPS steps, every loss finite,
+    no TPU kernel launched; the resume to one step more; then
+    ``load_native_sound_vae`` rebuilds the model, which reconstructs one
+    window on the card."""
+    with tempfile.TemporaryDirectory() as tmp:
+        wav_dir, logdir = os.path.join(tmp, "wavs"), os.path.join(tmp, "log")
+        os.makedirs(wav_dir)
+        write_wavs(wav_dir)
+        args = ["--wav-dir", wav_dir, "--logdir", logdir, "--window",
+                str(SV_WINDOW), "--batch-size", str(SV_BATCH),
+                "--disc-start", "0", "--log-every", "1", "--save-every",
+                "1000000"]
+        log(f"train_sound_vae SoundAutoencoderKL channels 32 z 128, fp32, "
+            f"window {SV_WINDOW}, batch {SV_BATCH}, {SV_STEPS} steps, "
+            "disc_start 0")
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state = train_sound_vae_cli.main(args + ["--steps", str(SV_STEPS)])
+        torch.cuda.synchronize()
+        call_s = time.perf_counter() - t0
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        read_rows = lambda: [json.loads(line) for line in open(
+            os.path.join(logdir, "metrics.jsonl"))]
+        rows = read_rows()
+        log("train_sound_vae metrics " + json.dumps(rows))
+        check_launches("train_sound_vae", launches, expect)
+        if [r["step"] for r in rows] != list(range(1, SV_STEPS + 1)):
+            raise AssertionError("train_sound_vae did not log every step")
+        for r in rows:
+            if not (np.isfinite(list(r.values())).all()
+                    and r["train/d_loss"] > 0):
+                raise AssertionError(f"train_sound_vae metrics: {r}")
+        warm = min(r["step_s"] for r in rows[1:])
+        log(f"train_sound_vae {call_s:.3f} s (main-path call: set-up, "
+            f"{SV_STEPS} steps, checkpoint); first step "
+            f"{rows[0]['step_s']:.4f} s, warm step {warm:.4f} s, "
+            f"peak_mem_GiB {peak:.3f}; total_loss "
+            f"{rows[0]['train/total_loss']:.4f} → "
+            f"{rows[-1]['train/total_loss']:.4f}")
+        n_params = sum(p.numel() for p in state.vae.parameters())
+        del state
+        resumed = train_sound_vae_cli.main(
+            args + ["--steps", str(SV_STEPS + 1), "--resume"])
+        adam = resumed.opt.state_dict()["state"][0]["step"]
+        last = read_rows()[-1]
+        log(f"train_sound_vae resume: step {resumed.step}, Adam step "
+            f"{int(adam)}, total_loss {last['train/total_loss']:.4f}")
+        if not (resumed.step == int(adam) == last["step"] == SV_STEPS + 1
+                and np.isfinite(last["train/total_loss"])):
+            raise AssertionError("the resumed run did not continue at the "
+                                 "saved step")
+        del resumed
+        vae = load_native_sound_vae(logdir).to("cuda")
+        wav = next(train_sound_vae_cli.iter_wav_batches(
+            [os.path.join(wav_dir, "w0.wav")], SV_WINDOW, 1, 0))
+        x = torch.from_numpy(wav).to("cuda")
+        with torch.no_grad():
+            rec, post = vae(x, sample_posterior=False)
+        l1 = float((rec - x).abs().mean())
+        log(f"train_sound_vae load_native_sound_vae: reconstruction "
+            f"{tuple(rec.shape)} of latent {tuple(post.mean.shape)}, "
+            f"mean |rec − x| {l1:.4f} (mean |x| "
+            f"{float(x.abs().mean()):.4f})")
+        if rec.shape != x.shape or not torch.isfinite(rec).all():
+            raise AssertionError("the rebuilt waveform VAE does not "
+                                 "reconstruct")
+    return launches, {
+        "batch": SV_BATCH, "window": SV_WINDOW, "vae_params": n_params,
+        "main_call_s": call_s, "first_step_s": rows[0]["step_s"],
+        "cli_step_s": [r["step_s"] for r in rows], "warm_step_s": warm,
+        "peak_mem_GiB": peak, "reconstruction_l1": l1,
+        **{f"first_{k[6:]}": v for k, v in rows[0].items()
+           if k.startswith("train/")},
+        **{f"last_{k[6:]}": v for k, v in rows[-1].items()
+           if k.startswith("train/")}}
+
+
+def transform_spec_phase(spec: np.ndarray, tmp: str) -> dict:
+    """``cli.transform_spec`` over ``generate``'s specs, one file per
+    sample and window (128 × 512), to the SpecVQGAN format (twice: the
+    first pass and a warm one) and back: the shapes, the [0, 1] range,
+    the round trip's distance, seconds per file (host numpy and scipy)."""
+    d_in, d_vq, d_back = (os.path.join(tmp, d) for d in ("in", "vq", "back"))
+    os.makedirs(d_in)
+    names = []
+    for i in range(spec.shape[0]):
+        for w in range(spec.shape[-1] // SPEC_HW[1]):
+            names.append(f"s{i}_w{w}.npy")
+            np.save(os.path.join(d_in, names[-1]),
+                    spec[i, :, w * SPEC_HW[1]:(w + 1) * SPEC_HW[1]])
+    out = {}
+    # the first pass pays scipy's import and the mel bases; the second is
+    # what each further file costs
+    for run, src, dst, direction in (
+            ("first", d_in, d_vq, "to_specvqgan"),
+            ("warm", d_in, d_vq, "to_specvqgan"),
+            ("warm", d_vq, d_back, "to_native")):
+        t0 = time.perf_counter()
+        rc = transform_spec_cli.main(["--input", src, "--output", dst,
+                                      "--direction", direction])
+        out[f"{run}_{direction}_s_per_file"] = (time.perf_counter() - t0) \
+            / len(names)
+        if rc:
+            raise AssertionError(f"transform_spec {direction} failed")
+    dist = []
+    for n in names:
+        vq, back = (np.load(os.path.join(d, n)) for d in (d_vq, d_back))
+        orig = np.load(os.path.join(d_in, n))
+        if vq.shape != (80, 706) or back.shape != (128, 513) or not all(
+                np.isfinite(a).all() and a.min() >= 0.0 and a.max() <= 1.0
+                for a in (vq, back)):
+            raise AssertionError(f"transform_spec {n}: {vq.shape} "
+                                 f"{back.shape}")
+        dist.append(float(np.abs(back[:, :SPEC_HW[1]] - orig).mean()))
+    out["round_trip_mean_abs"] = dist
+    log(f"transform_spec {len(names)} files (128, 512) → (80, 706) → "
+        f"(128, 513), all in [0, 1]; round trip mean |Δ| per file "
+        f"{[round(d, 6) for d in dist]}; s/file to_specvqgan "
+        f"{out['first_to_specvqgan_s_per_file']:.4f} first pass, "
+        f"{out['warm_to_specvqgan_s_per_file']:.4f} warm; to_native "
+        f"{out['warm_to_native_s_per_file']:.4f} warm")
+    return out
+
+
 # ---- stage-2 training -----------------------------------------------------------
 
 def write_pairs(root: str, n: int = S2_ITEMS, frames: int = 600,
@@ -2086,11 +2363,133 @@ def s2_args(data: str, logdir: str) -> list:
             "--val-batches", "1"]
 
 
+@contextlib.contextmanager
+def stage2_probes(events: list):
+    """While the stage-2 CLI runs: each ``SoundLogger.log`` call runs with
+    the launch counts set to 0 and read just after (the CLI run's counts
+    then put back), timed; a SIGUSR1 is raised while step S2_STEPS runs;
+    and ``events`` records, in order, the signal, each train checkpoint
+    saved and each logger call."""
+    log_fn = callbacks_module.SoundLogger.log
+    save_fn = checkpoint_module.save_checkpoint
+    step_fn = Stage2Trainer.train_step
+
+    def sound_log(self, step, *a, **k):
+        saved = saved_counts()
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = log_fn(self, step, *a, **k)
+        torch.cuda.synchronize()
+        events.append(("sound", step, time.perf_counter() - t0,
+                       read_counts(), out))
+        reset_counts()
+        add_counts(saved)
+        return out
+
+    def save_checkpoint(ckpt_dir, step, payload, keep=None):
+        if os.path.basename(ckpt_dir) == "ckpt":
+            events.append(("save", step))
+        return save_fn(ckpt_dir, step, payload, keep)
+
+    def train_step(self, state, *a, **k):
+        if state.step == S2_STEPS - 1 and not any(
+                e[0] == "signal" for e in events):
+            events.append(("signal", S2_STEPS))
+            os.kill(os.getpid(), signal.SIGUSR1)
+        return step_fn(self, state, *a, **k)
+
+    callbacks_module.SoundLogger.log = sound_log
+    checkpoint_module.save_checkpoint = save_checkpoint
+    Stage2Trainer.train_step = train_step
+    try:
+        yield
+    finally:
+        callbacks_module.SoundLogger.log = log_fn
+        checkpoint_module.save_checkpoint = save_fn
+        Stage2Trainer.train_step = step_fn
+
+
+def check_sound_logs(events: list, expect: dict) -> dict:
+    """The SoundLogger's calls of the stage-2 run: at every SL_EVERY-th
+    step, their launches summed against the prediction, their files
+    (three clipped mel ``.npy`` of SL_N items and SL_N int16 wavs of each)
+    finite, in [0, 1] and of the path's shapes."""
+    logs = [e for e in events if e[0] == "sound"]
+    if [e[1] for e in logs] != list(range(SL_EVERY, S2_STEPS + 1,
+                                          SL_EVERY)):
+        raise AssertionError(f"SoundLogger calls at {[e[1] for e in logs]}")
+    total = collections.Counter()
+    for _, step, seconds, launches, out in logs:
+        total.update(launches)
+        for name in ("gt", "rec", "sample"):
+            mel = np.load(os.path.join(out, f"{name}_spec.npy"))
+            if mel.shape != (SL_N, *SPEC_HW) or not (
+                    np.isfinite(mel).all() and mel.min() >= 0.0
+                    and mel.max() <= 1.0):
+                raise AssertionError(f"SoundLogger {name} spec {mel.shape}")
+            for i in range(SL_N):
+                wav, sr = read_wav(os.path.join(out, f"{name}_{i}.wav"))
+                if sr != 16000 or wav.shape != (511 * 256,) \
+                        or not np.isfinite(wav).all():
+                    raise AssertionError(f"SoundLogger {name}_{i}.wav "
+                                         f"{wav.shape} at {sr} Hz")
+        log(f"train_stage2 SoundLogger step {step}: {seconds:.3f} s, "
+            f"launches {json.dumps(launches)}; gt/rec/sample specs "
+            f"({SL_N}, {SPEC_HW[0]}, {SPEC_HW[1]}) finite in [0, 1], "
+            f"{3 * SL_N} wavs of {511 * 256} samples")
+    check_launches("sound_log", dict(sorted(total.items())), expect)
+    return {"sound_log_s": [e[2] for e in logs]}
+
+
+def check_preemption(events: list, ckpt_dir: str) -> None:
+    """The SIGUSR1 raised during step S2_STEPS made the CLI save at that
+    step's boundary (before the step's logger call), and that save was
+    the run's only one: the last step needs no second."""
+    order = [e[:2] for e in events]
+    log(f"train_stage2 preemption: events {order}")
+    i = order.index(("signal", S2_STEPS))
+    saves = [e for e in order if e[0] == "save"]
+    if not (saves == [("save", S2_STEPS)]
+            and order[i + 1:] == [("save", S2_STEPS), ("sound", S2_STEPS)]
+            and os.path.exists(os.path.join(ckpt_dir,
+                                            f"step_{S2_STEPS}.pt"))):
+        raise AssertionError("the CLI did not save at the step boundary "
+                             f"after SIGUSR1: {order}")
+
+
+def yaml_base_check() -> dict:
+    """``cli.train_stage2 --base configs/stage2_ldm.yaml`` builds the
+    flagship (with the YAML's block recompute), on the meta device."""
+    try:
+        import yaml  # noqa: F401
+    except ImportError:
+        log("train_stage2 --base: PyYAML does not import on this machine; "
+            "the case stays with the CPU tests")
+        return {"base_yaml": "PyYAML absent"}
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "configs", "stage2_ldm.yaml")
+    args = train_stage2_cli.parse_args(["--data-dir", "-", "--base", path])
+    with torch.device("meta"):
+        ldm = train_stage2_cli.build_ldm(args)
+    want = dataclasses.replace(LDMConfig(), unet=dataclasses.replace(
+        LDM_UNET, use_checkpoint=True))
+    log(f"train_stage2 --base {os.path.relpath(path)}: {ldm.cfg} "
+        f"equals the flagship with use_checkpoint {ldm.cfg == want}")
+    if ldm.cfg != want:
+        raise AssertionError("--base configs/stage2_ldm.yaml is not the "
+                             "flagship")
+    return {"base_yaml": "flagship"}
+
+
 def train_stage2_phase(expect, profile: bool, root: str):
     """``cli.train_stage2`` at the full width of LDM_UNET and SD_VAE,
     mixed precision with EMA, batch 16, on seeded random weights: the
     main-path call of S2_STEPS steps with one validation round at its last
-    step, the resume for one step more, the fixed-batch fixed-draw eval
+    step, the SoundLogger every SL_EVERY steps (``sound_log``: its own
+    launches) and a SIGUSR1 during the last step (its checkpoint is the
+    call's one save), the ``--base`` YAML's model, the resume for one step
+    more, the fixed-batch fixed-draw eval
     loss before and after, the EMA's distance, ``load_native_ldm`` then a
     short CFG-only ``generate``; then warm steps split into forward and
     backward, AdamW and EMA, and the step's profile."""
@@ -2129,13 +2528,23 @@ def train_stage2_phase(expect, profile: bool, root: str):
     log(f"train_stage2 LDM_UNET + cond encoder, SD_VAE frozen, bf16 on "
         f"fp32 masters, EMA, batch {S2_BATCH}, lr {S2_LR}, {S2_STEPS} "
         f"steps and one validation batch")
+    events = []
     reset_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    state = train_stage2_cli.main(args + ["--max-steps", str(S2_STEPS)])
+    with stage2_probes(events):
+        state = train_stage2_cli.main(args + [
+            "--max-steps", str(S2_STEPS), "--sound-log-every",
+            str(SL_EVERY)])
     torch.cuda.synchronize()
     call_s = time.perf_counter() - t0
     launches = read_counts()
+    out.update(check_sound_logs(events, expect["sound_log"]))
+    out["sound_log_launches"] = dict(sorted(sum(
+        (collections.Counter(e[3]) for e in events if e[0] == "sound"),
+        collections.Counter()).items()))
+    check_preemption(events, os.path.join(logdir, "ckpt"))
+    out.update(yaml_base_check())
     peak = torch.cuda.max_memory_allocated() / 2**30
     peak_reserved = torch.cuda.max_memory_reserved() / 2**30
     read_rows = lambda: [json.loads(line) for line in open(
@@ -2143,9 +2552,9 @@ def train_stage2_phase(expect, profile: bool, root: str):
     rows = read_rows()
     log("train_stage2 metrics " + json.dumps(rows))
     log(f"train_stage2 {call_s:.3f} s (main-path call: set-up, "
-        f"{S2_STEPS} steps, validation, checkpoint) peak_mem_GiB "
-        f"{peak:.3f} reserved {peak_reserved:.3f}")
-    check_launches("train_stage2", launches, expect)
+        f"{S2_STEPS} steps, validation, {SL_CALLS} SoundLogger calls, "
+        f"checkpoint) peak_mem_GiB {peak:.3f} reserved {peak_reserved:.3f}")
+    check_launches("train_stage2", launches, expect["train_stage2"])
     train_rows = [r for r in rows if "train/loss" in r]
     val_rows = [r for r in rows if "val/loss_simple_ema" in r]
     if [r["step"] for r in train_rows] != list(range(1, S2_STEPS + 1)) \
@@ -2976,6 +3385,75 @@ def agreement_stage2_phase():
                              "fault")
 
 
+# The tiny waveform VAE step, GPU fp32 against the CPU in float64, per
+# leaf against rms(float64): (max|Δ|, rms(Δ)). The discriminators' biases
+# sum over whole STFT maps: on the CPU, fp32 lands up to 3.2e-4 of a
+# leaf's max from float64 there (tests/test_torch_sound_vae.py). A
+# gradient wrong by 1% of a leaf is ten times the max limit.
+SV_GRAD_TOL = (3e-3, 1e-3)
+SV_FAULT_LEAF = "vae.decoder.block3_up.weight"
+
+
+def agreement_sound_vae_phase():
+    """One ``SoundVAETrainer`` step of a tiny waveform VAE (channels 4, z 8,
+    8192 samples, batch 2; the JAX package's tiny GAN point: n_fft 256,
+    mel windows 32 and 128, STFT windows 128 and 256) on the GPU in fp32
+    (cuDNN's convolutions and LSTM, cuFFT) against the same step on the
+    CPU in float64, from equal states, with the same batch and posterior
+    noise: the metrics, the gradients per leaf before Adam at
+    ``SV_GRAD_TOL`` (the CPU's own fp32 step printed beside), and a
+    planted 1% fault on ``SV_FAULT_LEAF`` that must be caught."""
+    cfg = AudioGANConfig(mel_windows=(5, 7), stft_windows=(7, 8), n_fft=256,
+                         disc_start=0, lr=1e-3)
+    trainer = SoundVAETrainer(cfg, SoundVAEConfig(channels=4, z_channels=8,
+                                                  enc_out_channels=16))
+    rng = np.random.default_rng(11)
+    wav = torch.as_tensor(0.1 * rng.standard_normal((2, 8192, 1)),
+                          dtype=FP32)
+    noise = torch.as_tensor(rng.standard_normal((2, 256, 8)), dtype=FP32)
+    grads, metrics = {}, {}
+    for run, device, dtype in (("gpu", "cuda", FP32), ("cpu", "cpu", FP32),
+                               ("cpu64", "cpu", torch.float64)):
+        state = trainer.init_train_state(0, device)
+        state.vae.to(dtype)
+        state.disc.to(dtype)
+        m = trainer.train_step(state, wav.to(device, dtype),
+                               noise=noise.to(device, dtype))
+        metrics[run] = {k: float(v) for k, v in m.items()}
+        grads[run] = {f"{part}.{k}": p.grad.detach().cpu()
+                      for part, mod in (("vae", state.vae),
+                                        ("disc", state.disc))
+                      for k, p in mod.named_parameters()
+                      if p.grad is not None}
+    worst = max(abs(metrics["gpu"][k] - ref) / max(abs(ref), 1e-3)
+                for k, ref in metrics["cpu64"].items())
+    zero = noise_gradients(grads["cpu64"])
+    grad_worst = gradient_agreement(grads["gpu"], grads["cpu64"], zero,
+                                    *SV_GRAD_TOL)
+    cpu_worst = gradient_agreement(grads["cpu"], grads["cpu64"], zero,
+                                   1.0, 1.0)
+    faulty = dict(grads["gpu"])
+    faulty[SV_FAULT_LEAF] = faulty[SV_FAULT_LEAF] * 1.01
+    try:
+        gradient_agreement(faulty, grads["cpu64"], zero, *SV_GRAD_TOL)
+        caught = False
+    except AssertionError:
+        caught = True
+    log(f"agreement tiny train_sound_vae gpu fp32 vs cpu float64, one step "
+        f"from equal states: metrics worst relative Δ {worst:.3e} (tol "
+        f"1e-4); gradients per leaf, worst (max|Δ|, rms(Δ)) / rms(ref) "
+        f"{list(grad_worst)} (limits {list(SV_GRAD_TOL)}; the CPU's fp32 "
+        f"step {list(cpu_worst)}) over {len(grads['cpu64'])} leaves; "
+        f"planted fault ({SV_FAULT_LEAF} ×1.01) caught {caught}; metrics "
+        f"{json.dumps(metrics['cpu64'])}")
+    if not worst <= 1e-4:
+        raise AssertionError("GPU waveform VAE metrics disagree with the "
+                             "CPU's")
+    if not caught:
+        raise AssertionError("the waveform VAE agreement passes the planted "
+                             "fault")
+
+
 def _rms(t: torch.Tensor) -> float:
     return float(t.double().square().mean().sqrt())
 
@@ -3729,6 +4207,9 @@ def main(argv):
     launches["generate"], times, spec = generate_phase(
         pipe, feats, expect["generate"], profile)
     log("generate times " + json.dumps(times))
+    with tempfile.TemporaryDirectory() as tmp:
+        log("transform_spec times " + json.dumps(
+            transform_spec_phase(spec, tmp)))
     launches["inpaint"], times = inpaint_phase(
         pipe, feats, spec, expect["inpaint"], profile)
     log("inpaint times " + json.dumps(times))
@@ -3745,10 +4226,15 @@ def main(argv):
     log("train_vae times " + json.dumps(times))
     del pipe
     torch.cuda.empty_cache()
+    launches["train_sound_vae"], times = train_sound_vae_phase(
+        expect["train_sound_vae"])
+    log("train_sound_vae times " + json.dumps(times))
+    torch.cuda.empty_cache()
     # the trainers' logdirs live until the composition phase reads them
     with tempfile.TemporaryDirectory() as root:
         launches["train_stage2"], times, ldm_logdir = train_stage2_phase(
-            expect["train_stage2"], profile, root)
+            expect, profile, root)
+        launches["sound_log"] = times.pop("sound_log_launches")
         log("train_stage2 times " + json.dumps(times))
         launches["train_classifier"], times, clf_logdir = \
             train_classifier_phase(expect["train_classifier"], root, profile)
@@ -3772,6 +4258,7 @@ def main(argv):
     agreement_phase()
     agreement_train_phase()
     agreement_stage2_phase()
+    agreement_sound_vae_phase()
     agreement_classifier_phase()
     agreement_cavp_phase()
     log(json.dumps({"kernels": summarize(rows, launches)}))

@@ -30,10 +30,8 @@ from __future__ import annotations
 
 import argparse
 import glob as globlib
-import json
 import os
 import re
-import time
 
 import numpy as np
 import torch
@@ -155,6 +153,7 @@ def main(argv=None):
     from ..parallel.distributed import setup
     from ..train.stage1_cavp import Stage1TrainConfig, Stage1Trainer
     from ..utils.checkpoint import latest_checkpoint, save_checkpoint
+    from ..utils.logging import MetricsLogger, Stopwatch
 
     device, mesh, rank, world = setup(args.device)
     shards = expand_braces(args.train_shards)
@@ -213,48 +212,41 @@ def main(argv=None):
                 buf = []
 
     cast = torch.bfloat16 if args.mixed_precision else None
-    t_log, n_log = time.perf_counter(), state.step
-    metrics_path = (os.path.join(args.logdir, "metrics.jsonl") if rank == 0
-                    else os.devnull)
-    with open(metrics_path, "a") as log:
-        def write(row):
-            log.write(json.dumps(row) + "\n")
-            log.flush()
-
-        for epoch in range(args.epochs):
-            n_steps = 0
-            for batch in DevicePrefetcher(step_batches(epoch), device=device,
-                                          cast_dtype=cast):
-                if tcfg.accum_freq > 1:
-                    metrics = trainer.accum_train_step(state, batch, gen)
-                else:
-                    metrics = trainer.train_step(state, batch, gen)
-                n_steps += 1
-                step = state.step
-                if step % args.log_every == 0:
-                    # reading the metrics waits for the device
-                    m = {f"train/{k}": float(v) for k, v in metrics.items()}
-                    now = time.perf_counter()
-                    m["step"] = step
-                    m["step_s"] = (now - t_log) / (step - n_log)
-                    t_log, n_log = now, step
-                    write(m)
-                    print(f"epoch {epoch} step {step}: "
-                          f"loss={m['train/total_loss']:.4f}")
-                if args.steps_per_epoch and n_steps >= args.steps_per_epoch:
-                    break
-            if args.val_shards and (epoch + 1) % args.val_frequency == 0:
-                vm = run_retrieval_eval(model, expand_braces(args.val_shards),
-                                        scfg, args.val_samples, device)
-                if vm:
-                    write({"step": state.step,
-                           **{f"val/{k}": v for k, v in vm.items()}})
-                    print(f"epoch {epoch} retrieval: v2s R@1="
-                          f"{vm['video_to_spec_R@1']:.3f} s2v R@1="
-                          f"{vm['spec_to_video_R@1']:.3f}")
-                t_log = time.perf_counter()
-            if (epoch + 1) % args.save_every_epochs == 0:
-                save()
+    watch, n_log = Stopwatch(), state.step
+    logger = MetricsLogger(args.logdir if rank == 0 else None,
+                           name="metrics", use_tensorboard=True)
+    for epoch in range(args.epochs):
+        n_steps = 0
+        for batch in DevicePrefetcher(step_batches(epoch), device=device,
+                                      cast_dtype=cast):
+            if tcfg.accum_freq > 1:
+                metrics = trainer.accum_train_step(state, batch, gen)
+            else:
+                metrics = trainer.train_step(state, batch, gen)
+            n_steps += 1
+            step = state.step
+            if step % args.log_every == 0:
+                # reading the metrics waits for the device
+                m = {f"train/{k}": float(v) for k, v in metrics.items()}
+                m["step_s"] = watch.lap() / (step - n_log)
+                n_log = step
+                logger.log(step, m)
+                print(f"epoch {epoch} step {step}: "
+                      f"loss={m['train/total_loss']:.4f}")
+            if args.steps_per_epoch and n_steps >= args.steps_per_epoch:
+                break
+        if args.val_shards and (epoch + 1) % args.val_frequency == 0:
+            vm = run_retrieval_eval(model, expand_braces(args.val_shards),
+                                    scfg, args.val_samples, device)
+            if vm:
+                logger.log(state.step, vm, prefix="val/")
+                print(f"epoch {epoch} retrieval: v2s R@1="
+                      f"{vm['video_to_spec_R@1']:.3f} s2v R@1="
+                      f"{vm['spec_to_video_R@1']:.3f}")
+            watch.lap()   # kept out of step_s
+        if (epoch + 1) % args.save_every_epochs == 0:
+            save()
+    logger.close()
     save()
     print(f"done at step {state.step}; checkpoints in {ckpt_dir}")
     return state

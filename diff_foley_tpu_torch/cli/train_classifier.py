@@ -27,9 +27,7 @@ only.
 from __future__ import annotations
 
 import argparse
-import json
 import os
-import time
 
 import torch
 
@@ -103,6 +101,7 @@ def main(argv=None):
     from ..data.loader import DevicePrefetcher, PrefetchLoader
     from ..parallel.distributed import setup
     from ..utils.checkpoint import latest_checkpoint, save_checkpoint
+    from ..utils.logging import MetricsLogger, Stopwatch
 
     device, mesh, rank, world = setup(args.device)
     trainer = build_trainer(args, mesh)
@@ -150,31 +149,27 @@ def main(argv=None):
                 "generators": {"train": gen.get_state()}}, keep=3)
 
     epoch = 0
-    t_log, n_log = time.perf_counter(), state.step
-    metrics_path = (os.path.join(args.logdir, "metrics.jsonl") if rank == 0
-                    else os.devnull)
-    with open(metrics_path, "a") as log:
-        while state.step < args.max_steps:
-            for batch in DevicePrefetcher(loader.epoch(epoch),
-                                          device=device):
-                metrics = trainer.train_step(state, batch, gen)
-                step = state.step
-                if step % args.log_every == 0:
-                    # reading the metrics waits for the device
-                    m = {f"train/{k}": float(v) for k, v in metrics.items()}
-                    now = time.perf_counter()
-                    m["step"] = step
-                    m["step_s"] = (now - t_log) / (step - n_log)
-                    t_log, n_log = now, step
-                    log.write(json.dumps(m) + "\n")
-                    log.flush()
-                    print(f"step {step}: bce={m['train/bce_loss']:.4f} "
-                          f"acc={m['train/acc']:.3f}")
-                if step % args.save_every == 0:
-                    save()
-                if step >= args.max_steps:
-                    break
-            epoch += 1
+    watch, n_log = Stopwatch(), state.step
+    logger = MetricsLogger(args.logdir if rank == 0 else None,
+                           name="metrics", use_tensorboard=True)
+    while state.step < args.max_steps:
+        for batch in DevicePrefetcher(loader.epoch(epoch), device=device):
+            metrics = trainer.train_step(state, batch, gen)
+            step = state.step
+            if step % args.log_every == 0:
+                # reading the metrics waits for the device
+                m = {f"train/{k}": float(v) for k, v in metrics.items()}
+                m["step_s"] = watch.lap() / (step - n_log)
+                n_log = step
+                logger.log(step, m)
+                print(f"step {step}: bce={m['train/bce_loss']:.4f} "
+                      f"acc={m['train/acc']:.3f}")
+            if step % args.save_every == 0:
+                save()
+            if step >= args.max_steps:
+                break
+        epoch += 1
+    logger.close()
     save()
     print(f"done at step {state.step}; checkpoints in {ckpt_dir}")
     return state

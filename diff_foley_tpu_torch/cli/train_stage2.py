@@ -28,24 +28,30 @@ or validation round). ``--resume`` continues from the newest checkpoint;
 ``utils.checkpoint.load_native_ldm`` rebuilds the trained model from the
 logdir. ``--vae-ckpt`` takes a ``cli.train_vae`` logdir of this package or
 a reference torch checkpoint; without it the VAE has seeded random
-weights. The last checkpoint is written at the end (preemption handling
-is not ported).
+weights. ``--base`` builds the model from a reference-format YAML
+(``configs/stage2_ldm.yaml``; ``--tiny`` is taken before it, as in the JAX
+CLI). ``--sound-log-every N`` writes listening samples
+(``train.callbacks.SoundLogger``) under ``<logdir>/sound/`` every N steps,
+on rank 0 (its VAE in float32 under ``--mixed-precision``). SIGUSR1 or
+SIGTERM saves a checkpoint at the next step boundary; with more than one
+process, at the next log step, where the ranks agree on the signal
+first. The last checkpoint is written at the end unless that step was
+just saved.
 """
 from __future__ import annotations
 
 import argparse
-import json
 import os
-import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--base", default=None,
-                   help="model YAML (reference format): not ported")
+                   help="model YAML (reference format)")
     p.add_argument("--data-dir", required=True)
     p.add_argument("--logdir", default="./logs/stage2")
     p.add_argument("--batch-size", type=int, default=16)
@@ -59,7 +65,7 @@ def parse_args(argv=None):
     p.add_argument("--save-every", type=int, default=2000)
     p.add_argument("--log-every", type=int, default=50)
     p.add_argument("--sound-log-every", type=int, default=0,
-                   help="0 disables the SoundLogger callback (not ported)")
+                   help="0 disables the SoundLogger callback")
     p.add_argument("--val-every", type=int, default=0,
                    help="validation every N steps (0 disables)")
     p.add_argument("--val-batches", type=int, default=8)
@@ -80,18 +86,6 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def refuse(args) -> None:
-    """Exit with a message naming the ROADMAP item of each flag the port
-    does not run."""
-    if args.sound_log_every > 0:
-        raise SystemExit("--sound-log-every: the SoundLogger callback "
-                         "(train/callbacks.py) is in ROADMAP §1's long tail, "
-                         "not ported")
-    if args.base:
-        raise SystemExit("--base: reference YAML loading (config.py) is in "
-                         "ROADMAP §1's long tail, not ported")
-
-
 def build_ldm(args):
     from ..diffusion.latent_diffusion import LatentDiffusion, LDMConfig
     from ..models.unet import UNetConfig
@@ -104,6 +98,10 @@ def build_ldm(args):
                             num_heads=4, context_dim=24),
             vae=VAEConfig(ch=32, ch_mult=(1, 2, 4, 4), num_res_blocks=1),
             cond_embed_dim=24))
+    if args.base:
+        from ..config import load_ldm_from_yaml
+
+        return load_ldm_from_yaml(args.base)
     return LatentDiffusion(LDMConfig())
 
 
@@ -136,13 +134,15 @@ def to_device(batch: dict, device) -> dict:
 
 def main(argv=None):
     args = parse_args(argv)
-    refuse(args)
     from ..config import save_run_config
     from ..data.ldm_dataset import LDMDataConfig, SpecFeatDataset
     from ..data.loader import DevicePrefetcher, PrefetchLoader
     from ..parallel.distributed import setup
+    from ..train.callbacks import SoundLogger
     from ..train.stage2_ldm import Stage2TrainConfig, Stage2Trainer
     from ..utils.checkpoint import latest_checkpoint, save_checkpoint
+    from ..utils.logging import MetricsLogger, Stopwatch
+    from ..utils.resilience import PreemptionCheckpointer
 
     device, mesh, rank, world = setup(args.device)
     ldm = build_ldm(args)
@@ -187,6 +187,12 @@ def main(argv=None):
                         newest_vae[0] + 1, {"vae": ldm.vae.state_dict()},
                         keep=1)
 
+    # the SoundLogger's VAE computes in float32, as the JAX logger's: the
+    # weights from before the trainer casts the frozen VAE to bf16
+    sound_vae = ({k: p.detach().clone()
+                  for k, p in ldm.vae.named_parameters()}
+                 if args.sound_log_every and rank == 0
+                 and args.mixed_precision else None)
     trainer = Stage2Trainer(ldm, tcfg, mesh=mesh, fsdp=args.fsdp)
     state = trainer.init_train_state(args.seed, device)
     n_params = sum(p.numel() for p in trainer.full.values())
@@ -209,24 +215,45 @@ def main(argv=None):
         gen.set_state(sd["generators"]["train"].cpu())
         print(f"resumed from step {state.step}")
 
+    saved_step = None
+
     def save():   # the newest three stay, as the JAX package keeps them
+        nonlocal saved_step
         whole = trainer.state_dict(state)   # every rank joins the gather
         if rank == 0:
             save_checkpoint(ckpt_dir, state.step, {
                 "state": whole,
                 "generators": {"train": gen.get_state()}}, keep=3)
+        saved_step = state.step
 
+    preempt = PreemptionCheckpointer()
+    # the ranks agree on a signal before the (collective) save, over gloo
+    # on the host (a device scalar read every step would wait for the
+    # step), and only at log steps: there each rank has just waited for
+    # its device, whose step joined the other ranks' collectives, so the
+    # agreement adds no wait of its own
+    flag_group = dist.new_group(backend="gloo") if world > 1 else None
+
+    def preempted(step: int) -> bool:
+        if flag_group is None:
+            return preempt.should_checkpoint
+        if step % args.log_every:
+            return False
+        flag = torch.tensor([float(preempt.should_checkpoint)])
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=flag_group)
+        return bool(flag.item())
+
+    logger = MetricsLogger(args.logdir if rank == 0 else None,
+                           name="metrics", use_tensorboard=True)
+    sound = (SoundLogger(os.path.join(args.logdir, "sound"), ldm,
+                         every_n_steps=args.sound_log_every,
+                         dtype=trainer.dtype, vae_params=sound_vae)
+             if args.sound_log_every and rank == 0 else None)
     cast = torch.bfloat16 if args.mixed_precision else None
     val_name = "loss_simple_ema" if tcfg.use_ema else "loss_simple"
     epoch = 0
-    t_log, n_log = time.perf_counter(), state.step
-    metrics_path = (os.path.join(args.logdir, "metrics.jsonl") if rank == 0
-                    else os.devnull)
-    with open(metrics_path, "a") as log:
-        def write(row):
-            log.write(json.dumps(row) + "\n")
-            log.flush()
-
+    watch, n_log = Stopwatch(), state.step
+    try:
         while state.step < args.max_steps:
             for batch in DevicePrefetcher(loader.epoch(epoch), device=device,
                                           cast_dtype=cast):
@@ -235,11 +262,9 @@ def main(argv=None):
                 if step % args.log_every == 0:
                     # reading the metrics waits for the device
                     m = {f"train/{k}": float(v) for k, v in metrics.items()}
-                    now = time.perf_counter()
-                    m["step"] = step
-                    m["step_s"] = (now - t_log) / (step - n_log)
-                    t_log, n_log = now, step
-                    write(m)
+                    m["step_s"] = watch.lap() / (step - n_log)
+                    n_log = step
+                    logger.log(step, m)
                     print(f"step {step}: loss={m['train/loss']:.4f}")
                 if args.val_every and step % args.val_every == 0:
                     losses = []
@@ -251,17 +276,34 @@ def main(argv=None):
                         losses.append(float(vm["loss_simple"]))
                         if len(losses) >= args.val_batches:
                             break
-                    write({"step": step,
-                           f"val/{val_name}": float(np.mean(losses))})
+                    logger.log(step, {f"val/{val_name}": np.mean(losses)})
                     print(f"step {step}: val/{val_name}="
                           f"{np.mean(losses):.4f}")
-                    t_log = time.perf_counter()
-                if step % args.save_every == 0:
+                    watch.lap()   # kept out of step_s
+                if preempted(step):
                     save()
+                    preempt.clear()
+                    print(f"step {step}: preemption signal, checkpoint "
+                          "saved")
+                elif step % args.save_every == 0:
+                    save()
+                if args.sound_log_every and step % args.sound_log_every \
+                        == 0:
+                    # the compute copy of the updated masters, whole on
+                    # every rank (an FSDP gather: every rank joins)
+                    trainer._gather_masters(state)
+                if sound is not None and sound.maybe_log(
+                        step, trainer.full, batch,
+                        torch.Generator(device).manual_seed(step)):
+                    watch.lap()   # kept out of step_s
                 if step >= args.max_steps:
                     break
             epoch += 1
-    save()
+        if saved_step != state.step:
+            save()
+    finally:
+        preempt.close()
+        logger.close()
     print(f"done at step {state.step}; checkpoints in {ckpt_dir}")
     if device.type == "cuda":
         print(f"rank {rank}: peak device memory "

@@ -15,20 +15,19 @@ one-process step on the global batch (batch × processes), and rank 0
 alone writes the logdir. Checkpoints
 (both models, both optimizers, the step and the noise generator's state)
 are ``torch.save``d under ``<logdir>/ckpt/step_<n>.pt``; ``--resume``
-continues from the newest. Metrics go to ``<logdir>/metrics.jsonl``, one
-JSON object per logged step.
+continues from the newest. Metrics go to ``<logdir>/metrics.jsonl``
+through ``utils.logging.MetricsLogger``, one JSON object per logged step.
 """
 from __future__ import annotations
 
 import argparse
-import json
 import os
-import time
 
 import torch
 
 from ..utils.checkpoint import latest_checkpoint
 from ..utils.checkpoint import save_checkpoint as save_step_checkpoint
+from ..utils.logging import MetricsLogger, Stopwatch
 
 
 def parse_args(argv=None):
@@ -111,31 +110,27 @@ def main(argv=None):
         print(f"resumed from step {state.step}")
 
     epoch = 0
-    t_log, n_log = time.perf_counter(), state.step
+    watch, n_log = Stopwatch(), state.step
     save = lambda: rank == 0 and save_checkpoint(ckpt_dir, state, noise_gen)
-    metrics_path = (os.path.join(args.logdir, "metrics.jsonl") if rank == 0
-                    else os.devnull)
-    with open(metrics_path, "a") as log:
-        while state.step < args.max_steps:
-            for batch in loader.epoch(epoch):
-                x = torch.from_numpy(batch["spec"]).to(device)
-                metrics = trainer.train_step(state, x, generator=noise_gen)
-                if state.step % args.log_every == 0:
-                    # reading the metrics waits for the device
-                    m = {f"train/{k}": float(v) for k, v in metrics.items()}
-                    now = time.perf_counter()
-                    m["step"] = state.step
-                    m["step_s"] = (now - t_log) / (state.step - n_log)
-                    t_log, n_log = now, state.step
-                    log.write(json.dumps(m) + "\n")
-                    log.flush()
-                    print(f"step {state.step}: "
-                          f"nll={m['train/nll_loss']:.4f}")
-                if state.step % args.save_every == 0:
-                    save()
-                if state.step >= args.max_steps:
-                    break
-            epoch += 1
+    logger = MetricsLogger(args.logdir if rank == 0 else None,
+                           name="metrics", use_tensorboard=True)
+    while state.step < args.max_steps:
+        for batch in loader.epoch(epoch):
+            x = torch.from_numpy(batch["spec"]).to(device)
+            metrics = trainer.train_step(state, x, generator=noise_gen)
+            if state.step % args.log_every == 0:
+                # reading the metrics waits for the device
+                m = {f"train/{k}": float(v) for k, v in metrics.items()}
+                m["step_s"] = watch.lap() / (state.step - n_log)
+                n_log = state.step
+                logger.log(state.step, m)
+                print(f"step {state.step}: nll={m['train/nll_loss']:.4f}")
+            if state.step % args.save_every == 0:
+                save()
+            if state.step >= args.max_steps:
+                break
+        epoch += 1
+    logger.close()
     save()
     print(f"done at step {state.step}; checkpoints in {ckpt_dir}")
     return state

@@ -1,8 +1,10 @@
 """Batched STFT / ISTFT on ``torch.fft`` (``diff_foley_tpu/ops/stft.py``).
 
 librosa 0.8 semantics: centred frames, reflect padding, periodic Hann
-window, win_length = n_fft; the inverse is Hann-squared overlap-add with
-window-sum normalisation. Spectra are freq-major, (..., n_freq, n_frames).
+window, win_length = n_fft by default; the inverse is Hann-squared
+overlap-add with window-sum normalisation. Spectra are freq-major,
+(..., n_freq, n_frames). ``win_length < n_fft`` and ``normalized`` follow
+torch.stft (the multi-scale GAN losses of ``train/sound_gan.py``).
 """
 from __future__ import annotations
 
@@ -17,15 +19,26 @@ def hann_window(n: int, dtype=torch.float32, device=None) -> torch.Tensor:
     return torch.as_tensor(w, dtype=dtype, device=device)
 
 
-def stft(x: torch.Tensor, n_fft: int = 1024,
-         hop_length: int = 256) -> torch.Tensor:
-    """Complex STFT of (..., n_samples) → (..., n_freq, n_frames)."""
+def stft(x: torch.Tensor, n_fft: int = 1024, hop_length: int = 256,
+         win_length: int | None = None,
+         normalized: bool = False) -> torch.Tensor:
+    """Complex STFT of (..., n_samples) → (..., n_freq, n_frames). A
+    ``win_length`` below ``n_fft`` centre-pads its Hann window to
+    ``n_fft``; ``normalized`` divides by √n_fft."""
     shape = x.shape
     x = F.pad(x.reshape(-1, 1, shape[-1]), (n_fft // 2, n_fft // 2),
               mode="reflect").reshape(*shape[:-1], -1)
     frames = x.unfold(-1, n_fft, hop_length)          # (..., frames, n_fft)
-    frames = frames * hann_window(n_fft, x.dtype, x.device)
-    return torch.fft.rfft(frames, n=n_fft, dim=-1).transpose(-1, -2)
+    if win_length is None or win_length == n_fft:
+        window = hann_window(n_fft, x.dtype, x.device)
+    else:
+        left = (n_fft - win_length) // 2
+        window = F.pad(hann_window(win_length, x.dtype, x.device),
+                       (left, n_fft - win_length - left))
+    spec = torch.fft.rfft(frames * window, n=n_fft, dim=-1)
+    if normalized:
+        spec = spec / np.sqrt(n_fft).astype(np.float32)
+    return spec.transpose(-1, -2)
 
 
 def stft_magnitude(x: torch.Tensor, n_fft: int = 1024,

@@ -14,7 +14,8 @@ temporary name and renamed into place. ``load_native_vae`` reads a
 ``cli.train_vae`` logdir, ``load_native_ldm`` a ``cli.train_stage2``
 one and ``load_native_classifier`` a ``cli.train_classifier`` one (both
 also hold their frozen first stage under ``vae/``), ``load_native_cavp``
-a ``cli.train_cavp`` one (parameters and BatchNorm statistics). The JAX
+a ``cli.train_cavp`` one (parameters and BatchNorm statistics),
+``load_native_sound_vae`` a ``cli.train_sound_vae`` one. The JAX
 package's logdirs hold orbax checkpoints, which the port does not read
 (that would need orbax; ROADMAP §1).
 """
@@ -251,3 +252,16 @@ def native_cavp_ingest_size(logdir: str, default: int = 224) -> int:
 
     shape = load_run_config(logdir, "stage1_cavp").get("init_video_shape")
     return int(shape[2]) if shape else default
+
+
+def load_native_sound_vae(logdir: str):
+    """A ``cli.train_sound_vae`` logdir → its ``SoundAutoencoderKL`` with
+    the newest checkpoint's weights, on the CPU, for encode and decode on
+    16-kHz waveforms."""
+    from ..config import config_from_dict, load_run_config
+    from ..models.sound_vae import SoundAutoencoderKL, SoundVAEConfig
+
+    meta = load_run_config(logdir, "sound_vae")
+    vae = SoundAutoencoderKL(config_from_dict(SoundVAEConfig, meta["model"]))
+    vae.load_state_dict(_newest(logdir, "ckpt")["vae"], strict=True)
+    return vae

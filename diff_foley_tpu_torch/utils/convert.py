@@ -4,7 +4,13 @@ The port's modules carry the flax scope names, so conversion is a rename
 and a transpose per leaf:
 
 - ``kernel`` → ``weight``: Dense (in, out) → (out, in); Conv HWIO → OIHW;
-  Conv3d tHWIO → OItHW;
+  Conv3d tHWIO → OItHW; Conv1d (K, in, out) → (out, in, K), and the same
+  reversal takes a ``transpose_kernel`` ConvTranspose1d's (K, out, in) to
+  torch's (in, out, K), with no flip;
+- a flax ``OptimizedLSTMCell`` (gate Denses ``ii/if/ig/io`` on the input,
+  ``hi/hf/hg/ho`` with biases on the hidden state, gate order i, f, g, o)
+  → one ``nn.LSTM`` layer: ``weight_ih_l0``, ``weight_hh_l0``,
+  ``bias_ih_l0`` (the cell's one bias per gate) and a zero ``bias_hh_l0``;
 - ``scale`` → ``weight`` and ``bias`` → ``bias`` (normalisations; a
   ``scale`` beside a ``shift``, the LPIPS scaling layer's, keeps its name);
 - BatchNorm's ``batch_stats`` collection: ``mean`` → ``running_mean`` and
@@ -47,6 +53,8 @@ def _leaf(name: str, a) -> tuple[str, torch.Tensor]:
     if name == "kernel":
         if t.dim() == 2:
             t = t.T
+        elif t.dim() == 3:
+            t = t.permute(2, 1, 0)
         elif t.dim() == 4:
             t = t.permute(3, 2, 0, 1)
         elif t.dim() == 5:
@@ -54,6 +62,21 @@ def _leaf(name: str, a) -> tuple[str, torch.Tensor]:
         else:
             raise ValueError(f"kernel of rank {t.dim()} has no rule")
     return name, t.contiguous()
+
+
+_LSTM_GATES = ("i", "f", "g", "o")
+_LSTM_SCOPES = {side + g for side in "ih" for g in _LSTM_GATES}
+
+
+def _lstm_leaves(cell: Mapping) -> dict[str, torch.Tensor]:
+    """A flax OptimizedLSTMCell's gate Denses → one nn.LSTM layer."""
+    gate = lambda side, g, leaf: _to_tensor(cell[side + g][leaf])
+    w_ih = torch.cat([gate("i", g, "kernel").T for g in _LSTM_GATES])
+    w_hh = torch.cat([gate("h", g, "kernel").T for g in _LSTM_GATES])
+    b = torch.cat([gate("h", g, "bias") for g in _LSTM_GATES])
+    return {"weight_ih_l0": w_ih.contiguous(),
+            "weight_hh_l0": w_hh.contiguous(), "bias_ih_l0": b,
+            "bias_hh_l0": torch.zeros_like(b)}
 
 
 def from_jax_params(tree) -> dict[str, torch.Tensor]:
@@ -67,7 +90,10 @@ def from_jax_params(tree) -> dict[str, torch.Tensor]:
 
     def walk(node: Mapping, path: list[str]):
         for name, v in node.items():
-            if isinstance(v, Mapping):
+            if isinstance(v, Mapping) and set(v) == _LSTM_SCOPES:
+                for leaf, t in _lstm_leaves(v).items():
+                    out[".".join(path + [name, leaf])] = t
+            elif isinstance(v, Mapping):
                 walk(v, path if name in _FOLDED_SCOPES else path + [name])
             else:
                 leaf, t = _leaf(name, v)
@@ -398,6 +424,71 @@ def convert_cavp(sd: Mapping, stage_blocks=(3, 4, 6, 3)) -> dict:
                        **head.tree},
             "batch_stats": {"video_encoder": video.stats,
                             "spec_encoder": spec.stats}}
+
+
+def _conv1d(t) -> np.ndarray:
+    # torch (out, in, K) → flax (K, in, out); ConvTranspose1d's (in, out,
+    # K) → flax transpose_kernel's (K, out, in) by the same reversal
+    return _np(t).transpose(2, 1, 0)
+
+
+def _lstm_layer(m: _Mapper, my: str, torch_key: str, layer: int) -> None:
+    """Layer ``layer`` of a torch nn.LSTM → a flax OptimizedLSTMCell (gate
+    order i, f, g, o; the two torch biases summed on the h-side Denses)."""
+    w_ih = _np(m._get(f"{torch_key}.weight_ih_l{layer}"))
+    w_hh = _np(m._get(f"{torch_key}.weight_hh_l{layer}"))
+    b = (_np(m._get(f"{torch_key}.bias_ih_l{layer}"))
+         + _np(m._get(f"{torch_key}.bias_hh_l{layer}")))
+    hdim = w_hh.shape[1]
+    cell = f"{my}/OptimizedLSTMCell_{layer}"
+    for g, name in enumerate(_LSTM_GATES):
+        rows = slice(g * hdim, (g + 1) * hdim)
+        _set(m.tree, f"{cell}/i{name}/kernel", w_ih[rows].T)
+        _set(m.tree, f"{cell}/h{name}/kernel", w_hh[rows].T)
+        _set(m.tree, f"{cell}/h{name}/bias", b[rows])
+
+
+def convert_sound_vae(sd: Mapping, prefix: str = "", n_blocks: int = 4,
+                      lstm_layers: int = 2) -> dict:
+    """Reference Sound_AutoencoderKL state dict (``encoder.layers.{0 stem,
+    2+2i blocks}.layers.{0 res, 2 down}``, ``encoder.lstm.0``,
+    ``encoder.last_conv.1``; ``decoder.layers1.0``, ``decoder.lstm.0``,
+    ``decoder.layers2.{1+2j}.layers.{0 res, 2 up}``,
+    ``decoder.last_conv.0``) → SoundAutoencoderKL's flax variables."""
+    m = _Mapper(sd, prefix)
+
+    def conv(my, key):
+        m.take(f"{my}/kernel", f"{key}.weight", _conv1d)
+        m.take(f"{my}/bias", f"{key}.bias")
+
+    def res(my, key):
+        conv(f"{my}/conv1", f"{key}.layers.0")
+        conv(f"{my}/conv2", f"{key}.layers.2")
+
+    conv("encoder/stem", "encoder.layers.0")
+    for i in range(n_blocks):
+        blk = f"encoder.layers.{2 + 2 * i}.layers"
+        res(f"encoder/block{i}_res", f"{blk}.0")
+        conv(f"encoder/block{i}_down", f"{blk}.2.layers.0")
+    for n in range(lstm_layers):
+        _lstm_layer(m, "encoder/lstm", "encoder.lstm.0", n)
+    conv("encoder/last_conv", "encoder.last_conv.1")
+    conv("decoder/stem", "decoder.layers1.0")
+    for n in range(lstm_layers):
+        _lstm_layer(m, "decoder/lstm", "decoder.lstm.0", n)
+    for j in range(n_blocks):
+        blk = f"decoder.layers2.{1 + 2 * j}.layers"
+        res(f"decoder/block{j}_res", f"{blk}.0")
+        conv(f"decoder/block{j}_up", f"{blk}.2.layers.0")
+    conv("decoder/last_conv", "decoder.last_conv.0")
+    # a Lightning checkpoint also holds its loss's discriminators
+    left = sorted(k for k in sd if k.startswith((prefix + "encoder.",
+                                                 prefix + "decoder."))
+                  and k not in m.used)
+    if left:
+        raise ValueError(f"{len(left)} reference keys have no place in the "
+                         f"model: {left[:5]}")
+    return {"params": m.tree}
 
 
 _LDM_PREFIXES = (("model.diffusion_model.", 0), ("first_stage_model.", 1),

@@ -1,5 +1,5 @@
 """The port's meshed entries on the CPU, two gloo ranks against the
-one-process port: the four trainer CLIs (rank 0 writing the logdirs; a
+one-process port: the five trainer CLIs (rank 0 writing the logdirs; a
 stage-2 ``--fsdp`` checkpoint written at two ranks resumed at two and at
 one), ragged align-acc against the JAX package's 2-device mesh,
 ``generate``/``inpaint``, and a served batch replayed against a meshed
@@ -25,9 +25,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from scipy.io import wavfile
 
 from diff_foley_tpu_torch.cli import (train_cavp, train_classifier,
-                                      train_stage2, train_vae)
+                                      train_sound_vae, train_stage2,
+                                      train_vae)
 from diff_foley_tpu_torch.data import cavp_shards
 from diff_foley_tpu_torch.data.ldm_dataset import (LDMDataConfig,
                                                    SpecFeatDataset)
@@ -73,6 +75,12 @@ def _cli_args(root: pathlib.Path, logs: str, batch: int) -> dict:
                   str(batch), "--clip-num", "2", "--epochs", "1",
                   "--steps-per-epoch", "1", "--log-every", "1",
                   "--warmup", "1"] + log("cavp")),
+        # the shortest crop the default STFT losses take
+        "sound_vae": (["--wav-dir", str(root / "wavs"), "--device", "cpu",
+                       "--window", "36864", "--batch-size", str(batch // 2),
+                       "--steps", "2", "--channels", "4", "--z-channels",
+                       "8", "--disc-start", "0", "--log-every", "1"]
+                      + log("sound_vae")),
         "stage2_resume": stage2 + ["--max-steps", "3", "--resume"],
     }
 
@@ -119,15 +127,24 @@ def run(tmp_path_factory):
                 rng.uniform(size=(128, 40)).astype(np.float32))
     (root / "shards").mkdir()
     write_shards(root / "shards", n_shards=2, per_shard=2)   # 2 a rank
+    (root / "wavs").mkdir()
+    for i, amp in enumerate((300, 3000, 9000)):   # rows far apart
+        wavfile.write(str(root / "wavs" / f"w{i}.wav"), 16000, np.clip(
+            rng.normal(size=40000) * amp, -32768, 32767).astype(np.int16))
     two = _cli_args(root, "logs2", 2)
     (root / "clis.json").write_text(json.dumps({
         name: {"ranks": two[name]} for name in
-        ("stage2", "vae", "classifier", "cavp")} | {
+        ("stage2", "vae", "classifier", "cavp", "sound_vae")} | {
         "stage2": {"ranks": two["stage2"] + ["--fsdp"],
                    "resume": [a.replace(str(root / "logs2" / "stage2"),
                                         str(root / "logs2" /
                                             "stage2_resumed"))
-                              for a in two["stage2_resume"]] + ["--fsdp"]}}))
+                              for a in two["stage2_resume"]] + ["--fsdp"],
+                   "preempt": [a.replace(str(root / "logs2" / "stage2"),
+                                         str(root / "logs2" /
+                                             "stage2_preempt"))
+                               for a in two["stage2_resume"]
+                               if a != "--resume"] + ["--fsdp"]}}))
     align = _align_inputs(root)
     rcs, errs = ranks.launch(root, "entries", 2)
     assert rcs == [0, 0], "\n".join(
@@ -139,7 +156,9 @@ def run(tmp_path_factory):
 
 
 def rows(logdir: pathlib.Path) -> list:
-    return [{k: v for k, v in json.loads(line).items() if k != "step_s"}
+    # the wall-clock columns differ from run to run
+    return [{k: v for k, v in json.loads(line).items()
+             if k not in ("step_s", "time")}
             for line in (logdir / "metrics.jsonl").read_text().splitlines()]
 
 
@@ -152,15 +171,19 @@ def close_rows(got: list, ref: list, tol=1e-5):
                 (k, g[k], r[k])
 
 
-@pytest.mark.parametrize("name", ["stage2", "vae", "classifier"])
+@pytest.mark.parametrize("name", ["stage2", "vae", "classifier",
+                                  "sound_vae"])
 def test_trainer_clis_two_ranks_equal_one_process(run, name):
     # one process at twice the batch a process takes at two ranks; the
     # two-rank stage-2 run splits its state (--fsdp), the one-process run
-    # does not
+    # does not. The waveform VAE's mel L2 term is a root of the global
+    # batch's mean: the ranks' roots of their own means miss
+    # freq_domain_loss by 7.3e-4 here (the rows differ in loudness)
     root = run["root"]
     one = _cli_args(root, "logs1", 4)
     main = {"stage2": train_stage2.main, "vae": train_vae.main,
-            "classifier": train_classifier.main}[name]
+            "classifier": train_classifier.main,
+            "sound_vae": train_sound_vae.main}[name]
     main(one[name])
     close_rows(rows(root / "logs2" / name), rows(root / "logs1" / name))
     ckpts = sorted(os.listdir(root / "logs2" / name / "ckpt"))
@@ -215,6 +238,20 @@ def test_fsdp_checkpoint_of_two_ranks_resumes_at_two_and_at_one(run):
     # the resumed logdirs kept steps 1–2 of the run they continue
     for d in ("logs2/stage2_resumed", "logs1/resumed"):
         assert step(d, 2) == step("logs2/stage2", 2)
+
+
+def test_a_signal_on_one_rank_checkpoints_all_ranks(run):
+    # rank 1 alone saw SIGUSR1 during step 2 of 3: the ranks agreed on it
+    # and saved at step 2's boundary together (a rank alone in the FSDP
+    # join would hang), then at the end
+    ckpt = run["root"] / "logs2" / "stage2_preempt" / "ckpt"
+    assert sorted(os.listdir(ckpt)) == ["step_2.pt", "step_3.pt"]
+    saved = torch.load(ckpt / "step_2.pt")["state"]
+    assert saved["step"] == 2 and saved["opt"]["count"] == 2
+    ref = torch.load(run["root"] / "logs2" / "stage2" / "ckpt" /
+                     "step_2.pt")["state"]
+    for k, v in ref["params"].items():   # the same run's step 2
+        assert torch.equal(saved["params"][k], v), k
 
 
 def test_loaders_split_disjointly_over_ranks(run):

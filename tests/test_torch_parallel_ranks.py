@@ -23,6 +23,7 @@ import math
 import os
 import pathlib
 import shutil
+import signal
 import socket
 import subprocess
 import sys
@@ -399,22 +400,39 @@ def case_align_acc(mesh, root):
 
 
 def case_clis(mesh, root):
-    """The four trainer CLIs at two ranks (rank 0 writes the logdirs),
-    and a resume of the two-rank stage-2 logdir at two ranks."""
+    """The five trainer CLIs at two ranks (rank 0 writes the logdirs), a
+    resume of the two-rank stage-2 logdir at two ranks, and a two-rank
+    stage-2 run that one rank's SIGUSR1 checkpoints."""
     from diff_foley_tpu_torch.cli import (train_cavp, train_classifier,
-                                          train_stage2, train_vae)
+                                          train_sound_vae, train_stage2,
+                                          train_vae)
 
     cfg = json.loads((root / "clis.json").read_text())
     for name, main in (("stage2", train_stage2.main),
                        ("vae", train_vae.main),
                        ("classifier", train_classifier.main),
-                       ("cavp", train_cavp.main)):
+                       ("cavp", train_cavp.main),
+                       ("sound_vae", train_sound_vae.main)):
         main(cfg[name]["ranks"])
     if mesh.rank == 0:
         shutil.copytree(root / "logs2" / "stage2",
                         root / "logs2" / "stage2_resumed")
     dist.barrier()
     train_stage2.main(cfg["stage2"]["resume"])
+    # a SIGUSR1 that rank 1 alone sees, during step 2: the ranks agree on
+    # it, so both join the (collective) FSDP save at step 2's boundary
+    step = ts2.Stage2Trainer.train_step
+
+    def signalled(self, state, *a, **k):
+        if mesh.rank == 1 and state.step == 1:
+            os.kill(os.getpid(), signal.SIGUSR1)
+        return step(self, state, *a, **k)
+
+    ts2.Stage2Trainer.train_step = signalled
+    try:
+        train_stage2.main(cfg["stage2"]["preempt"])
+    finally:
+        ts2.Stage2Trainer.train_step = step
     return {}
 
 

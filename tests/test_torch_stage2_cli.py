@@ -1,10 +1,13 @@
 """The port's stage-2 trainer CLI on the CPU: ``cli.train_stage2 --tiny``
 trains with validation, resumes, writes a logdir that
-``load_native_ldm`` rebuilds into a model that generates, refuses what it
-does not run, and defaults to the card.
+``load_native_ldm`` rebuilds into a model that generates, writes the
+SoundLogger's listening samples, builds its model from a reference-format
+YAML (``--base``), saves at the step boundary after a preemption signal,
+refuses a batch its data cannot fill, and defaults to the card.
 """
 import json
 import os
+import signal
 
 import numpy as np
 import pytest
@@ -139,7 +142,9 @@ def test_cli_fsdp_runs(logdir):
     state = cli.main(args + ["--max-steps", "3", "--fsdp"])
     rows = lambda d: [json.loads(line) for line in (root / d / "metrics.jsonl")
                       .read_text().splitlines()]
-    drop = lambda r: {k: v for k, v in r.items() if k != "step_s"}
+    # the wall-clock columns differ from run to run
+    drop = lambda r: {k: v for k, v in r.items()
+                      if k not in ("step_s", "time")}
     assert [drop(r) for r in rows("fsdp")] == [drop(r) for r in
                                                rows("log")[:4]]
     saved = logdir["saved"]["state"]
@@ -150,8 +155,6 @@ def test_cli_fsdp_runs(logdir):
 
 
 @pytest.mark.parametrize("extra,message", [
-    (["--sound-log-every", "1"], "SoundLogger"),
-    (["--base", "x.yaml"], "YAML"),
     (["--batch-size", "64"], "4 items < global batch 64"),
 ])
 def test_cli_refusals(logdir, extra, message):
@@ -160,6 +163,113 @@ def test_cli_refusals(logdir, extra, message):
         logdir["root"] / "refused")
     with pytest.raises(SystemExit, match=message):
         cli.main(args + ["--max-steps", "1"] + extra)
+
+
+def _args_into(logdir, name):
+    args = [a for a in logdir["args"]]
+    args[args.index(str(logdir["root"] / "log"))] = str(logdir["root"] / name)
+    return args, logdir["root"] / name
+
+
+def test_cli_sound_log_every_writes_the_step_folders(logdir):
+    args, out = _args_into(logdir, "sound")
+    cli.main(args + ["--max-steps", "2", "--sound-log-every", "2"])
+    assert sorted(os.listdir(out / "sound")) == ["step_00000002"]
+    step = out / "sound" / "step_00000002"
+    names = {f"{k}_{i}.wav" for k in ("gt", "rec", "sample") for i in (0, 1)}
+    names |= {f"{k}_spec.npy" for k in ("gt", "rec", "sample")}
+    assert set(os.listdir(step)) == names
+    for k in ("gt", "rec", "sample"):
+        mel = np.load(step / f"{k}_spec.npy")
+        assert mel.shape[:2] == (2, 128) and np.isfinite(mel).all()
+        assert mel.min() >= 0.0 and mel.max() <= 1.0
+    # the sample decodes the (16, 64) latent: 512 frames, 130816 samples
+    assert np.load(step / "sample_spec.npy").shape == (2, 128, 512)
+    assert (step / "sample_0.wav").stat().st_size == 44 + 2 * 511 * 256
+
+
+def test_cli_sound_log_under_mixed_precision_runs_the_vae_in_fp32(
+        logdir, monkeypatch):
+    # the trainer holds the frozen VAE in bf16; the logger swaps in the
+    # VAE's fp32 weights from before that cast, as the JAX logger
+    # decodes with fp32 vae_params
+    from diff_foley_tpu_torch.train import callbacks
+
+    seen, log = [], callbacks.SoundLogger.log
+
+    def spy(self, *a, **k):
+        seen.append((next(self.ldm.vae.parameters()).dtype,
+                     {v.dtype for v in self.vae_params.values()}))
+        return log(self, *a, **k)
+
+    monkeypatch.setattr(callbacks.SoundLogger, "log", spy)
+    args, out = _args_into(logdir, "sound_bf16")
+    cli.main(args + ["--max-steps", "1", "--sound-log-every", "1",
+                     "--mixed-precision"])
+    assert seen == [(torch.bfloat16, {torch.float32})]
+    for k in ("gt", "rec", "sample"):
+        mel = np.load(out / "sound" / "step_00000001" / f"{k}_spec.npy")
+        assert mel.dtype == np.float32 and np.isfinite(mel).all()
+
+
+TINY_YAML = """
+model:
+  target: diff_foley.models.diffusion.ddpm.LatentDiffusion
+  params:
+    linear_start: 0.001
+    linear_end: 0.015
+    timesteps: 500
+    unet_config:
+      target: adm.modules.diffusionmodules.openai_unetmodel.UNetModel
+      params: {model_channels: 16, num_res_blocks: 1, channel_mult: [1, 2],
+               attention_resolutions: [2], num_heads: 2, context_dim: 20}
+    first_stage_config:
+      target: diff_foley.models.autoencoder.AutoencoderKL
+      params:
+        embed_dim: 4
+        ddconfig: {ch: 32, ch_mult: [1, 2, 4, 4], num_res_blocks: 1,
+                   z_channels: 4, double_z: true, in_channels: 3, out_ch: 3,
+                   dropout: 0.0}
+    cond_stage_config:
+      target: diff_foley.modules.cond_stage.video_feat_encoder.Video_Feat_Encoder_Posembed
+      params: {origin_dim: 512, embed_dim: 20, seq_len: 8}
+"""
+
+
+def test_cli_base_trains_the_yaml_model(logdir, tmp_path):
+    (tmp_path / "tiny.yaml").write_text(TINY_YAML)
+    args, out = _args_into(logdir, "base")
+    args = [a for a in args if a != "--tiny"]
+    state = cli.main(args + ["--max-steps", "1", "--base",
+                             str(tmp_path / "tiny.yaml")])
+    assert state.step == 1
+    model = json.loads((out / "config.json").read_text())["model"]
+    assert model["unet"]["model_channels"] == 16
+    assert model["unet"]["num_heads"] == 2 and model["cond_seq_len"] == 8
+    assert model["timesteps"] == 500 and model["linear_end"] == 0.015
+    assert model["vae"]["ch"] == 32
+    assert ck.load_native_ldm(str(out)).cfg.cond_embed_dim == 20
+
+
+def test_cli_saves_at_the_step_after_a_preemption_signal(logdir,
+                                                         monkeypatch):
+    from diff_foley_tpu_torch.train.stage2_ldm import Stage2Trainer
+
+    step = Stage2Trainer.train_step
+
+    def signalled(self, state, *a, **k):
+        if state.step == 1:   # the signal arrives during step 2
+            os.kill(os.getpid(), signal.SIGUSR1)
+        return step(self, state, *a, **k)
+
+    monkeypatch.setattr(Stage2Trainer, "train_step", signalled)
+    args, out = _args_into(logdir, "preempt")
+    cli.main(args + ["--max-steps", "4", "--save-every", "1000"])
+    assert sorted(os.listdir(out / "ckpt")) == ["step_2.pt", "step_4.pt"]
+    saved = torch.load(out / "ckpt" / "step_2.pt")["state"]
+    assert saved["step"] == 2 and saved["opt"]["count"] == 2
+    # the CLI gives the handlers back
+    assert signal.getsignal(signal.SIGUSR1) == signal.SIG_DFL
 
 
 def test_cli_defaults_to_the_card(logdir):

@@ -17,7 +17,8 @@
 2. Kernel phase: each kernel against its plain PyTorch version at every
    shape of the main paths, in bf16 and fp32, with times beside the
    plain version's, one PyTorch call for the same function (SDPA,
-   F.group_norm then F.silu: yardsticks the port never calls) and the
+   F.group_norm then F.silu, torch.var_mean for the stats kernel: yardsticks
+   the port never calls) and the
    card's bound; beside the event time of back-to-back calls, the device
    time of the kernel's own symbols (torch.profiler). Every planted fault
    of a kernel (two for each per-head kernel) must fail the same check.
@@ -129,7 +130,9 @@
    plus ``generate_from_features``, two tiny VAE train steps, one tiny
    stage-2 train step, one tiny classifier train step (D 32, 40 keys) and
    one tiny CAVP train step and one tiny waveform-VAE step (against the
-   CPU in float64) in float32 on the GPU (kernels) against the
+   CPU in float64), one call of each sampler family and the tiled pair
+   (``agreement_sampler_phase``: shared x_T and step draws, the adaptive
+   solver's model calls equal) in float32 on the GPU (kernels) against the
    same on the CPU (plain versions), shared noise, phase, draws and
    dropout masks. Each VAE train step starts from equal states, and the
    CPU takes the GPU's branch at every leaky_relu input within rounding of
@@ -194,8 +197,15 @@ from diff_foley_tpu_torch.cli import train_vae as train_vae_cli
 from diff_foley_tpu_torch.cli import transform_spec as transform_spec_cli
 from diff_foley_tpu_torch.data.ldm_dataset import SpecDataset, SpecFeatDataset
 from diff_foley_tpu_torch.data.loader import DevicePrefetcher, PrefetchLoader
+from diff_foley_tpu_torch.diffusion import samplers as sampler_lib
+from diff_foley_tpu_torch.diffusion.guidance import (GuidanceSpec,
+                                                     make_guided_eps_fn)
 from diff_foley_tpu_torch.diffusion.latent_diffusion import (LatentDiffusion,
                                                               LDMConfig)
+from diff_foley_tpu_torch.diffusion.samplers import (ddim_decode,
+                                                     ddim_stochastic_encode)
+from diff_foley_tpu_torch.diffusion.schedule import make_ddim_timesteps
+from diff_foley_tpu_torch.diffusion.tiled import SplitInputParams
 from diff_foley_tpu_torch.eval.align_acc import (alignment_accuracy,
                                                  make_align_acc_fn)
 from diff_foley_tpu_torch.models.attention import SpatialTransformer
@@ -303,6 +313,55 @@ SL_CALLS = S2_STEPS // SL_EVERY
 # z 128, 65536-sample crops, batch 8, AudioGANConfig's defaults; steps of
 # the main-path call (a resume adds one)
 SV_WINDOW, SV_BATCH, SV_STEPS = 65536, 8, 6
+# the sampler library (``sampler_phase``): 1 window × SP_SAMPLES samples
+# (the UNet at the CFG batch 4, the classifier gradient at 2, bf16), CFG
+# 4.5 and classifier guidance 50; the DPM-Solver and DDIM calls take
+# SP_STEPS steps, PLMS 25, the ancestral chains SP_CHAIN timesteps; img2img
+# enters a 25-step DDIM run at index 12. The tiled calls run on a
+# TILED_CANVAS latent: the decode at the JAX defaults (ks 16×16, stride
+# 8×8, vqf 8: 15 tiles of 128×128 pixels a sample, TILED_TILES·2 rows in
+# one decoder call), the UNet at ks (16, 64), stride (16, 32) (3 tiles
+# at the trained window)
+SP_SAMPLES, SP_STEPS, SP_CHAIN, SP_PLMS = 2, 10, 100, 25
+SP_IMG2IMG = (25, 12)
+TILED_CANVAS, TILED_TILES = (16, 128), 15
+# the phase's work in the units its launches scale with: guided model
+# calls (the bf16 UNet at the CFG batch 2·SP_SAMPLES, the bf16
+# classifier's forward and gradient at SP_SAMPLES), UNet calls over the
+# tiled canvas's 3·SP_SAMPLES tiles, tiled decodes, the ancestral
+# inpaint's VAE encode (one window) and decode (SP_SAMPLES), and
+# cli.generate's model calls and decodes at the video run's shapes
+SP_UNITS = ("guided", "tiled_unet", "tiled_decode", "inpaint_vae",
+            "video_nfe", "video_decode")
+# the SoundLogger's UNet shapes are the guided call's
+assert SL_N == SP_SAMPLES and S2_TOKENS == WINDOW_FEATS
+SAMPLER_CALLS = (
+    ("dpm-multistep-order1", "dpm", SP_STEPS, dict(order=1)),
+    ("dpm-multistep-order3", "dpm", SP_STEPS, dict(order=3)),
+    ("dpm-logSNR", "dpm", SP_STEPS, dict(skip_type="logSNR")),
+    ("dpm-time_quadratic", "dpm", SP_STEPS,
+     dict(skip_type="time_quadratic")),
+    ("dpm-taylor", "dpm", SP_STEPS, dict(solver_type="taylor")),
+    ("dpm-predict_eps", "dpm", SP_STEPS, dict(predict_x0=False)),
+    ("dpm-thresholding", "dpm", SP_STEPS, dict(thresholding=True)),
+    ("dpm-denoise_to_zero", "dpm", SP_STEPS, dict(denoise_to_zero=True)),
+    ("dpm-model_x_start", "dpm", SP_STEPS, dict(model_type="x_start")),
+    ("dpm-model_v", "dpm", SP_STEPS, dict(model_type="v")),
+    ("dpm-singlestep-order3-logSNR", "dpm", SP_STEPS,
+     dict(method="singlestep", order=3, skip_type="logSNR")),
+    ("dpm-singlestep_fixed-order2", "dpm", SP_STEPS,
+     dict(method="singlestep_fixed", order=2)),
+    ("dpm-adaptive-order2", "dpm", SP_STEPS, dict(method="adaptive",
+                                                  order=2)),
+    ("dpm-adaptive-order3", "dpm", SP_STEPS, dict(method="adaptive",
+                                                  order=3)),
+    ("ddim-eta1-quad-dropout", "ddim", SP_STEPS,
+     dict(eta=1.0, discr_method="quad", noise_dropout=0.1)),
+    ("plms", "plms", SP_PLMS, {}),
+    ("p_sample_loop", "ancestral", 0, dict(timesteps=SP_CHAIN)),
+    ("progressive_denoising", "progressive", 0,
+     dict(timesteps=SP_CHAIN, log_every_t=20)),
+)
 # Agreement with the plain version, per output tensor, against the size of
 # the plain output: max|Δ| ≤ MAX_TOL·rms(plain) and rms(Δ) ≤ RMS_TOL·rms(plain).
 # The max catches a local fault (a tile, an edge), the rms a small fault
@@ -351,19 +410,62 @@ SYMBOLS = {"fwd": ("attn_packed_fwd",), "bwd": ("head_bwd_",),
            "apply": ("gn_stream_apply_kernel",)}
 RUNS = ("generate", "inpaint", "train_vae", "video", "train_stage2",
         "train_classifier", "align_acc", "serve", "sound_log",
-        "train_sound_vae")
+        "train_sound_vae", "samplers")
 
 
 def calls(generate: int = 0, inpaint: int = 0, train_vae: int = 0,
           video: int = 0, train_stage2: int = 0, train_classifier: int = 0,
           align_acc: int = 0, serve: int = 0, sound_log: int = 0,
-          train_sound_vae: int = 0) -> dict:
+          train_sound_vae: int = 0, samplers: int = 0) -> dict:
     """Calls of one kernel shape in each main-path run."""
     return {"generate": generate, "inpaint": inpaint, "train_vae": train_vae,
             "video": video, "train_stage2": train_stage2,
             "train_classifier": train_classifier, "align_acc": align_acc,
             "serve": serve, "sound_log": sound_log,
-            "train_sound_vae": train_sound_vae}
+            "train_sound_vae": train_sound_vae, "samplers": samplers}
+
+
+class Units(dict):
+    """A count linear in the sampler phase's units, {unit: coefficient}.
+    The kernel phase runs before the sampler phase, whose adaptive calls
+    set the units, so its rows credit the phase such sums
+    (``unit_sums``), and ``resolve_units`` turns them into counts."""
+
+    def __mul__(self, k: int) -> "Units":
+        return Units({u: c * k for u, c in self.items()})
+
+    __rmul__ = __mul__
+
+    def __add__(self, other) -> "Units":
+        if isinstance(other, int) and other == 0:
+            return self
+        out = Units(self)
+        for u, c in other.items():
+            out[u] = out.get(u, 0) + c
+        return out
+
+    __radd__ = __add__
+
+
+def unit_sums() -> dict:
+    """Each of ``SP_UNITS`` as a ``Units`` of itself."""
+    return {u: Units({u: 1}) for u in SP_UNITS}
+
+
+def resolve_units(rows, sp: dict) -> None:
+    """The sampler phase's credit of each kernel-phase row, from the
+    ``Units`` sum it was given to the count that the units ``sp`` make."""
+    for _, r in rows:
+        n = r.get("calls", {}).get("samplers", 0)
+        if isinstance(n, Units):
+            r["calls"]["samplers"] = sum(c * sp[u] for u, c in n.items())
+
+
+def sp_units(**units) -> dict:
+    """The sampler phase's units (``SP_UNITS``), zero where not given."""
+    if not set(units) <= set(SP_UNITS):
+        raise KeyError(f"unknown sampler units {set(units) - set(SP_UNITS)}")
+    return {u: units.get(u, 0) for u in SP_UNITS}
 
 
 def log(*a):
@@ -404,10 +506,13 @@ def device_ms(fn, symbols=None, iters: int = 10, split: bool = False):
     call} by kernel name. Some traces come back without any device event
     (the first row of a run), or with a count of the call's events that
     the calls do not divide (events lost): up to five are tried. A trace
-    with device events but none of ``symbols`` fails, and so do five that
-    lost events; five with no device event at all raise
-    ``ProfilerBlind``: the profiler cannot see the card in this process,
-    and the script runs again in a new one."""
+    with device events but none of ``symbols`` fails; five with no device
+    event at all raise ``ProfilerBlind``: the profiler cannot see the card
+    in this process, and the script runs again in a new one. Five that
+    lost events fall back to CUDA events around each call (``event_ms``):
+    the call's whole time, other kernels of the call included, with no
+    split; ``DEVICE_MS_FALLBACKS`` names them, and the caller labels the
+    number so."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -426,6 +531,7 @@ def device_ms(fn, symbols=None, iters: int = 10, split: bool = False):
                                 "five traces of the L2 flush")
     fn()
     torch.cuda.synchronize()
+    seen, lost = set(), 0   # device event names of every trace; lost count
     for _ in range(5):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
@@ -435,10 +541,12 @@ def device_ms(fn, symbols=None, iters: int = 10, split: bool = False):
         events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
         mine = [e for e in events if e.name not in _FLUSH_SYMBOLS and (
             symbols is None or any(s in e.name for s in symbols))]
+        seen.update(e.name[:60] for e in events)
         if len(mine) % iters:
             # every call launches the same kernels: a count that the calls
             # do not divide is a trace that lost events; tried again
             lost = len(mine)
+            PROFILER_RETRIES.append(symbols)
             log(f"device_ms: {lost} events of {symbols or 'the call'} over "
                 f"{iters} calls; tracing again")
             continue
@@ -451,16 +559,41 @@ def device_ms(fn, symbols=None, iters: int = 10, split: bool = False):
                 name = e.name.split("(")[0].split("<")[0].split("::")[-1]
                 by[name] += e.time_range.elapsed_us() / 1e3 / iters
             return total, dict(by)
-    if not events:
+    if not seen:
         raise ProfilerBlind(f"torch.profiler recorded no device event in "
                             f"five traces of {symbols or 'any kernel'}")
-    if mine:
-        raise AssertionError(f"torch.profiler lost device events of "
-                             f"{symbols or 'the call'} in five traces "
-                             f"({lost} events over {iters} calls)")
-    raise AssertionError(f"torch.profiler shows no device time for "
-                         f"{symbols or 'any kernel'} (device events: "
-                         f"{sorted({e.name[:60] for e in events})[:5]})")
+    if not lost:
+        raise AssertionError(f"torch.profiler shows no device time for "
+                             f"{symbols or 'any kernel'} (device events: "
+                             f"{sorted(seen)[:5]})")
+    DEVICE_MS_FALLBACKS.append(symbols)
+    total = event_ms(fn, buf, iters)
+    log(f"device_ms: torch.profiler lost events of {symbols or 'the call'} "
+        f"in five traces ({lost} events over {iters} calls); CUDA events "
+        f"around each call give {total:.6f} ms")
+    return (total, {}) if split else total
+
+
+# the symbols of each trace that lost events, and of each ``device_ms``
+# that fell back to ``event_ms``
+PROFILER_RETRIES = []
+DEVICE_MS_FALLBACKS = []
+
+
+def event_ms(fn, buf: torch.Tensor, iters: int) -> float:
+    """Mean device time of fn's calls, each after ``flush_l2``, each
+    between two CUDA events on the current stream."""
+    pairs = []
+    for _ in range(iters):
+        flush_l2(buf)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in pairs) / iters
 
 
 class ProfilerBlind(AssertionError):
@@ -552,7 +685,7 @@ def gn_kernels(channels: int, h: int, w: int, itemsize: int):
     return ("gn_block",)
 
 
-def gn_path(pipe, n: int, steps: int):
+def gn_path(pipe, n: int, steps: int, sp=None):
     """{(model, batch, channels, h, w, eps, act, dtype): {run: calls}} of
     every GroupNorm32 call in one generate, one inpaint, one train_vae,
     one video, one train_stage2, one train_classifier and one align_acc
@@ -567,15 +700,23 @@ def gn_path(pipe, n: int, steps: int):
     CLI's SoundLogger (``sound_log``) runs the UNet bf16 at the CFG batch
     2·SL_N each sampler step, the VAE encoder once and its decoder twice
     at SL_N a call in fp32 (the VAE's fp32 weights swapped in, as the JAX
-    logger decodes). The waveform VAE's trainer runs no GroupNorm."""
+    logger decodes). The waveform VAE's trainer runs no GroupNorm. The
+    sampler phase (``samplers``) runs ``sp``'s units (``sp_units``): a
+    guided call the UNet at the SoundLogger's batch and the classifier at
+    SP_SAMPLES, a tiled UNet call the UNet at 3·SP_SAMPLES, a tiled decode
+    the decoder on 16×16 tiles at TILED_TILES·SP_SAMPLES rows, the
+    ancestral inpaint the encoder at one window and the decoder at
+    SP_SAMPLES, and cli.generate the video run's models, all bf16 but the
+    video run's classifier."""
     vae = pipe.ldm.vae
+    sp = sp_units(**(sp or {}))
     models = (("unet", pipe.ldm.unet, LATENT_HW, 2 * n, BF16,
-               calls(steps, steps, video=steps)),
+               calls(steps, steps, video=steps, samplers=sp["video_nfe"])),
               ("clf", pipe.classifier, LATENT_HW, n, BF16, calls(steps, steps)),
               ("clf", pipe.classifier, LATENT_HW, n, FP32,
-               calls(video=steps)),
+               calls(video=steps, samplers=sp["video_nfe"])),
               ("vae-dec", vae.decoder, LATENT_HW, n, BF16,
-               calls(1, 1, video=1)),
+               calls(1, 1, video=1, samplers=sp["video_decode"])),
               ("vae-enc", vae.encoder, SPEC_HW, WINDOWS, BF16, calls(0, 1)),
               ("train-enc", vae.encoder, SPEC_HW, TRAIN_BATCH, FP32,
                calls(train_vae=TRAIN_STEPS)),
@@ -600,11 +741,21 @@ def gn_path(pipe, n: int, steps: int):
               ("e-dec", vae.decoder, LATENT_HW, SERVE_BUCKET, BF16,
                calls(serve=1)),
               ("sl-unet", pipe.ldm.unet, LATENT_HW, 2 * SL_N, BF16,
-               calls(sound_log=SL_CALLS * steps)),
+               calls(sound_log=SL_CALLS * steps, samplers=sp["guided"])),
               ("sl-enc", vae.encoder, SPEC_HW, SL_N, FP32,
                calls(sound_log=SL_CALLS)),
               ("sl-dec", vae.decoder, LATENT_HW, SL_N, FP32,
-               calls(sound_log=2 * SL_CALLS)))
+               calls(sound_log=2 * SL_CALLS)),
+              ("d-clf", pipe.classifier, LATENT_HW, SP_SAMPLES, BF16,
+               calls(samplers=sp["guided"])),
+              ("dt-unet", pipe.ldm.unet, LATENT_HW, 3 * SP_SAMPLES, BF16,
+               calls(samplers=sp["tiled_unet"])),
+              ("dt-dec", vae.decoder, (16, 16), TILED_TILES * SP_SAMPLES,
+               BF16, calls(samplers=sp["tiled_decode"])),
+              ("d-enc", vae.encoder, SPEC_HW, 1, BF16,
+               calls(samplers=sp["inpaint_vae"])),
+              ("d-dec", vae.decoder, LATENT_HW, SP_SAMPLES, BF16,
+               calls(samplers=sp["inpaint_vae"])))
     out = collections.defaultdict(calls)
     for name, model, hw, batch, dtype, per_run in models:
         for site in gn_sites(model, hw):
@@ -614,14 +765,15 @@ def gn_path(pipe, n: int, steps: int):
     return out
 
 
-def predicted_launches(pipe, steps: int):
+def predicted_launches(pipe, steps: int, sp=None):
     """{run: {"kernel/dtype": launches}} from the module structure. The
     UNet and the VAE run bf16 in every sampling run; the classifier bf16 in
     generate, inpaint and serve, fp32 in the video run (as the JAX
     package's ``DiffFoley``). A launch serves the whole batch, so one
     bucket-16 serving call launches what one ``generate`` does. The classifier backward recomputes GroupNorm through
     the plain formula, so only its forward launches GroupNorm kernels; so
-    does the UNet's in stage-2 training."""
+    does the UNet's in stage-2 training. The sampler phase's launches
+    follow its units ``sp`` (``sp_units``)."""
     count = lambda m: sum(2 * x.depth for x in m.modules()
                           if isinstance(x, SpatialTransformer))
     unet, clf = count(pipe.ldm.unet), count(pipe.classifier)
@@ -664,8 +816,21 @@ def predicted_launches(pipe, steps: int):
     sl = pred["sound_log"]
     sl["attn_packed_fwd/bfloat16"] = SL_CALLS * steps * unet
     sl["attn_fwd/float32"] = 3 * SL_CALLS
+    # the sampler phase: a guided call runs the UNet and the classifier's
+    # forward and gradient, a tiled UNet call the UNet alone; the VAE's
+    # mid attention once in each encode and decode
+    sp = sp_units(**(sp or {}))
+    d = pred["samplers"]
+    d["attn_packed_fwd/bfloat16"] = (
+        (sp["guided"] + sp["tiled_unet"] + sp["video_nfe"]) * unet
+        + sp["guided"] * clf)
+    d["attn_packed_bwd/bfloat16"] = sp["guided"] * clf
+    d["attn_packed_fwd/float32"] = sp["video_nfe"] * clf
+    d["attn_packed_bwd/float32"] = sp["video_nfe"] * clf
+    d["attn_fwd/bfloat16"] = (2 * sp["inpaint_vae"] + sp["tiled_decode"]
+                              + sp["video_decode"])
     for (_, _, c, h, w, _, _, dtype), per_run in gn_path(
-            pipe, WINDOWS * SAMPLES, steps).items():
+            pipe, WINDOWS * SAMPLES, steps, sp).items():
         for k in gn_kernels(c, h, w, dtype.itemsize):
             for run in RUNS:
                 pred[run][f"{k}/{str(dtype).split('.')[-1]}"] += per_run[run]
@@ -1000,7 +1165,10 @@ def run_check(kind, dtype, kern, plain, faults, lib, bound, exact=None):
            "fault_caught": caught, "kernel_ms": time_ms(kern),
            "plain_ms": time_ms(plain), "bound_ms": bound[0],
            "bound_by": bound[1]}
+    fell_back = len(DEVICE_MS_FALLBACKS)
     row["device_ms"], by_kernel = device_ms(kern, SYMBOLS[kind], split=True)
+    if len(DEVICE_MS_FALLBACKS) > fell_back:
+        row["device_ms_from"] = "cuda events around the call"
     if len(by_kernel) > 1:   # the launches of a multi-launch kernel
         row["device_ms_by_kernel"] = by_kernel
     if exact is not None:
@@ -1016,7 +1184,10 @@ def run_check(kind, dtype, kern, plain, faults, lib, bound, exact=None):
     if lib is not None:
         try:   # the yardstick only: the port never calls it
             row["library_ms"] = time_ms(lib)
+            fell_back = len(DEVICE_MS_FALLBACKS)
             row["library_device_ms"] = device_ms(lib)
+            if len(DEVICE_MS_FALLBACKS) > fell_back:
+                row["library_device_ms_from"] = "cuda events around the call"
         except RuntimeError as e:
             row["library_ms"] = None
             row["library_error"] = str(e).splitlines()[0][:200]
@@ -1142,12 +1313,16 @@ def check_gn(tag, b, c, h, w, eps, act, dtype, gen):
     partial = hg.stream_stats_reference(x, 32)
     a, bb = hg.fold_stats(partial, gamma, beta, n // b // 32, eps)
     # F.group_norm (then F.silu) computes the pair's whole function: its
-    # time stands on the apply row, and none on the stats row
+    # time stands on the apply row. No single call returns the stats
+    # kernel's chunked Σx and Σx²; the nearest, torch.var_mean over the
+    # same 32 groups, reads x once as the kernel does and stands on the
+    # stats row
     return [
         ("gn_stream_stats", {**info, **run_check(
             "stats", dtype, lambda: hg.stream_stats(x, 32),
             lambda: hg.stream_stats_reference(x, 32),
-            planted("stats", x), None,
+            planted("stats", x),
+            lambda: torch.var_mean(x.view(b, 32, -1), dim=-1, correction=0),
             gn_bound_ms("stats", n, itemsize))}),
         ("gn_stream_apply", {**info, **run_check(
             "apply", dtype, lambda: hg.stream_apply(x, a, bb, act),
@@ -1193,28 +1368,35 @@ def check_apply_edge(tag, shape, dtype, act, offset, fault, gen):
             gn_bound_ms("apply", n, x.element_size()))})
 
 
-def kernel_phase(pipe):
+def kernel_phase(pipe, sp):
     """Every kernel at every shape of the main paths (bf16 in ``generate``,
-    ``inpaint``, ``train_stage2``, ``serve`` and ``sound_log``'s UNet, fp32
-    in ``train_vae`` and ``sound_log``'s VAE),
-    with its calls per run; the kernels of the bf16 paths also once in
+    ``inpaint``, ``train_stage2``, ``serve``, ``sound_log``'s UNet and the
+    sampler phase but its video-run calls, fp32 in ``train_vae`` and
+    ``sound_log``'s VAE),
+    with its calls per run (the sampler phase's as ``Units`` sums of its
+    units ``sp``, which ``resolve_units`` counts once the phase has run);
+    the kernels of the bf16 paths also once in
     fp32, the per-head backward also once in bf16, both per-head kernels
     at ragged lengths, and the apply kernel at its edges
     (``APPLY_EDGES``)."""
     n = WINDOWS * SAMPLES
+    sp = sp_units(**sp)
     gen = torch.Generator("cuda").manual_seed(0)
     rows = []
     for tag, b, lq, lk, hd, heads, per_step in path_shapes(n, WINDOW_FEATS):
         calls_step = STEPS * per_step
         clf = tag.startswith("clf")
         # the classifier runs bf16 in generate and inpaint, fp32 in the
-        # video run; the UNet bf16 in all three
+        # video run and the sampler phase's cli.generate; the UNet bf16 in
+        # all of them
+        cli = sp["video_nfe"] * per_step
         per_run = calls(calls_step, calls_step,
-                        video=0 if clf else calls_step)
+                        video=0 if clf else calls_step,
+                        samplers=0 if clf else cli)
         rows.append(("attn_packed_fwd", {**check_packed(
             "fwd", tag, b, lq, lk, hd, heads, BF16, gen), "calls": per_run}))
         if clf:
-            video = calls(video=calls_step)
+            video = calls(video=calls_step, samplers=cli)
             rows.append(("attn_packed_bwd", {**check_packed(
                 "bwd", tag, b, lq, lk, hd, heads, BF16, gen),
                 "calls": per_run}))
@@ -1228,9 +1410,9 @@ def kernel_phase(pipe):
     rows.append(("attn_fwd", {**check_head("vae-enc-mid", WINDOWS, l, l, d,
                                            BF16, gen),
                               "calls": calls(0, 1)}))
-    rows.append(("attn_fwd", {**check_head("vae-dec-mid", n, l, l, d, BF16,
-                                           gen),
-                              "calls": calls(1, 1, video=1)}))
+    rows.append(("attn_fwd", {**check_head(
+        "vae-dec-mid", n, l, l, d, BF16, gen),
+        "calls": calls(1, 1, video=1, samplers=sp["video_decode"])}))
     # serving's bucket-16 call of one sample: the UNet at the CFG batch 32,
     # the classifier's forward and gradient at 16, the decoder's mid
     # attention at 16, all bf16
@@ -1245,16 +1427,42 @@ def kernel_phase(pipe):
     rows.append(("attn_fwd", {**check_head("e-vae-dec-mid", SERVE_BUCKET, l,
                                            l, d, BF16, gen),
                               "calls": calls(serve=1)}))
+    # the sampler phase (its video-run calls are credited above, its
+    # guided UNet calls on the SoundLogger's rows below): the classifier's
+    # forward and gradient at SP_SAMPLES, the tiled UNet call at
+    # 3·SP_SAMPLES, the VAE's mid attention in the tiled decode (all the
+    # tiles in one call) and in the ancestral inpaint's encode (one
+    # window) and decode
+    for tag, b, lq, lk, hd, heads, per in attention_sites(
+            "d-clf", CLASSIFIER_BACKBONE, SP_SAMPLES, WINDOW_FEATS, False):
+        for kind, name in (("fwd", "attn_packed_fwd"),
+                           ("bwd", "attn_packed_bwd")):
+            rows.append((name, {**check_packed(
+                kind, tag, b, lq, lk, hd, heads, BF16, gen),
+                "calls": calls(samplers=sp["guided"] * per)}))
+    for tag, b, lq, lk, hd, heads, per in attention_sites(
+            "dt-unet", LDM_UNET, 3 * SP_SAMPLES, WINDOW_FEATS, True):
+        rows.append(("attn_packed_fwd", {**check_packed(
+            "fwd", tag, b, lq, lk, hd, heads, BF16, gen),
+            "calls": calls(samplers=sp["tiled_unet"] * per)}))
+    rows.append(("attn_fwd", {**check_head(
+        "dt-vae-dec-mid", TILED_TILES * SP_SAMPLES, 256, 256, d, BF16, gen),
+        "calls": calls(samplers=sp["tiled_decode"])}))
+    for tag, b in (("d-vae-enc-mid", 1), ("d-vae-dec-mid", SP_SAMPLES)):
+        rows.append(("attn_fwd", {**check_head(tag, b, l, l, d, BF16, gen),
+                                  "calls": calls(samplers=sp["inpaint_vae"])}))
     # the stage-2 CLI's SoundLogger: the UNet's attention forward at the
     # CFG batch 2·SL_N over the training crops' S2_TOKENS tokens, every
-    # sampler step, bf16; the VAE's mid attention at SL_N in the encode
+    # sampler step, bf16 (the sampler phase's guided calls too: one
+    # shape); the VAE's mid attention at SL_N in the encode
     # and the two decodes (the encoder's and the decoder's are one shape),
     # fp32
     for tag, b, lq, lk, hd, heads, per in attention_sites(
             "sl-unet", LDM_UNET, 2 * SL_N, S2_TOKENS, True):
         rows.append(("attn_packed_fwd", {**check_packed(
             "fwd", tag, b, lq, lk, hd, heads, BF16, gen),
-            "calls": calls(sound_log=SL_CALLS * STEPS * per)}))
+            "calls": calls(sound_log=SL_CALLS * STEPS * per,
+                           samplers=sp["guided"] * per)}))
     rows.append(("attn_fwd", {**check_head("sl-vae-mid", SL_N, l, l, d, FP32,
                                            gen),
                               "calls": calls(sound_log=3 * SL_CALLS)}))
@@ -1273,7 +1481,7 @@ def kernel_phase(pipe):
         rows.append(("attn_bwd", check_head_bwd("ragged", 2, 1000, 936, d,
                                                 dtype, gen)))
     for (model, b, c, h, w, eps, act, dtype), per_run in gn_path(
-            pipe, n, STEPS).items():
+            pipe, n, STEPS, sp).items():
         tag = f"{model}-{c}x{h}x{w}"
         for name, r in check_gn(tag, b, c, h, w, eps, act, dtype, gen):
             rows.append((name, {**r, "calls": per_run}))
@@ -1365,6 +1573,34 @@ def kernel_phase(pipe):
     log("kernel worst ratios (max, rms, {fault: fault/limit}) " + json.dumps(
         {f"{k}/{dt}": v for (k, dt), v in worst.items()}))
     return rows
+
+
+def row_calls(rows) -> dict:
+    """{run: {"kernel/dtype": calls}} that the kernel phase's rows credit
+    to each main-path run."""
+    out = {run: collections.Counter() for run in RUNS}
+    for k, r in rows:
+        for run, n in r.get("calls", {}).items():
+            out[run][f"{k}/{r['dtype']}"] += n
+    return {run: {k: n for k, n in sorted(c.items()) if n}
+            for run, c in out.items()}
+
+
+def check_rows_cover(rows, launches):
+    """Every launch of every main-path run stands on kernel-phase rows of
+    its shape: the rows' calls equal the run's launches by kernel and
+    dtype, so each run's device, bound, plain and library sums cover all
+    of its launches."""
+    credited = row_calls(rows)
+    off = {run: {"rows": credited[run],
+                 "launches": {k: n for k, n in launches[run].items() if n}}
+           for run in RUNS}
+    off = {run: v for run, v in off.items() if v["rows"] != v["launches"]}
+    log(f"kernel rows cover every launch of the {len(RUNS)} runs: "
+        f"{not off}")
+    if off:
+        raise AssertionError(f"kernel rows' calls differ from the launches: "
+                             f"{json.dumps(off)}")
 
 
 def summarize(rows, launches):
@@ -1592,6 +1828,251 @@ def inpaint_phase(pipe, feats, spec, expect, profile: bool):
                       "generated_mean_abs_delta": generated,
                       "contract_inpaint": float(err_in),
                       "contract_free": float(err_free)}
+
+
+# ---- the sampler library --------------------------------------------------------
+
+class UNetCalls:
+    """Counts the UNet's forward calls: one per guided model call (CFG
+    runs both halves in one call)."""
+
+    def __init__(self, unet):
+        self.n = 0
+        self.handle = unet.register_forward_hook(self._hook)
+
+    def _hook(self, *_):
+        self.n += 1
+
+
+def expected_nfe(sampler: str, steps: int, opts: dict, num_timesteps: int):
+    """The model calls a fixed-grid call makes (None: adaptive)."""
+    if sampler == "dpm":
+        method = opts.get("method", "multistep")
+        if method == "adaptive":
+            return None
+        base = (steps if method == "multistep" else sum(
+            sampler_lib.singlestep_orders(steps, opts.get("order", 2),
+                                          method)))
+        return base + bool(opts.get("denoise_to_zero"))
+    if sampler in ("ancestral", "progressive"):
+        return opts["timesteps"]
+    n = len(make_ddim_timesteps(steps, num_timesteps,
+                                opts.get("discr_method", "uniform")))
+    return n + (sampler == "plms")
+
+
+def sampler_call(name, pipe, units_of, counter, fn, nfe_expect):
+    """One call of the phase, first then warm: seconds, model calls (the
+    UNet's forward calls) against ``nfe_expect`` (None: the solver's own
+    count in ``stats``), launches against ``predicted_launches`` of the
+    call's units ``units_of(model calls)``, finite outputs. Returns the
+    row, the launches and the units of both runs."""
+    row = {"name": name}
+    launches, units = collections.Counter(), collections.Counter()
+    for run in ("first", "warm"):
+        stats = {}
+        reset_counts()
+        counter.n = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out = fn(stats)
+        torch.cuda.synchronize()
+        row[f"{run}_s"] = time.perf_counter() - t0
+        got = read_counts()
+        nfe = counter.n
+        if nfe_expect is None:
+            if stats.get("nfe") != nfe:
+                raise AssertionError(f"{name}: the solver counted "
+                                     f"{stats.get('nfe')} model calls, the "
+                                     f"UNet ran {nfe}")
+            row[f"{run}_host_syncs"] = stats["host_syncs"]
+        elif nfe != nfe_expect:
+            raise AssertionError(f"{name}: {nfe} model calls, expected "
+                                 f"{nfe_expect}")
+        row[f"{run}_nfe"] = nfe
+        u = units_of(nfe)
+        check_launches(f"samplers {name} ({run})", got,
+                       predicted_launches(pipe, STEPS, u)["samplers"])
+        launches.update(got)
+        units.update(u)
+        outs = out if isinstance(out, tuple) else (out,)
+        for o in outs:
+            if not torch.isfinite(o).all():
+                raise AssertionError(f"{name}: non-finite output")
+        if nfe:
+            row[f"{run}_s_per_nfe"] = row[f"{run}_s"] / nfe
+    log("samplers " + json.dumps(row))
+    return row, launches, units
+
+
+def sampler_phase(pipe, feats, spec, clip: str):
+    """The sampler library at full width (SAMPLER_CALLS, then the ancestral
+    inpaint, img2img, PLMS through ``cli.generate``, and the tiled pair):
+    each call first and warm, its model calls, its launches held to the
+    model structure's per-call prediction, finite outputs. Returns the
+    launches of every counted run, their units (``SP_UNITS``) and the
+    rows."""
+    n = SP_SAMPLES
+    dev = pipe.device
+    feats_w = torch.as_tensor(feats[:WINDOW_FEATS], device=dev)[None]
+    cond = feats_w.repeat_interleave(n, dim=0)
+    x_T = torch.randn((n, *LATENT_HW, 4), generator=torch.Generator(
+        dev).manual_seed(7), device=dev)
+    gen = GenerationConfig(sample_num=n, wav_dtype="int16")
+    guide = {k: v for k, v in pipe.sampler_kwargs(gen).items()
+             if k not in ("sampler", "steps")}
+    guided = lambda k: sp_units(guided=k)
+    counter = UNetCalls(pipe.ldm.unet)
+    total, units = collections.Counter(), collections.Counter()
+    rows = []
+    try:
+        for name, sampler, steps, opts in SAMPLER_CALLS:
+            def fn(stats, sampler=sampler, steps=steps, opts=opts):
+                kw = dict(opts, stats=stats) if sampler == "dpm" else opts
+                return pipe.ldm.sample(
+                    cond, sampler=sampler, steps=steps, x_T=x_T,
+                    generator=torch.Generator(dev).manual_seed(8), **guide,
+                    **kw)
+            row, got, u = sampler_call(
+                name, pipe, guided, counter, fn,
+                expected_nfe(sampler, steps, opts,
+                             pipe.ldm.schedule.num_timesteps))
+            rows.append(row)
+            total.update(got)
+            units.update(u)
+
+        # the ancestral chain's inpaint: the canvas is window 0 of
+        # generate's sample 0, the first KEEP_FRAMES frames kept
+        known = spec[0][:, :SPEC_HW[1]]
+        mask = continuation_mask(SPEC_HW[1], KEEP_FRAMES)
+        spec_w = torch.as_tensor(known[None], device=dev)
+        mask_lat = torch.as_tensor(spec_mask_to_latent(mask[None]),
+                                   device=dev)
+        gen_a = GenerationConfig(sampler="ancestral", sample_num=n,
+                                 wav_dtype="int16",
+                                 solver_opts=(("timesteps", SP_CHAIN),))
+        first, _ = inpaint_stages(pipe, feats_w, spec_w, mask_lat, gen_a, 3)
+        inpaint_units = sp_units(guided=SP_CHAIN, inpaint_vae=1)
+        reset_counts()
+        counter.n = 0
+        t0 = time.perf_counter()
+        out = pipe.inpaint(feats[:WINDOW_FEATS], known, mask, seed=0,
+                           gen=gen_a)
+        torch.cuda.synchronize()
+        call_s = time.perf_counter() - t0
+        got = read_counts()
+        if counter.n != SP_CHAIN:
+            raise AssertionError(f"ancestral inpaint: {counter.n} model "
+                                 f"calls, expected {SP_CHAIN}")
+        check_launches("samplers inpaint-ancestral", got, predicted_launches(
+            pipe, STEPS, inpaint_units)["samplers"])
+        total.update(got)
+        units.update(inpaint_units)
+        check_outputs(out, "samplers inpaint-ancestral", n, 1)
+        warm, (z, z0, mask_s) = inpaint_stages(pipe, feats_w, spec_w,
+                                               mask_lat, gen_a, 4)
+        kept = float(((z - z0) * mask_s).abs().max())
+        log(f"samplers inpaint-ancestral latents max|Δ| to the canvas's on "
+            f"the kept cells {kept} (the final composite pins them)")
+        if kept != 0.0:
+            raise AssertionError("the ancestral inpaint moved kept latents")
+        rows.append({"name": "inpaint-ancestral", "main_call_s": call_s,
+                     "nfe": SP_CHAIN,
+                     **{f"first_{k}": v for k, v in first.items()},
+                     **{f"warm_{k}": v for k, v in warm.items()}})
+        log("samplers " + json.dumps(rows[-1]))
+
+        # img2img: the canvas's latents diffused to index 12 of a 25-step
+        # DDIM run, then decoded from there with the guided ε
+        steps_i, t_index = SP_IMG2IMG
+        z0 = pipe.encode_canvas(spec_w).repeat_interleave(n, dim=0)
+        context = pipe.ldm.get_learned_conditioning(cond)
+        eps = make_guided_eps_fn(
+            pipe.ldm.apply_model, context, torch.zeros_like(context),
+            GuidanceSpec(guide["cfg_scale"], guide["classifier_scale"]),
+            lambda x, t, c: F.logsigmoid(pipe.classifier(
+                x, t, c, return_logits=True)), cond)
+
+        def img2img(stats):
+            g = torch.Generator(dev).manual_seed(9)
+            z = ddim_stochastic_encode(pipe.ldm.schedule, z0, t_index,
+                                       steps=steps_i, generator=g)
+            return ddim_decode(eps, pipe.ldm.schedule, z, t_index,
+                               steps=steps_i)
+        row, got, u = sampler_call("img2img-encode-decode", pipe, guided,
+                                   counter, img2img, t_index)
+        rows.append(row)
+        total.update(got)
+        units.update(u)
+
+        # the tiled pair on a 16×128 latent canvas
+        zc = torch.randn((n, *TILED_CANVAS, 4), generator=torch.Generator(
+            dev).manual_seed(10), device=dev)
+        def tiled_decode(stats):
+            return pipe.ldm.decode_first_stage_tiled(
+                zc.to(pipe.vae_compute), SplitInputParams())
+        row, got, u = sampler_call(
+            "decode_first_stage_tiled", pipe,
+            lambda k: sp_units(tiled_decode=1), counter, tiled_decode, 0)
+        rows.append(row)
+        total.update(got)
+        units.update(u)
+        t_model = torch.full((n,), 500.0, device=dev)
+
+        def tiled_unet(stats):
+            return pipe.ldm.apply_model_tiled(
+                zc, t_model, context,
+                SplitInputParams(ks=(16, 64), stride=(16, 32)))
+        # one UNet call of 3·n tiles, without guidance
+        row, got, u = sampler_call(
+            "apply_model_tiled", pipe, lambda k: sp_units(tiled_unet=k),
+            counter, tiled_unet, 1)
+        rows.append(row)
+        total.update(got)
+        units.update(u)
+    finally:
+        counter.handle.remove()
+
+    # PLMS through the CLI, once: the video run's models and shapes at
+    # 26 model calls (25 steps and the bootstrap's second call)
+    if clip is None:
+        log("samplers cli.generate --sampler plms: not run, it reads a "
+            "video file (no cv2)")
+    else:
+        with tempfile.TemporaryDirectory() as tmp:
+            reset_counts()
+            t0 = time.perf_counter()
+            paths = generate_cli.main(["--video", clip, "--random-weights",
+                                       "--out", tmp, "--bf16", "--sampler",
+                                       "plms"])
+            torch.cuda.synchronize()
+            cli_s = time.perf_counter() - t0
+            got = read_counts()
+            cli_units = sp_units(video_nfe=SP_PLMS + 1, video_decode=1)
+            check_launches("samplers cli.generate --sampler plms", got,
+                           predicted_launches(pipe, STEPS,
+                                              cli_units)["samplers"])
+            total.update(got)
+            units.update(cli_units)
+            wavs = []
+            for p in paths:
+                with wave.open(p, "rb") as f:
+                    wavs.append((f.getframerate(), 8 * f.getsampwidth(),
+                                 f.getnframes()))
+                    pcm = np.frombuffer(f.readframes(f.getnframes()),
+                                        np.int16)
+                if not np.isfinite(pcm.astype(np.float32)).all():
+                    raise AssertionError("cli.generate --sampler plms wrote "
+                                         "a non-finite wav")
+            if wavs != [(16000, 16, WINDOW_SAMPLES)] * VIDEO_SAMPLES:
+                raise AssertionError(f"cli.generate --sampler plms wrote "
+                                     f"{wavs}")
+            rows.append({"name": "cli-generate-plms", "cli_s": cli_s,
+                         "nfe": SP_PLMS + 1, "wavs": wavs})
+            log("samplers " + json.dumps(rows[-1]))
+    return ({k: n for k, n in sorted(total.items()) if n},
+            sp_units(**units), rows)
 
 
 # ---- the video entry ---------------------------------------------------------
@@ -3775,6 +4256,96 @@ def agreement_phase():
             raise AssertionError(f"GPU {run} disagrees with the CPU's")
 
 
+# the tiny sampler agreement: latents max|Δ| against max(1, max|x_cpu|),
+# about five times the largest reading on an H100 (5.9e-6, DDIM with
+# noise dropout): a fault of order 1e-4 in the latents fails it
+SAMPLER_AGREE_TOL = 3e-5
+SAMPLER_AGREE_CALLS = (
+    ("dpm-multistep-order3", "dpm", 6, dict(order=3)),
+    ("dpm-singlestep-order3", "dpm", 6, dict(method="singlestep", order=3,
+                                             skip_type="logSNR")),
+    ("dpm-adaptive-order2", "dpm", 0, dict(method="adaptive", order=2)),
+    ("ddim-eta1-dropout", "ddim", 6, dict(eta=1.0, noise_dropout=0.1)),
+    ("plms", "plms", 6, {}),
+    ("p_sample_loop", "ancestral", 0, dict(timesteps=20)),
+)
+
+
+def agreement_sampler_phase():
+    """One call of each sampler family and the tiled pair, tiny fp32 on
+    the GPU (kernels) against the CPU (plain versions): agreement_phase's
+    tiny models, CFG 4.5 and classifier guidance 50, shared x_T and step
+    draws (noise and dropout keep masks made on the CPU and handed to
+    both); the adaptive solver must take the same model calls."""
+    ucfg = UNetConfig(model_channels=160, num_res_blocks=1,
+                      channel_mult=(1, 2), attention_resolutions=(1, 2),
+                      num_heads=4, context_dim=64)
+    ccfg = UNetConfig(out_channels=1, model_channels=32, num_res_blocks=1,
+                      channel_mult=(1, 2), attention_resolutions=(2,),
+                      num_heads=2, context_dim=512)
+    ldm = randomize_(LatentDiffusion(LDMConfig(
+        unet=ucfg, vae=VAEConfig(ch=32, ch_mult=(1, 1, 1, 1),
+                                 num_res_blocks=1), cond_embed_dim=64)), 3)
+    clf = randomize_(ClassifierBackbone(ccfg), 4)
+    rng = np.random.default_rng(11)
+    b = 2
+    feat = torch.as_tensor(rng.standard_normal((b, WINDOW_FEATS, 512)),
+                           dtype=torch.float32)
+    x_T = torch.as_tensor(rng.standard_normal((b, *LATENT_HW, 4)),
+                          dtype=torch.float32)
+    n_draws = 20
+    draws = {"noise": torch.as_tensor(rng.standard_normal(
+        (n_draws, b, *LATENT_HW, 4)), dtype=torch.float32),
+        "keep": torch.as_tensor(rng.uniform(size=(n_draws, b, *LATENT_HW,
+                                                  4)) < 0.9)}
+    canvas = torch.as_tensor(rng.standard_normal((1, *TILED_CANVAS, 4)),
+                             dtype=torch.float32)
+    t_model = torch.tensor([500.0])
+    outs = {}
+    for device in ("cpu", "cuda"):
+        m = copy.deepcopy(ldm).to(device).eval()
+        c = copy.deepcopy(clf).to(device).eval()
+        f = feat.to(device)
+        for name, sampler, steps, opts in SAMPLER_AGREE_CALLS:
+            stats = {}
+            kw = dict(opts)
+            if sampler == "dpm":
+                kw["stats"] = stats
+            if sampler in ("ddim", "ancestral"):
+                kw["draws"] = {k: v.to(device) for k, v in draws.items()}
+            with torch.no_grad():
+                out = m.sample(f, sampler=sampler, steps=steps,
+                               x_T=x_T.to(device), classifier=c,
+                               cfg_scale=4.5, classifier_scale=50.0, **kw)
+            outs[(name, device)] = (out.cpu(), stats.get("nfe"))
+        with torch.no_grad():
+            z = canvas.to(device)
+            ctx = m.get_learned_conditioning(f[:1])
+            outs[("decode_first_stage_tiled", device)] = (
+                m.decode_first_stage_tiled(z, SplitInputParams()).cpu(),
+                None)
+            outs[("apply_model_tiled", device)] = (m.apply_model_tiled(
+                z, t_model.to(device), ctx,
+                SplitInputParams(ks=(16, 64), stride=(16, 32))).cpu(), None)
+    names = [c[0] for c in SAMPLER_AGREE_CALLS] + [
+        "decode_first_stage_tiled", "apply_model_tiled"]
+    report = {}
+    for name in names:
+        (cpu, nfe_c), (gpu, nfe_g) = outs[(name, "cpu")], outs[(name,
+                                                                "cuda")]
+        scale = max(1.0, float(cpu.abs().max()))
+        ratio = float((gpu - cpu).abs().max()) / scale
+        report[name] = {"max_abs_delta_of_scale": ratio, "nfe_cpu": nfe_c,
+                        "nfe_gpu": nfe_g}
+        log(f"agreement tiny fp32 samplers {name} gpu-vs-cpu max|Δ| "
+            f"{ratio:.3e} of max(1, max|x|) (tol {SAMPLER_AGREE_TOL:g})"
+            + (f", model calls {nfe_g} on the GPU, {nfe_c} on the CPU"
+               if nfe_c is not None else ""))
+        if not ratio <= SAMPLER_AGREE_TOL or nfe_c != nfe_g:
+            raise AssertionError(f"GPU {name} disagrees with the CPU's")
+    return report
+
+
 def train_agreement_runs(runs: int, card: str) -> int:
     """``agreement_train_phase`` ``runs`` times in one process: each run's
     flipped kinks by step, and failures / runs. Exits non-zero if any run
@@ -4197,12 +4768,16 @@ def main(argv):
     torch.cuda.synchronize()
     log(f"pipeline build+random weights {time.perf_counter() - t0:.3f} s")
     expect = predicted_launches(pipe, STEPS)
-    t0 = time.perf_counter()
-    rows = kernel_phase(pipe)
-    log(f"kernel phase {time.perf_counter() - t0:.3f} s")
     feats = np.random.default_rng(0).standard_normal(
         (WINDOWS * WINDOW_FEATS, 512)).astype(np.float32)
     profile = "--profile" in argv
+    # first: late in a long run torch.profiler loses device events
+    t0 = time.perf_counter()
+    rows = kernel_phase(pipe, unit_sums())
+    log(f"kernel phase {time.perf_counter() - t0:.3f} s; torch.profiler "
+        f"traces taken again {len(PROFILER_RETRIES)}, device times from "
+        f"CUDA events {len(DEVICE_MS_FALLBACKS)} {DEVICE_MS_FALLBACKS}")
+    torch.cuda.empty_cache()
     launches = {}
     launches["generate"], times, spec = generate_phase(
         pipe, feats, expect["generate"], profile)
@@ -4221,6 +4796,14 @@ def main(argv):
         launches["serve"], times = serve_phase(
             pipe, expect["serve"], os.path.join(tmp, "clip.avi"), card,
             profile)
+        t0 = time.perf_counter()
+        launches["samplers"], sp, _ = sampler_phase(
+            pipe, feats, spec,
+            os.path.join(tmp, "clip.avi") if have_cv2() else None)
+        log(f"samplers phase {time.perf_counter() - t0:.3f} s units "
+            + json.dumps(sp))
+    # the kernel rows' credit of the sampler phase, from its units
+    resolve_units(rows, sp)
     launches["train_vae"], times = train_phase(
         pipe, expect["train_vae"], profile)
     log("train_vae times " + json.dumps(times))
@@ -4256,11 +4839,13 @@ def main(argv):
         times["phase_s"] = time.perf_counter() - t0
         log("parallel times " + json.dumps(times))
     agreement_phase()
+    agreement_sampler_phase()
     agreement_train_phase()
     agreement_stage2_phase()
     agreement_sound_vae_phase()
     agreement_classifier_phase()
     agreement_cavp_phase()
+    check_rows_cover(rows, launches)
     log(json.dumps({"kernels": summarize(rows, launches)}))
     log(card)
     print(json.dumps({"ok": True, "device": {

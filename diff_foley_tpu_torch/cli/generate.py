@@ -40,14 +40,13 @@ def parse_args(argv=None):
     p.add_argument("--cg-scale", type=float, default=50.0)
     p.add_argument("--steps", type=int, default=25)
     p.add_argument("--sample-num", type=int, default=4)
-    p.add_argument("--sampler", default="dpm",
-                   choices=["dpm", "ddim", "plms", "ancestral"])
+    p.add_argument("--sampler", default="dpm", choices=["dpm", "ddim", "plms"])
     p.add_argument(
         "--continue-from", default=None,
         help="audio continuation: a 16 kHz .wav or a normalised mel-spec "
              ".npy whose first --known-seconds are kept; the rest is "
-             "regenerated against the video (masked DDIM: forces --sampler "
-             "ddim)")
+             "regenerated against the video (masked: forces --sampler ddim "
+             "unless the sampler is one with a mask path)")
     p.add_argument("--known-seconds", type=float, default=None,
                    help="how much of --continue-from to keep (required "
                         "with it)")
@@ -177,10 +176,6 @@ def build(args):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.sampler in ("plms", "ancestral"):
-        raise SystemExit(f"--sampler {args.sampler} is not ported: 'dpm' or "
-                         "'ddim' (the other samplers are on ROADMAP §1's "
-                         "long tail)")
     from ..pipeline import GenerationConfig
     from ..utils.wav import write_wav
 
@@ -189,8 +184,8 @@ def main(argv=None):
                                 args.truncate_second)
     print(f"CAVP features: {feats.shape}")
     sampler = args.sampler
-    if args.continue_from and sampler != "ddim":
-        print(f"--continue-from needs the masked DDIM sampler: {sampler!r} "
+    if args.continue_from and sampler not in ("ddim", "ancestral"):
+        print(f"--continue-from needs a masked-capable sampler; {sampler!r} "
               "-> 'ddim'")
         sampler = "ddim"
     gen = GenerationConfig(sampler=sampler, steps=args.steps,

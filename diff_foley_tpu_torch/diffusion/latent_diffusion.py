@@ -1,6 +1,7 @@
-"""LatentDiffusion: conditioning, the ε-UNet, DPM-Solver++ or DDIM
-sampling with guidance, the first stage's encode and decode, and the
-training loss ``p_losses`` (``diff_foley_tpu/diffusion/latent_diffusion.py``).
+"""LatentDiffusion: conditioning, the ε-UNet, guided sampling by any
+sampler of ``samplers.py``, the first stage's encode and decode (also over
+a big canvas in tiles), and the training loss ``p_losses``
+(``diff_foley_tpu/diffusion/latent_diffusion.py``).
 
 Children mirror the JAX params layout: ``unet`` ({"unet": …}), ``cond``
 ({"cond": …}) and ``vae`` (the separate VAE params). ``forward`` is the
@@ -20,8 +21,10 @@ from ..models.unet import LDM_UNET, UNetConfig, UNetModel
 from ..models.vae import SD_VAE, AutoencoderKL, VAEConfig
 from ..parallel.mesh import draw_rows
 from .guidance import GuidanceSpec, make_guided_eps_fn
-from .samplers import ddim_sample, dpm_solver_sample
+from .samplers import (ddim_sample, dpm_solver_sample, p_sample_loop,
+                       plms_sample, progressive_denoising)
 from .schedule import DiffusionSchedule
+from .tiled import SplitInputParams, tiled_apply
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,6 +67,21 @@ class LatentDiffusion(nn.Module):
         """Cross-attention conditioning into the UNet."""
         return self.unet(x, t, context)
 
+    def apply_model_tiled(self, x: torch.Tensor, t: torch.Tensor,
+                          context: torch.Tensor,
+                          split: SplitInputParams) -> torch.Tensor:
+        """The UNet's output over a big NHWC latent canvas in overlapping
+        ``split.ks`` tiles, all in one batched call, every tile with its
+        example's context and time, blended by the border weighting
+        (ddpm.py:936-1018)."""
+        def fn(tiles):
+            n_rep = tiles.shape[0] // x.shape[0]
+            return self.unet(tiles.permute(0, 2, 3, 1), t.repeat(n_rep),
+                             context.repeat(n_rep, 1, 1)).permute(0, 3, 1, 2)
+
+        return tiled_apply(fn, x.permute(0, 3, 1, 2), split).permute(
+            0, 2, 3, 1)
+
     def encode_first_stage(self, x: torch.Tensor,
                            generator: Optional[torch.Generator] = None,
                            noise: Optional[torch.Tensor] = None
@@ -79,6 +97,18 @@ class LatentDiffusion(nn.Module):
     def decode_first_stage(self, z: torch.Tensor) -> torch.Tensor:
         """Scaled latent → mel image, NHWC."""
         return self.vae.decode(z / self.cfg.scale_factor)
+
+    def decode_first_stage_tiled(self, z: torch.Tensor,
+                                 split: SplitInputParams) -> torch.Tensor:
+        """A big canvas's scaled NHWC latent → NHWC image, decoded in
+        overlapping ``split.ks`` tiles (all at once) and blended by the
+        border weighting, the image canvas ``split.vqf`` times the
+        latent's (ddpm.py:749-786)."""
+        z = (z / self.cfg.scale_factor).permute(0, 3, 1, 2)
+        out = tiled_apply(lambda t: self.vae.decode(
+            t.permute(0, 2, 3, 1)).permute(0, 3, 1, 2), z, split,
+            uf=split.vqf)
+        return out.permute(0, 2, 3, 1)
 
     def p_losses(self, z_start: torch.Tensor, video_feat: torch.Tensor, *,
                  generator: Optional[torch.Generator] = None,
@@ -130,20 +160,31 @@ class LatentDiffusion(nn.Module):
                classifier_scale: float = 0.0,
                x_T: Optional[torch.Tensor] = None,
                generator: Optional[torch.Generator] = None,
-               mask: Optional[torch.Tensor] = None,
-               x0: Optional[torch.Tensor] = None,
-               mask_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Latents conditioned on CAVP features, by DPM-Solver++
-        (``sampler="dpm"``) or DDIM (``"ddim"``) with CFG (zeros as the null
+               **solver_kwargs):
+        """Latents conditioned on CAVP features, with CFG (zeros as the null
         embedding) and, when a classifier is given, alignment guidance. The
         classifier (a ``ClassifierBackbone``) sees the raw 512-d features,
         not the encoded ones. ``x_T`` overrides the initial noise drawn from
-        ``generator``. ``mask``/``x0``/``mask_noise`` are DDIM's inpainting
-        inputs (:func:`~.samplers.ddim_sample`)."""
-        if sampler not in ("dpm", "ddim"):
-            raise ValueError(f"unknown sampler {sampler!r}: 'dpm' or 'ddim'")
-        if sampler == "dpm" and mask is not None:
-            raise ValueError("the DPM-Solver has no mask path: use 'ddim'")
+        ``generator``, which also draws the stochastic samplers' noise.
+
+        ``sampler`` (ddpm.py:1288-1356): "dpm" (``dpm_solver_sample``;
+        ``solver_kwargs`` reach the whole library, and ``model_type`` is
+        the network's parameterisation, converted to ε inside the guided
+        function before the classifier term), "ddim" (``ddim_sample``: η,
+        mask/x0/mask_noise inpainting, noise dropout, hooks …),
+        "ancestral"/"ddpm" (``p_sample_loop``: the whole chain unless
+        ``timesteps`` cuts it; ``steps`` does not apply), "progressive"
+        (``progressive_denoising``: returns (x, x0 partials)) or "plms",
+        which takes no option (TypeError)."""
+        if sampler not in ("dpm", "ddim", "ancestral", "ddpm",
+                           "progressive", "plms"):
+            raise ValueError(f"unknown sampler '{sampler}'")
+        if sampler == "plms" and solver_kwargs:
+            # silently dropping e.g. order=3 would misreport what ran
+            raise TypeError(f"plms accepts no solver options, got "
+                            f"{sorted(solver_kwargs)}")
+        model_type = (solver_kwargs.pop("model_type", "noise")
+                      if sampler == "dpm" else "noise")
         context = self.get_learned_conditioning(video_feat)
         classifier_fn = None
         if classifier is not None:
@@ -155,14 +196,22 @@ class LatentDiffusion(nn.Module):
             self.apply_model, context, torch.zeros_like(context),
             GuidanceSpec(cfg_scale=cfg_scale,
                          classifier_scale=classifier_scale),
-            classifier_fn, video_feat if classifier is not None else None)
+            classifier_fn, video_feat if classifier is not None else None,
+            model_type=model_type)
         if x_T is None:
             x_T = draw_rows(
                 torch.randn,
                 (video_feat.shape[0], *latent_hw, self.cfg.unet.in_channels),
                 generator=generator, device=video_feat.device)
+        if sampler == "dpm":
+            return dpm_solver_sample(eps_fn, self.schedule, x_T, steps=steps,
+                                     **solver_kwargs)
         if sampler == "ddim":
             return ddim_sample(eps_fn, self.schedule, x_T, steps=steps,
-                               mask=mask, x0=x0, mask_noise=mask_noise,
-                               generator=generator)
-        return dpm_solver_sample(eps_fn, self.schedule, x_T, steps=steps)
+                               generator=generator, **solver_kwargs)
+        if sampler == "plms":
+            return plms_sample(eps_fn, self.schedule, x_T, steps=steps)
+        chain = (progressive_denoising if sampler == "progressive"
+                 else p_sample_loop)
+        return chain(eps_fn, self.schedule, x_T, generator=generator,
+                     **solver_kwargs)

@@ -4,9 +4,9 @@
 - ``generate``: CAVP features → latents (DPM-Solver++ with CFG and
   alignment guidance) → VAE decode → mel → Griffin-Lim → waveform;
 - ``inpaint``: the same, conditioned also on a known mel canvas and a keep
-  mask (audio continuation): the canvas is VAE-encoded, masked DDIM
-  re-imposes the known latents every step, and they are re-imposed once
-  more before the decode.
+  mask (audio continuation): the canvas is VAE-encoded, masked DDIM (or
+  the ancestral chain) re-imposes the known latents every step, and they
+  are re-imposed once more before the decode.
 
 ``generate(..., bucket_windows=b)`` runs a window stream of any length
 through fixed (b × sample_num) calls, its last chunk padded; serving
@@ -57,7 +57,9 @@ SPEC_HW = (LATENT_HW[0] * 8, LATENT_HW[1] * 8)  # (128 mels, 512 frames)
 
 @dataclasses.dataclass(frozen=True)
 class GenerationConfig:
-    sampler: str = "dpm"   # "dpm" (DPM-Solver++) or "ddim"
+    # "dpm" (DPM-Solver++), "ddim", "plms", "ancestral"/"ddpm" (the chain:
+    # ``steps`` does not apply), as ``LatentDiffusion.sample`` takes them
+    sampler: str = "dpm"
     steps: int = 25
     cfg_scale: float = 4.5
     classifier_scale: float = 50.0
@@ -67,6 +69,11 @@ class GenerationConfig:
     return_spec: bool = True
     # "float32" keeps Griffin-Lim's output; "int16" quantises as write_wav
     wav_dtype: str = "float32"
+    # the sampler's options as (key, value) pairs, handed to
+    # ``LatentDiffusion.sample``: for "dpm" the whole DPM-Solver library,
+    # e.g. (("order", 3), ("method", "singlestep")); for "ddim" η,
+    # "quad" spacing …; for the chain ``timesteps``
+    solver_opts: tuple = ()
 
 
 def resolve_device(device=None) -> torch.device:
@@ -176,7 +183,8 @@ class DiffFoleyPipeline:
         return dict(sampler=gen.sampler, steps=gen.steps,
                     cfg_scale=gen.cfg_scale,
                     classifier=self.classifier if use_clf else None,
-                    classifier_scale=gen.classifier_scale if use_clf else 0.0)
+                    classifier_scale=gen.classifier_scale if use_clf else 0.0,
+                    **dict(gen.solver_opts))
 
     @torch.no_grad()
     def encode_canvas(self, spec_w: torch.Tensor) -> torch.Tensor:
@@ -343,25 +351,30 @@ class DiffFoleyPipeline:
                 gen: GenerationConfig = GenerationConfig(sampler="ddim"),
                 x_T: Optional[torch.Tensor] = None,
                 mask_noise: Optional[torch.Tensor] = None,
-                gl_phase: Optional[torch.Tensor] = None) -> dict:
+                gl_phase: Optional[torch.Tensor] = None,
+                draws: Optional[dict] = None) -> dict:
         """Masked generation: continue or inpaint audio against a video.
 
         ``known_spec`` (128, ≥ w·512) is a mel image in [0, 1] (a prior
         ``generate`` sample, say); ``spec_mask`` of the same shape is 1
         where it is KEPT and 0 where it is generated
         (``continuation_mask``). The mask is min-pooled 8×8 to the latents;
-        DDIM re-imposes the known latents before every model call, and the
+        DDIM re-imposes the known latents before every model call, the
+        ancestral chain ("ancestral"/"ddpm") after every step, and the
         pipeline re-imposes them once more before the decode, so the kept
         region is the VAE's roundtrip of the canvas. Returns what
         ``generate`` returns.
 
         A generator seeded with ``seed`` draws x_T, the per-step forward
-        noise of the known region and Griffin-Lim's phase; ``x_T``,
-        ``mask_noise`` ((n_steps, w·S, 16, 64, 4)) and ``gl_phase``
-        override them."""
-        if gen.sampler != "ddim":
-            raise ValueError(f"inpainting needs sampler 'ddim' (ddim.py:210),"
-                             f" got {gen.sampler!r}")
+        noise of the known region (and the chain's step noise) and
+        Griffin-Lim's phase; ``x_T``, ``mask_noise`` ((n_steps, w·S, 16,
+        64, 4), n_steps the DDIM steps or the chain's length),
+        ``draws`` (the sampler's step draws, ``samplers.py``, each of
+        mask_noise's shape) and ``gl_phase`` override them."""
+        if gen.sampler not in ("ddim", "ancestral", "ddpm"):
+            raise ValueError(f"inpainting needs sampler 'ddim' or "
+                             f"'ancestral' (ddim.py:210, ddpm.py:1224), got "
+                             f"{gen.sampler!r}")
         feats_w = self._windows(cavp_feats)
         w, s = feats_w.shape[0], gen.sample_num
         n_mels, frames = SPEC_HW[0], w * SPEC_HW[1]
@@ -383,6 +396,8 @@ class DiffFoleyPipeline:
         mask = mine_of(spec_mask_to_latent(to_w(spec_mask)))
         feats = mine_of(feats_w)
         generator = torch.Generator(self.device).manual_seed(seed)
+        extra = {} if draws is None else {"draws": {
+            k: self._my_rows(v, wp * s, dim=1) for k, v in draws.items()}}
         with torch.no_grad(), global_rows(self.mesh, w * s):
             z0 = self.encode_canvas(spec_w).repeat_interleave(s, dim=0)
             mask = mask.repeat_interleave(s, dim=0)
@@ -391,7 +406,7 @@ class DiffFoleyPipeline:
                 x_T=self._my_rows(x_T, wp * s), generator=generator,
                 mask=mask, x0=z0,
                 mask_noise=self._my_rows(mask_noise, wp * s, dim=1),
-                **self.sampler_kwargs(gen))
+                **extra, **self.sampler_kwargs(gen))
             # the last update moves the known region by one denoising step:
             # re-impose the canvas exactly before the decode
             z = z0 * mask + (1.0 - mask) * z

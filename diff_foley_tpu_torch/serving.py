@@ -217,10 +217,11 @@ class BatchingEngine:
                        known_seconds: float) -> np.ndarray:
         """Keep the first ``known_seconds`` of ``known_spec`` (a normalised
         mel image, tiled to the features' length) and regenerate the rest
-        against ``feats``, by the masked DDIM path (``inpaint``). Runs
+        against ``feats``, by the masked path (``inpaint``): the engine's
+        sampler when it is "ddim" or "ancestral", else DDIM. Runs
         unbatched: continuations are rare next to plain generation."""
         gen = self.gen
-        if gen.sampler != "ddim":
+        if gen.sampler not in ("ddim", "ancestral"):
             gen = dataclasses.replace(gen, sampler="ddim")
         feats = np.asarray(feats, np.float32)
         need = window_features(feats).shape[0] * SPEC_HW[1]

@@ -165,7 +165,8 @@ def test_port_imports_no_jax():
                  "sharding_rules.py", "test_torch_parallel_ranks.py",
                  "logging.py", "spec_transform.py", "transform_spec.py",
                  "sound_vae.py", "sound_gan.py", "train_sound_vae.py",
-                 "resilience.py", "callbacks.py", "config.py"):
+                 "resilience.py", "callbacks.py", "config.py", "tiled.py",
+                 "samplers.py", "guidance.py"):
         assert any(p.name == name for p in files), name
     banned = ("jax", "flax", "optax", "orbax", "diff_foley_tpu")
     for path in files:

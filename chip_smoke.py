@@ -126,10 +126,27 @@
     ``DiffFoley.from_native_checkpoints`` over the stage-2, CAVP and
     classifier logdirs (the classifier's context encoded, then raw), each
     running ``generate_for_video`` on the clip: finite int16 wavs.
+11b. ``cli.train_cavp`` on the factory's other towers at their published
+    widths in fp32, four calls that cover every tower once (x3d × cnn10,
+    i3d × resnet50, r2plus1d × spec_vit, vivit × spec_vit_mean) over 11's
+    shards at a reduced batch (4 videos × 3 clips, a cut of depth, not of
+    width): three steps and the retrieval eval each, every step logged
+    and finite, ``logit_scale`` ≤ 100, every BatchNorm statistic moved,
+    no kernel launched; peak memory and the warm step. Then
+    ``cli.extract_features`` over the x3d logdir on the seeded clip.
+11c. ``train/stage2_decode.py`` at ``DecodeConfig``'s defaults (decoder ch
+    64, ch_mult (1, 1, 2, 2, 4), 8 out channels: 128 mel bins) on 11's
+    frozen CNN14, spec (8, 128, 256) fp32: four MSE steps of
+    ``DecoderWrapper`` and four of ``GANDecoderWrapper``. Losses finite,
+    the discriminator's statistics moved; launches as predicted (one
+    kernel-3 and one kernel-4 launch at (8, 1, 16, 256) and 26 GroupNorm
+    forwards a step); the kernel phase's rows of this run (PERF.md's
+    column r).
 12. Agreement: tiny ``generate``, ``inpaint``, ``DiffFoley.extract_features``
    plus ``generate_from_features``, two tiny VAE train steps, one tiny
    stage-2 train step, one tiny classifier train step (D 32, 40 keys) and
-   one tiny CAVP train step and one tiny waveform-VAE step (against the
+   one tiny CAVP train step, one on the other towers (i3d × resnet50),
+   one tiny spec-decoder step (D 32), one tiny waveform-VAE step (against the
    CPU in float64), one call of each sampler family and the tiled pair
    (``agreement_sampler_phase``: shared x_T and step draws, the adaptive
    solver's model calls equal) in float32 on the GPU (kernels) against the
@@ -216,8 +233,9 @@ from diff_foley_tpu_torch.models.layers import (Downsample, GroupNorm32,
                                                 Upsample)
 from diff_foley_tpu_torch.models.unet import (CLASSIFIER_BACKBONE, LDM_UNET,
                                               ClassifierBackbone, UNetConfig)
-from diff_foley_tpu_torch.models.vae import (SD_VAE, AutoencoderKL, VAEConfig,
-                                             VAEDownsample, VAEUpsample)
+from diff_foley_tpu_torch.models.vae import (SD_VAE, AutoencoderKL, Decoder,
+                                             VAEConfig, VAEDownsample,
+                                             VAEUpsample)
 from diff_foley_tpu_torch.ops import cuda_build
 from diff_foley_tpu_torch.ops import hopper_attention as ha
 from diff_foley_tpu_torch.ops import hopper_groupnorm as hg
@@ -241,6 +259,9 @@ from diff_foley_tpu_torch.train.sound_gan import (AudioGANConfig,
                                                   SoundVAETrainer)
 from diff_foley_tpu_torch.train.stage1_cavp import (Stage1TrainConfig,
                                                     Stage1Trainer)
+from diff_foley_tpu_torch.train.stage2_decode import (DecodeConfig,
+                                                      DecoderWrapper,
+                                                      GANDecoderWrapper)
 from diff_foley_tpu_torch.train.stage2_ldm import (Stage2TrainConfig,
                                                    Stage2Trainer,
                                                    init_ldm_weights_)
@@ -248,7 +269,8 @@ from diff_foley_tpu_torch.train.vae import (VAETrainConfig, VAETrainer,
                                             init_weights_)
 from diff_foley_tpu_torch.train.vae_losses import VAELossConfig
 from diff_foley_tpu_torch.utils import checkpoint as checkpoint_module
-from diff_foley_tpu_torch.utils.checkpoint import (load_native_ldm,
+from diff_foley_tpu_torch.utils.checkpoint import (load_native_cavp,
+                                                   load_native_ldm,
                                                    load_native_sound_vae)
 from diff_foley_tpu_torch.utils.ema import ema_update
 from diff_foley_tpu_torch.utils.init import randomize_
@@ -303,6 +325,15 @@ SERVE_WINDOWS = (1, 2, 3, 1, 2, 3, 2, 1)
 # 30-video contrastive batch (the feature cache)
 CAVP_BATCH, CAVP_CLIPS, CAVP_STEPS, CAVP_ACCUM = 30, 3, 3, 3
 CAVP_SAMPLES = CAVP_BATCH * CAVP_STEPS + 6
+# stage 1 on the factory's other towers: four CLI calls cover every tower
+# once, at their published widths in fp32, at a reduced batch (a cut of
+# depth: TOWER_BATCH videos × CAVP_CLIPS clips) over TOWER_STEPS steps
+TOWER_PAIRS = (("x3d", "cnn10"), ("i3d", "resnet50"),
+               ("r2plus1d", "spec_vit"), ("vivit", "spec_vit_mean"))
+TOWER_BATCH, TOWER_STEPS = 4, 3
+# the stage-2 spec decoder at DecodeConfig's defaults: DEC_STEPS MSE steps
+# and DEC_STEPS GAN steps at batch DEC_BATCH over (128, DEC_T) specs
+DEC_BATCH, DEC_STEPS, DEC_T = 8, 4, 256
 # the stage-2 CLI's SoundLogger: every SL_EVERY steps of the main-path
 # call (SL_CALLS calls), SL_N items (the UNet at the CFG batch 2·SL_N,
 # the VAE encoder once and the decoder twice at SL_N), the JAX logger's
@@ -322,7 +353,7 @@ SV_WINDOW, SV_BATCH, SV_STEPS = 65536, 8, 6
 # 8×8, vqf 8: 15 tiles of 128×128 pixels a sample, TILED_TILES·2 rows in
 # one decoder call), the UNet at ks (16, 64), stride (16, 32) (3 tiles
 # at the trained window)
-SP_SAMPLES, SP_STEPS, SP_CHAIN, SP_PLMS = 2, 10, 100, 25
+SP_SAMPLES, SP_STEPS, SP_CHAIN, SP_PLMS = 2, 10, 25, 25
 SP_IMG2IMG = (25, 12)
 TILED_CANVAS, TILED_TILES = (16, 128), 15
 # the phase's work in the units its launches scale with: guided model
@@ -410,19 +441,21 @@ SYMBOLS = {"fwd": ("attn_packed_fwd",), "bwd": ("head_bwd_",),
            "apply": ("gn_stream_apply_kernel",)}
 RUNS = ("generate", "inpaint", "train_vae", "video", "train_stage2",
         "train_classifier", "align_acc", "serve", "sound_log",
-        "train_sound_vae", "samplers")
+        "train_sound_vae", "samplers", "decode")
 
 
 def calls(generate: int = 0, inpaint: int = 0, train_vae: int = 0,
           video: int = 0, train_stage2: int = 0, train_classifier: int = 0,
           align_acc: int = 0, serve: int = 0, sound_log: int = 0,
-          train_sound_vae: int = 0, samplers: int = 0) -> dict:
+          train_sound_vae: int = 0, samplers: int = 0,
+          decode: int = 0) -> dict:
     """Calls of one kernel shape in each main-path run."""
     return {"generate": generate, "inpaint": inpaint, "train_vae": train_vae,
             "video": video, "train_stage2": train_stage2,
             "train_classifier": train_classifier, "align_acc": align_acc,
             "serve": serve, "sound_log": sound_log,
-            "train_sound_vae": train_sound_vae, "samplers": samplers}
+            "train_sound_vae": train_sound_vae, "samplers": samplers,
+            "decode": decode}
 
 
 class Units(dict):
@@ -685,6 +718,18 @@ def gn_kernels(channels: int, h: int, w: int, itemsize: int):
     return ("gn_block",)
 
 
+def decode_sites():
+    """The spec decoder at ``DecodeConfig``'s defaults, built on the meta
+    device: (the GroupNorm sites of one forward over its (1, DEC_T/16)
+    canvas, as ``gn_sites``; the canvas steps, its mid attention's
+    length; the mid attention's head dim)."""
+    cfg = DecodeConfig()
+    with torch.device("meta"):
+        dec = Decoder(cfg.decoder, in_channels=cfg.feat_dim)
+    t = DEC_T // 16   # CNN14 pools time 16-fold
+    return gn_sites(dec, (1, t)), t, cfg.decoder.ch * cfg.decoder.ch_mult[-1]
+
+
 def gn_path(pipe, n: int, steps: int, sp=None):
     """{(model, batch, channels, h, w, eps, act, dtype): {run: calls}} of
     every GroupNorm32 call in one generate, one inpaint, one train_vae,
@@ -834,8 +879,24 @@ def predicted_launches(pipe, steps: int, sp=None):
         for k in gn_kernels(c, h, w, dtype.itemsize):
             for run in RUNS:
                 pred[run][f"{k}/{str(dtype).split('.')[-1]}"] += per_run[run]
+    pred["decode"].update(decode_launches())
     return {run: {k: n for k, n in sorted(c.items()) if n}
             for run, c in pred.items()}
+
+
+def decode_launches() -> collections.Counter:
+    """The spec decoder's run (fp32), MSE and GAN steps alike: one forward
+    and one backward a step, so its mid attention forward and backward
+    once each and every GroupNorm's forward once (the backward recomputes
+    the plain formula); the frozen CNN14 and the PatchGAN launch
+    nothing."""
+    gns, _, _ = decode_sites()
+    dec = collections.Counter()
+    dec["attn_fwd/float32"] = dec["attn_bwd/float32"] = 2 * DEC_STEPS
+    for c, h, w, _, _ in gns:
+        for k in gn_kernels(c, h, w, 4):
+            dec[f"{k}/float32"] += 2 * DEC_STEPS
+    return dec
 
 
 # ---- the kernel phase ---------------------------------------------------------
@@ -1035,12 +1096,20 @@ def _backward_dq_from(q, k, v, g, scale, keys):
     return torch.einsum("bhqk,bhkd->bhqd", ds, keys) * scale, gk, gv
 
 
+def fault_tile(lk: int) -> int:
+    """The rows a k-tile fault moves: the 64-row tile, or half the keys
+    where they fill less than two tiles (the spec decoder's 16)."""
+    return min(64, lk // 2)
+
+
 def fault_head_bwd_shifted_key_tile(q, k, v, g, scale):
     """Planted fault: dQ = dS·K reads the keys of the second 64-row tile in
-    place of the first, as a product kernel with a wrong k-tile offset
-    would; dK and dV are right."""
+    place of the first (of the second half in place of the first, under
+    two tiles), as a product kernel with a wrong k-tile offset would; dK
+    and dV are right."""
+    t = fault_tile(k.shape[2])
     shifted = k.clone()
-    shifted[:, :, :64] = k[:, :, 64:128]
+    shifted[:, :, :t] = k[:, :, t:2 * t]
     return _backward_dq_from(q, k, v, g, scale, shifted)
 
 
@@ -1068,10 +1137,11 @@ def fault_head_shifted_keys(q, k, v, scale):
 
 def fault_head_shifted_key_tile(q, k, v, scale):
     """Planted fault: P̃·V reads the V rows of the second 64-key tile in
-    place of the first, as a product kernel with a wrong k-tile offset
-    would."""
+    place of the first (of the second half in place of the first, under
+    two tiles), as a product kernel with a wrong k-tile offset would."""
+    t = fault_tile(k.shape[2])
     shifted = v.clone()
-    shifted[:, :, :64] = v[:, :, 64:128]
+    shifted[:, :, :t] = v[:, :, t:2 * t]
     return (ha.attention_reference(q, k, shifted, scale),)
 
 
@@ -1480,6 +1550,31 @@ def kernel_phase(pipe, sp):
                                             gen)))
         rows.append(("attn_bwd", check_head_bwd("ragged", 2, 1000, 936, d,
                                                 dtype, gen)))
+    # the spec decoder's train steps (decode, fp32): its mid attention at
+    # (DEC_BATCH, 1, 16, 256), forward and backward once a step, and every
+    # GroupNorm of its forward; kernels 3 and 4 at D 256 once more at a
+    # ragged length with tile edges, in fp32 and bf16. Their operands come
+    # from a generator of their own, so every other row keeps the inputs
+    # it had before these rows came
+    gns, t_dec, d_dec = decode_sites()
+    per = calls(decode=2 * DEC_STEPS)
+    gen_r = torch.Generator("cuda").manual_seed(15)
+    rows.append(("attn_fwd", {**check_head("r-dec-mid", DEC_BATCH, t_dec,
+                                           t_dec, d_dec, FP32, gen_r),
+                              "calls": per}))
+    rows.append(("attn_bwd", {**check_head_bwd("r-dec-mid", DEC_BATCH, t_dec,
+                                               t_dec, d_dec, FP32, gen_r),
+                              "calls": per}))
+    for dtype in (FP32, BF16):
+        rows.append(("attn_fwd", check_head("ragged-256", 2, 1000, 1000,
+                                            d_dec, dtype, gen_r)))
+        rows.append(("attn_bwd", check_head_bwd("ragged-256", 2, 1000, 1000,
+                                                d_dec, dtype, gen_r)))
+    for (c, h, w, eps, act), sites in collections.Counter(gns).items():
+        for name, r in check_gn(f"r-dec-{c}x{h}x{w}", DEC_BATCH, c, h, w,
+                                eps, act, FP32, gen_r):
+            rows.append((name, {**r, "calls": calls(
+                decode=2 * DEC_STEPS * sites)}))
     for (model, b, c, h, w, eps, act, dtype), per_run in gn_path(
             pipe, n, STEPS, sp).items():
         tag = f"{model}-{c}x{h}x{w}"
@@ -3594,9 +3689,13 @@ def train_cavp_phase(root: str):
             }, logdir
 
 
-def extract_features_phase(clip: str, cavp_logdir: str, root: str):
+def extract_features_phase(clip: str, cavp_logdir: str, root: str,
+                           frames_per_call: int = 0):
     """``cli.extract_features`` on the seeded clip with the CAVP logdir:
-    one (T, 512) file of unit-norm features at the logdir's frame size."""
+    one (T, 512) file of unit-norm features at the logdir's frame size.
+    ``frames_per_call``: a tower whose head pools each call's frames to
+    that many (x3d, i3d, r2plus1d: 16), so each batch of 40 frames gives
+    16 features, as the JAX package's extraction does."""
     video_dir, out_dir = os.path.join(root, "videos"), os.path.join(
         root, "feats")
     os.makedirs(video_dir)
@@ -3611,12 +3710,147 @@ def extract_features_phase(clip: str, cavp_logdir: str, root: str):
     log(f"extract_features {call_s:.3f} s: {names} → {feat.shape}, norms "
         f"{norms.min():.6f}–{norms.max():.6f}")
     frames = len(extract_frames(clip, size=FRAME))
+    if frames_per_call:   # each batch of the CLI's 40 frames, the ragged
+        frames = frames_per_call * -(-frames // 40)   # tail's too
     if not (names == ["clip.avi"] and feat.shape == (frames, 512)
             and np.isfinite(feat).all()
             and np.abs(norms - 1).max() < 1e-3):
         raise AssertionError("extract_features did not write unit-norm "
                              "per-frame features")
     return {"call_s": call_s, "frames": feat.shape[0]}
+
+
+def cavp_towers_phase(root: str, clip: str):
+    """``cli.train_cavp`` on the factory's other towers (TOWER_PAIRS: every
+    tower once) at their published widths (``X3DConfig``, ``I3DConfig``,
+    ``R2Plus1dConfig``, ``ViViTConfig``, CNN10, ``SpecResNetConfig``,
+    ``SpecViTConfig`` defaults; 512-d) in fp32, over ``train_cavp_phase``'s
+    shards of 16×224² frames: TOWER_STEPS steps of TOWER_BATCH videos ×
+    CAVP_CLIPS clips each — the reduced batch is a cut of depth, not of
+    width — and the retrieval eval. Each call: every step logged and
+    finite, ``logit_scale`` ≤ 100, every BatchNorm statistic moved off its
+    init, no kernel launched; its peak memory and warm step. Then
+    ``cli.extract_features`` over the x3d logdir on the seeded clip."""
+    shards = sorted(os.path.join(root, "shards", f) for f in os.listdir(
+        os.path.join(root, "shards")))
+    pattern = os.path.join(root, "shards", "shard-{000000..%06d}.tar"
+                           % (len(shards) - 1))
+    out, logdirs = {}, {}
+    for video, spec in TOWER_PAIRS:
+        name = f"{video}-{spec}"
+        logdir = os.path.join(root, f"cavp-{name}")
+        torch.cuda.empty_cache()
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state = train_cavp_cli.main([
+            "--train-shards", pattern, "--logdir", logdir, "--clip-num",
+            str(CAVP_CLIPS), "--uint8-video", "--epochs", "1", "--log-every",
+            "1", "--save-every-epochs", "1", "--val-shards", shards[0],
+            "--val-frequency", "1", "--val-samples", "8", "--batch-size",
+            str(TOWER_BATCH), "--steps-per-epoch", str(TOWER_STEPS),
+            "--video-encode", video, "--spec-encode", spec])
+        torch.cuda.synchronize()
+        call_s = time.perf_counter() - t0
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        rows = [json.loads(line) for line in open(os.path.join(
+            logdir, "metrics.jsonl"))]
+        train = [r for r in rows if "train/total_loss" in r]
+        val = [r for r in rows if "val/video_to_spec_R@1" in r]
+        stats = state.batch_stats
+        moved = sum(not (torch.all(v == 0.0) if k.endswith("mean")
+                         else torch.all(v == 1.0)) for k, v in stats.items())
+        params = sum(p.numel() for p in state.params.values())
+        log(f"cavp_towers {name} fp32, {params} parameters, {TOWER_BATCH} "
+            f"videos × {CAVP_CLIPS} clips of 16×{FRAME}² a step: "
+            f"{call_s:.3f} s (set-up, {TOWER_STEPS} steps, eval, "
+            f"checkpoint), peak_mem_GiB {peak:.3f}, BatchNorm statistics "
+            f"moved {moved} of {len(stats)}, launches {json.dumps(launches)};"
+            f" metrics {json.dumps(rows)}")
+        if launches:
+            raise AssertionError(f"{name} launched a TPU kernel's port")
+        if [r["step"] for r in train] != list(range(1, TOWER_STEPS + 1)) \
+                or len(val) != 1:
+            raise AssertionError(f"{name} did not log every step and the "
+                                 "retrieval eval")
+        for r in rows:
+            if not np.isfinite(list(r.values())).all():
+                raise AssertionError(f"{name} metrics not finite: {r}")
+        if not all(r["train/logit_scale"] <= 100.0 * (1 + 1e-6)
+                   for r in train):
+            raise AssertionError(f"{name}: logit_scale left [0, ln 100]")
+        if moved != len(stats):
+            raise AssertionError(f"{name}: some BatchNorm statistics did "
+                                 "not move")
+        out[name] = {"call_s": call_s, "peak_mem_GiB": peak,
+                     "parameters": params,
+                     "first_step_s": train[0]["step_s"],
+                     "warm_step_s": min(r["step_s"] for r in train[1:]),
+                     "batchnorm_statistics": len(stats)}
+        logdirs[video] = logdir
+        del state
+    out["extract_features_x3d"] = extract_features_phase(
+        clip, logdirs["x3d"], os.path.join(root, "x3d-features"),
+        frames_per_call=16)
+    torch.cuda.empty_cache()
+    return out
+
+
+def stage2_decode_phase(cavp_logdir: str, expect: dict):
+    """``train/stage2_decode.py`` at ``DecodeConfig``'s defaults on
+    ``train_cavp_phase``'s CNN14, frozen: DEC_STEPS MSE steps of
+    ``DecoderWrapper``, then DEC_STEPS steps of ``GANDecoderWrapper``
+    (without a perceptual term: the repository holds no LPIPS weights),
+    at batch DEC_BATCH over seeded (128, DEC_T) specs in fp32, the launch
+    counts reset before and read after both: they must equal the
+    prediction. Losses finite; the discriminator's statistics moved."""
+    cfg = DecodeConfig()
+    cavp = load_native_cavp(cavp_logdir)
+    spec = torch.as_tensor(np.random.default_rng(31).uniform(
+        size=(DEC_BATCH, cfg.mel_bins, DEC_T)), dtype=FP32, device="cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    logs, step_s = {"mse": [], "gan": []}, {"mse": [], "gan": []}
+    for kind, cls in (("mse", DecoderWrapper), ("gan", GANDecoderWrapper)):
+        wrapper = cls(cfg, cavp)
+        state = wrapper.init_train_state(seed=3)
+        if kind == "gan":
+            before = {k: v.clone() for k, v in wrapper.disc.state_dict(
+            ).items() if "running" in k}
+        for _ in range(DEC_STEPS):
+            t1 = time.perf_counter()
+            m = {k: float(v) for k, v in wrapper.train_step(state,
+                                                           spec).items()}
+            step_s[kind].append(time.perf_counter() - t1)
+            logs[kind].append(m)
+    torch.cuda.synchronize()
+    call_s = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    after = wrapper.disc.state_dict()
+    moved = sum(not torch.equal(after[k], v) for k, v in before.items())
+    params = sum(p.numel() for p in wrapper.decoder.parameters())
+    log(f"stage2_decode DecodeConfig() (decoder {params} parameters, mid "
+        f"attention ({DEC_BATCH}, 1, 16, 256)) on the frozen CNN14, "
+        f"spec ({DEC_BATCH}, {cfg.mel_bins}, {DEC_T}) fp32: {call_s:.3f} s "
+        f"for {DEC_STEPS} MSE + {DEC_STEPS} GAN steps, peak_mem_GiB "
+        f"{peak:.3f}; discriminator statistics moved {moved} of "
+        f"{len(before)}; losses {json.dumps(logs)}; step_s "
+        f"{json.dumps(step_s)}")
+    check_launches("decode", launches, expect)
+    for kind in logs:
+        for m in logs[kind]:
+            if not np.isfinite(list(m.values())).all():
+                raise AssertionError(f"decode {kind} losses not finite: {m}")
+    if moved != len(before) or not before:
+        raise AssertionError("the discriminator's statistics did not move")
+    return launches, {"call_s": call_s, "peak_mem_GiB": peak,
+                      "mse_warm_step_s": min(step_s["mse"][1:]),
+                      "gan_warm_step_s": min(step_s["gan"][1:]),
+                      "first_step_s": [step_s["mse"][0], step_s["gan"][0]]}
 
 
 def native_compose_phase(clip: str, ldm_logdir: str, cavp_logdir: str,
@@ -3792,6 +4026,114 @@ def agreement_cavp_phase():
         raise AssertionError("GPU CAVP metrics disagree with the CPU's")
     if not caught:
         raise AssertionError("the CAVP agreement passes the planted fault")
+
+
+TOWER_FAULT_LEAF = "video_encoder.stem_conv.weight"
+
+
+def agreement_cavp_towers_phase():
+    """One fp32 stage-1 train step of the other towers, tiny (i3d ×
+    resnet50 at ``cli.train_cavp``'s ``--tiny`` cut, 16 frames of 32²), on
+    the GPU against the same step on the CPU from equal weights and
+    BatchNorm statistics and the same batch: the gradients per leaf before
+    AdamW and the BatchNorm running statistics after the step at
+    GRAD_TOL, the metrics, and a planted 1% fault on TOWER_FAULT_LEAF."""
+    tiny = train_cavp_cli.TINY_TOWERS
+    cfg = CAVPConfig(video_arch="i3d", spec_arch="resnet50",
+                     video_tower=tiny["i3d"], spec_tower=tiny["resnet50"])
+    base = randomize_(CAVPModel(cfg), 24)
+    rng = np.random.default_rng(25)
+    batch = {"video": torch.as_tensor(rng.uniform(
+                 size=(2, 2, 16, 32, 32, 3)), dtype=FP32),
+             "spec": torch.as_tensor(rng.uniform(size=(2, 2, 128, 256)),
+                                     dtype=FP32)}
+    grads, stats, metrics = {}, {}, {}
+    for device in ("cuda", "cpu"):
+        trainer = Stage1Trainer(copy.deepcopy(base), Stage1TrainConfig(
+            lr=1e-4, warmup_steps=0, clip_num=2))
+        state = trainer.init_train_state(None, device)
+        m = trainer.train_step(state, {k: v.to(device)
+                                       for k, v in batch.items()})
+        metrics[device] = {k: float(v) for k, v in m.items()}
+        grads[device] = {k: p.grad.detach().cpu()
+                         for k, p in state.params.items()}
+        stats[device] = {k: v.detach().cpu()
+                         for k, v in state.batch_stats.items()}
+    worst = max(abs(metrics["cuda"][k] - ref) / max(abs(ref), 1e-3)
+                for k, ref in metrics["cpu"].items())
+    zero = noise_gradients(grads["cpu"])
+    grad_worst = gradient_agreement(grads["cuda"], grads["cpu"], zero,
+                                    *GRAD_TOL)
+    stats_worst = gradient_agreement(stats["cuda"], stats["cpu"], set(),
+                                     *GRAD_TOL)
+    caught = _planted_caught(grads["cuda"], grads["cpu"], zero,
+                             TOWER_FAULT_LEAF)
+    log(f"agreement tiny fp32 train_cavp i3d × resnet50 gpu-vs-cpu, one "
+        f"step from equal states: metrics worst relative Δ {worst:.3e} (tol "
+        f"1e-4); gradients per leaf, worst (max|Δ|, rms(Δ)) / rms(cpu) "
+        f"{list(grad_worst)}, BatchNorm statistics {list(stats_worst)} "
+        f"(limits {list(GRAD_TOL)}) over {len(grads['cpu'])} leaves and "
+        f"{len(stats['cpu'])} statistics; planted fault ({TOWER_FAULT_LEAF} "
+        f"×1.01) caught {caught}")
+    if not worst <= 1e-4:
+        raise AssertionError("GPU tower metrics disagree with the CPU's")
+    if not caught:
+        raise AssertionError("the tower agreement passes the planted fault")
+
+
+DEC_FAULT_LEAF = "conv_in.weight"
+
+
+def agreement_decode_phase():
+    """One fp32 MSE step of a tiny spec decoder (ch 32, ch_mult (1, 1): its
+    mid attention at D 32, inside the per-head kernels' head dims, and
+    one-channel GroupNorm groups) on the GPU (kernels 3, 4 and 5) against
+    the CPU (plain versions) from equal weights: the loss, the gradients
+    per leaf out of Adam's first moment at GRAD_TOL, and a planted 1%
+    fault on DEC_FAULT_LEAF. The decoder reads seeded N(0, 1) features in
+    place of the frozen tower's: a tiny random CNN14 gives nearly the same
+    features at every step of a noise spec, so the first GroupNorm's
+    one-step-wide groups divide by a σ far under their mean, and fp32
+    itself misses float64 by 2.7e-3 of rms there (conv_in's gradient,
+    on the CPU); on N(0, 1) features 1.5e-5."""
+    cfg = DecodeConfig(feat_dim=16, decoder=VAEConfig(
+        ch=32, ch_mult=(1, 1), num_res_blocks=1, out_channels=64), lr=1e-4)
+    cavp = CAVPModel(CAVPConfig(
+        embed_dim=16, video_stage_blocks=(1, 1, 1, 1), video_base_channels=8,
+        spec_channels=(8, 8, 16, 16, 32, 32)))
+    decoder = randomize_(Decoder(cfg.decoder, in_channels=cfg.feat_dim), 27)
+    rng = np.random.default_rng(28)
+    spec = torch.as_tensor(rng.uniform(size=(2, cfg.mel_bins, 256)),
+                           dtype=FP32)
+    feats = torch.as_tensor(rng.standard_normal((2, 16, cfg.feat_dim)),
+                            dtype=FP32)
+    grads, losses = {}, {}
+    for device in ("cuda", "cpu"):
+        w = DecoderWrapper(cfg, copy.deepcopy(cavp))
+        w.encode_spec = lambda s: feats.to(s.device)
+        w.decoder.load_state_dict(decoder.state_dict())
+        state = w.init_train_state(None, device)
+        losses[device] = float(w.train_step(state, spec.to(device))[
+            "l2_loss"])
+        # Adam's first moment after one step: (1 − β1)·g, β1 0.5
+        grads[device] = {k: m.detach().cpu() / 0.5 for (k, _), m in zip(
+            w.decoder.named_parameters(), state.opt.mu)}
+    rel = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+    zero = noise_gradients(grads["cpu"])
+    grad_worst = gradient_agreement(grads["cuda"], grads["cpu"], zero,
+                                    *GRAD_TOL)
+    caught = _planted_caught(grads["cuda"], grads["cpu"], zero,
+                             DEC_FAULT_LEAF)
+    log(f"agreement tiny fp32 spec-decoder MSE step gpu-vs-cpu: loss "
+        f"relative Δ {rel:.3e} (tol 1e-5); gradients per leaf, worst "
+        f"(max|Δ|, rms(Δ)) / rms(cpu) {list(grad_worst)} (limits "
+        f"{list(GRAD_TOL)}) over {len(grads['cpu'])} leaves, "
+        f"{len(zero)} analytically zero; planted fault ({DEC_FAULT_LEAF} "
+        f"×1.01) caught {caught}")
+    if not rel <= 1e-5:
+        raise AssertionError("GPU spec-decoder loss disagrees with the CPU's")
+    if not caught:
+        raise AssertionError("the decoder agreement passes the planted fault")
 
 
 # The planted fault of the stage-2 agreement: this leaf's GPU gradient 1%
@@ -4832,6 +5174,15 @@ def main(argv):
             extract_features_phase(clip, cavp_logdir, root)))
         log("from_native_checkpoints times " + json.dumps(
             native_compose_phase(clip, ldm_logdir, cavp_logdir, clf_logdir)))
+        t0 = time.perf_counter()
+        times = cavp_towers_phase(root, clip)
+        times["phase_s"] = time.perf_counter() - t0
+        log("cavp_towers times " + json.dumps(times))
+        t0 = time.perf_counter()
+        launches["decode"], times = stage2_decode_phase(cavp_logdir,
+                                                        expect["decode"])
+        times["phase_s"] = time.perf_counter() - t0
+        log("stage2_decode times " + json.dumps(times))
         # last of the main paths: the group it forms would be joined by
         # every CLI run after it
         t0 = time.perf_counter()
@@ -4845,6 +5196,8 @@ def main(argv):
     agreement_sound_vae_phase()
     agreement_classifier_phase()
     agreement_cavp_phase()
+    agreement_cavp_towers_phase()
+    agreement_decode_phase()
     check_rows_cover(rows, launches)
     log(json.dumps({"kernels": summarize(rows, launches)}))
     log(card)

@@ -22,9 +22,11 @@ holds ``config.json`` (model and train configs, the init shapes: the
 frame size the towers train at), ``ckpt/step_<n>.pt`` (step, parameters,
 AdamW state, BatchNorm statistics, the step generator's state) and
 ``metrics.jsonl``. ``--resume`` continues from the newest checkpoint;
-``utils.checkpoint.load_native_cavp`` rebuilds the towers. Towers other
-than the shipped SlowOnly × CNN14 are not ported: they exit with a
-message.
+``utils.checkpoint.load_native_cavp`` rebuilds the towers.
+``--video-encode`` and ``--spec-encode`` choose the factory's towers at
+their published widths; ``--mixed-precision`` takes the shipped towers
+only (SlowOnly × CNN14/CNN10) and refuses the others as the JAX CLI
+does, which train them in fp32.
 """
 from __future__ import annotations
 
@@ -35,6 +37,25 @@ import re
 
 import numpy as np
 import torch
+
+from ..models.cavp.cavp import SPEC_ARCHS, VIDEO_ARCHS
+
+
+# --tiny's cut of the other towers (16 frames of 16², 256 spec steps)
+TINY_TOWERS = {
+    "x3d": dict(dim_c1=4, width_factor=1.0, depth_factor=1.0, dim_c5=16,
+                base_blocks=(1, 1, 1, 1)),
+    "i3d": dict(stage_blocks=(1, 1, 1, 1), width_per_group=4),
+    "r2plus1d": dict(stage_blocks=(1, 1, 1, 1), base_channels=4),
+    "vivit": dict(image_size=16, patch_size=8, dim=32, spatial_depth=1,
+                  temporal_depth=1, heads=2, mlp_dim=64, dim_head=16),
+    "cnn10": dict(channels=(8, 8, 8, 8, 8)),
+    "resnet50": dict(stage_blocks=(1, 1, 1, 1), width=4),
+    "spec_vit": dict(patch_size=64, width=32, layers=1, heads=2,
+                     output_dim=32),
+    "spec_vit_mean": dict(patch_size=64, width=32, layers=1, heads=2,
+                          output_dim=32),
+}
 
 
 def expand_braces(pattern: str):
@@ -76,12 +97,11 @@ def parse_args(argv=None):
                         "the full K·B contrastive batch")
     p.add_argument("--embed-dim", type=int, default=512)
     p.add_argument("--video-encode", default="slowonly",
-                   choices=["slowonly", "x3d", "i3d", "r2plus1d", "vivit"],
-                   help="video tower (only slowonly is ported)")
+                   choices=list(VIDEO_ARCHS),
+                   help="video tower (the reference's --video_encode)")
     p.add_argument("--spec-encode", default="cnn14",
-                   choices=["cnn14", "cnn10", "resnet50", "spec_vit",
-                            "spec_vit_mean"],
-                   help="audio tower (only cnn14 is ported)")
+                   choices=list(SPEC_ARCHS),
+                   help="audio tower (the reference's --spec_encode)")
     p.add_argument("--logdir", default="./logs/cavp")
     p.add_argument("--save-every-epochs", type=int, default=3)
     p.add_argument("--log-every", type=int, default=20)
@@ -105,16 +125,6 @@ def parse_args(argv=None):
     p.add_argument("--device", default="cuda",
                    help="'cuda' (the default; fails without a GPU) or 'cpu'")
     return p.parse_args(argv)
-
-
-def refuse(args) -> None:
-    """Exit with a message naming where each option the port does not
-    run is queued."""
-    if (args.video_encode, args.spec_encode) != ("slowonly", "cnn14"):
-        raise SystemExit(f"--video-encode {args.video_encode} / "
-                         f"--spec-encode {args.spec_encode}: only the shipped "
-                         "slowonly × cnn14 towers are ported; the others are "
-                         "in ROADMAP §1's long tail")
 
 
 @torch.no_grad()
@@ -145,7 +155,6 @@ def run_retrieval_eval(model, shards, cfg, n_samples: int, device) -> dict:
 
 def main(argv=None):
     args = parse_args(argv)
-    refuse(args)
     from ..config import save_run_config
     from ..data.cavp_shards import CAVPShardConfig, iter_shards
     from ..data.loader import DevicePrefetcher
@@ -161,8 +170,13 @@ def main(argv=None):
     scfg = CAVPShardConfig(clip_num=args.clip_num, shift_lb=args.shift_lb,
                            uint8_video=args.uint8_video)
     tiny_kw = dict(video_stage_blocks=(1, 1, 1, 1), video_base_channels=16,
-                   spec_channels=(8, 8, 8, 8, 8, 8)) if args.tiny else {}
-    model = CAVPModel(CAVPConfig(embed_dim=args.embed_dim, **tiny_kw))
+                   spec_channels=(8, 8, 8, 8, 8, 8),
+                   video_tower=TINY_TOWERS.get(args.video_encode),
+                   spec_tower=TINY_TOWERS.get(args.spec_encode)
+                   ) if args.tiny else {}
+    model = CAVPModel(CAVPConfig(embed_dim=args.embed_dim,
+                                 video_arch=args.video_encode,
+                                 spec_arch=args.spec_encode, **tiny_kw))
     tcfg = Stage1TrainConfig(
         lr=args.lr, warmup_steps=args.warmup, clip_num=args.clip_num,
         intra_weight=args.intra_weight, accum_freq=args.accum_freq,

@@ -3,7 +3,8 @@
 // Replaces diff_foley_tpu/ops/pallas_attention.py::_attn_bwd_kernel
 // (launched by _pallas_backward, vjp _bwd of flash_attention). The path
 // runs it in the VAE's single-head mid attention (B, 1, 1024, 512) of the
-// first-stage train step, encoder and decoder; the tiny agreement VAE at
+// first-stage train step, encoder and decoder, and the spec decoder's
+// (B, 1, 16, 256) of train/stage2_decode.py; the tiny agreement VAEs at
 // D 32. The three launches (scores, rows, products) are head_bwd.cuh's,
 // shared with the packed backward (attention_bwd.cu); the scratch is 64 MB
 // at (4, 1, 1024, 512) in fp32.
@@ -22,8 +23,8 @@
 // has stride 1 along its rows or its columns, its other strides and its
 // address are multiples of 16 bytes. scratch holds 2·b·h·lq·lds fp32 and
 // then 2·b·h·lq·lds operand elements, lds = lk rounded up to 8. Operands of
-// one dtype (DTYPE_F32 or DTYPE_BF16); head dims 512 and 32. Returns the
-// cudaError_t of the launches; 1 (cudaErrorInvalidValue) for arguments it
+// one dtype (DTYPE_F32 or DTYPE_BF16); head dims 512, 256 and 32. Returns
+// the cudaError_t of the launches; 1 (cudaErrorInvalidValue) for arguments it
 // does not take.
 extern "C" int dft_attn_bwd(const void* q, const void* k, const void* v,
                             const void* g, void* dq, void* dk, void* dv,
@@ -35,7 +36,7 @@ extern "C" int dft_attn_bwd(const void* q, const void* k, const void* v,
                             long long gsb, long long gsh, long long gsl,
                             long long gsd, float scale, int dtype,
                             void* stream) {
-  if (d != 512 && d != 32) return (int)cudaErrorInvalidValue;
+  if (d != 512 && d != 256 && d != 32) return (int)cudaErrorInvalidValue;
   const dft::Strides st[4] = {{qsb, qsh, qsl, qsd},
                               {ksb, ksh, ksl, ksd},
                               {vsb, vsh, vsl, vsd},

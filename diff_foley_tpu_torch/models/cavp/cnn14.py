@@ -1,10 +1,12 @@
-"""PANN CNN14 audio tower, 16 kHz variant
-(``diff_foley_tpu/models/cavp/cnn14.py``): BatchNorm over the 128 mel
+"""PANN CNN14 and CNN10 audio towers, 16 kHz variant
+(``diff_foley_tpu/models/cavp/cnn14.py``). CNN14: BatchNorm over the 128 mel
 bins, six ConvBlocks 64 → 2048 with (2, 2)×4, (1, 2), (1, 1) average
 pools, the mean over mels, the max + average 1-D pool fusion (k 3, s 1,
 p 1, edge windows still ÷3), then fc1 applied twice with ReLU (the
 reference forward's quirk, which its weights were trained with), then
-``final_project``.
+``final_project``. CNN10: five ConvBlocks 64 → 1024 with (2, 2)×4 and
+(1, 2) pools and the same tail; the factory builds it at
+``embed_dim=2048`` under its own projection head.
 
 Layout NCHW: (B, 1, T, 128 mels) in, (B, T/16, embed_dim) out. BatchNorm
 runs flax's semantics (``layers.py``). In train mode each ConvBlock's
@@ -49,15 +51,19 @@ def dropout_keep(shape, keep_prob: float, generator, device) -> torch.Tensor:
 
 
 class Cnn14(nn.Module):
+    CHANNELS = (64, 128, 256, 512, 1024, 2048)
+    POOLS = POOLS
+
     def __init__(self, embed_dim: int = 512,
                  channels: Optional[Sequence[int]] = None):
         super().__init__()
-        chans = list(channels or (64, 128, 256, 512, 1024, 2048))
-        if len(chans) != 6:
-            raise ValueError(f"CNN14 has six conv blocks, got {chans}")
+        chans = list(channels or self.CHANNELS)
+        if len(chans) != len(self.POOLS):
+            raise ValueError(f"{type(self).__name__} has {len(self.POOLS)} "
+                             f"conv blocks, got {chans}")
         self.bn0 = BatchNorm1d(N_MELS, eps=1e-5)
         ch = 1
-        for i, (c, p) in enumerate(zip(chans, POOLS), start=1):
+        for i, (c, p) in enumerate(zip(chans, self.POOLS), start=1):
             setattr(self, f"conv_block{i}", ConvBlock(ch, c, p))
             ch = c
         self.fc1 = Linear(ch, ch)
@@ -72,7 +78,7 @@ class Cnn14(nn.Module):
         # transposed view (0.7–1.2 of their size off, torch 2.13)
         h = self.bn0(x.reshape(-1, x.shape[-1])).reshape(x.shape)
         keep_prob = 1.0 - DROPOUT
-        for i in range(1, 7):
+        for i in range(1, len(self.POOLS) + 1):
             h = getattr(self, f"conv_block{i}")(h)
             if self.training:
                 keep = dropout_keep(h.shape, keep_prob, generator, h.device)
@@ -84,3 +90,15 @@ class Cnn14(nn.Module):
         h = F.relu(self.fc1(h))
         h = F.relu(self.fc1(h))   # applied twice, as the reference does
         return self.final_project(h)
+
+
+class Cnn10(Cnn14):
+    """PANN CNN10: five conv blocks; ``channels`` (five widths) cuts it
+    for tests, as CNN14's does."""
+
+    CHANNELS = (64, 128, 256, 512, 1024)
+    POOLS = POOLS[:5]
+
+    def __init__(self, embed_dim: int = 2048,
+                 channels: Optional[Sequence[int]] = None):
+        super().__init__(embed_dim, channels)

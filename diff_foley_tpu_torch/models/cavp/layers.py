@@ -13,7 +13,8 @@
   normalisation written out in elementwise products, so its backward is
   autograd's of those products and the all-reduce's (never
   ``F.batch_norm``'s: torch.nn.SyncBatchNorm refuses CPU tensors).
-- ``Conv2d``/``Conv3d``/``Linear``: their parameters cast to the
+- ``layer_norm``: flax ``nn.LayerNorm`` (ε 1e-6), for the ViT towers.
+- ``Conv1d``/``Conv2d``/``Conv3d``/``Linear``: their parameters cast to the
   activation's type in the forward, a differentiable cast (flax's
   ``dtype``): bf16 activations run bf16 products whose gradients land on
   the float32 parameters.
@@ -120,4 +121,16 @@ class Conv3d(nn.Conv3d):
 
 class Linear(nn.Linear):
     def forward(self, x):
-        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+        return F.linear(x, self.weight.to(x.dtype), None
+                        if self.bias is None else self.bias.to(x.dtype))
+
+
+class Conv1d(nn.Conv1d):
+    def forward(self, x):
+        return self._conv_forward(x, self.weight.to(x.dtype), None
+                                  if self.bias is None
+                                  else self.bias.to(x.dtype))
+
+
+def layer_norm(width: int) -> nn.LayerNorm:
+    return nn.LayerNorm(width, eps=1e-6)   # flax's ε

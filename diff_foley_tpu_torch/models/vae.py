@@ -132,10 +132,14 @@ class Encoder(nn.Module):
 
 
 class Decoder(nn.Module):
-    def __init__(self, cfg: VAEConfig = SD_VAE):
+    """``in_channels``: the channels of the maps it decodes (None: the
+    config's ``z_channels``); flax's ``conv_in`` takes whatever its input
+    has, as the spec decoder's 512-channel feature canvas."""
+
+    def __init__(self, cfg: VAEConfig = SD_VAE, in_channels: int = None):
         super().__init__()
         ch = cfg.ch * cfg.ch_mult[-1]
-        self.conv_in = conv3x3(cfg.z_channels, ch)
+        self.conv_in = conv3x3(in_channels or cfg.z_channels, ch)
         self.mid_block1 = VAEResnetBlock(ch, ch)
         self.mid_attn = VAEAttnBlock(ch)
         self.mid_block2 = VAEResnetBlock(ch, ch)

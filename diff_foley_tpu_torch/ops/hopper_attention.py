@@ -59,9 +59,10 @@ LAUNCHES_BY_DTYPE = collections.Counter()   # {(wrapper, "bfloat16"): n}
 # the path's head dims; csrc/common.cuh::supported_head_dim, the packed
 # entries take these only
 _HEAD_DIMS = (32, 40, 80, 160)
-# the per-head kernel's: the SD VAE's mid attention, and the tiny VAE (ch 32)
-# of chip_smoke.py's agreement run
-_HEAD_DIMS_PER_HEAD = (32, 512)
+# the per-head kernel's: the SD VAE's mid attention (512), the spec
+# decoder's of train/stage2_decode.py (256), and the tiny VAEs (ch 32) of
+# chip_smoke.py's agreement runs
+_HEAD_DIMS_PER_HEAD = (32, 256, 512)
 
 
 def reset_launch_counts() -> None:

@@ -22,8 +22,9 @@ def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
 
 
 class AdamW:
-    """``optax.adamw`` (β 0.9/0.999, ε 1e-8 outside the root, weight decay
-    decoupled and scaled by the rate) over float32 tensors, in place;
+    """``optax.adamw`` (β ``b1``/``b2``, 0.9/0.999 by default, ε 1e-8
+    outside the root, weight decay decoupled and scaled by the rate; with
+    no decay it is ``optax.adam``) over float32 tensors, in place;
     optionally after ``optax.clip_by_global_norm`` and inside
     ``optax.MultiSteps``.
 
@@ -38,14 +39,15 @@ class AdamW:
     the clip's global norm (``parallel.collectives.sharded_global_norm``
     over tensors split across ranks)."""
 
-    b1, b2, eps = 0.9, 0.999, 1e-8
+    eps = 1e-8
 
     def __init__(self, params: Sequence[torch.Tensor], lr, *,
                  weight_decay: float = 0.0, mu_dtype: torch.dtype = None,
                  grad_clip: Optional[float] = None, accum_steps: int = 1,
                  decay_mask: Optional[Sequence[bool]] = None,
-                 norm=global_norm):
+                 norm=global_norm, b1: float = 0.9, b2: float = 0.999):
         self.params = list(params)
+        self.b1, self.b2 = b1, b2
         self.norm = norm
         self.lr = lr
         self.weight_decay, self.grad_clip = weight_decay, grad_clip

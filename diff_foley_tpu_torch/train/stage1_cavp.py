@@ -35,6 +35,7 @@ from typing import Dict, Optional, Sequence
 import torch
 
 from ..models.cavp import CAVPModel
+from ..models.cavp.cavp import check_dtype
 from ..models.cavp.layers import frozen_statistics
 from ..parallel import collectives
 from ..parallel.mesh import Mesh, global_rows
@@ -108,16 +109,30 @@ def batch_stats(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
             if k.endswith(("running_mean", "running_var"))}
 
 
+# the ViT towers' free parameters and the σ of their flax initialisers:
+# width^-0.5 (Spec-ViT) or 1 (ViViT)
+_FREE = {"positional_embedding": "width", "class_embedding": "width",
+         "proj": "width", "pos_embedding": 1.0, "spatial_cls_token": 1.0,
+         "temporal_cls_token": 1.0}
+
+
 @torch.no_grad()
 def init_cavp_weights_(model: CAVPModel, generator: torch.Generator):
     """flax's initialisation on the generator's device: lecun-normal
-    kernels, zero biases, unit BatchNorm scales, zero means and unit
-    variances, ``logit_scale`` ln(1/0.07)."""
+    kernels, zero biases, unit BatchNorm and LayerNorm scales, zero means
+    and unit variances, the ViT towers' free parameters N(0, σ²) (σ as
+    their flax initialisers), ``logit_scale`` ln(1/0.07)."""
     init_weights_(model, generator)
     for name, p in model.named_parameters():
-        if name.endswith("bias"):
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf in _FREE:
+            width = p.shape[-1] if leaf != "proj" else p.shape[0]
+            std = width ** -0.5 if _FREE[leaf] == "width" else _FREE[leaf]
+            p.copy_(torch.randn(p.shape, generator=generator,
+                                device=generator.device) * std)
+        elif name.endswith("bias"):
             p.zero_()
-        elif p.dim() == 1:   # BatchNorm scales
+        elif p.dim() == 1:   # BatchNorm and LayerNorm scales
             p.fill_(1.0)
     for name, b in batch_stats(model).items():
         b.fill_(0.0 if name.endswith("mean") else 1.0)
@@ -142,7 +157,9 @@ class Stage1Trainer:
                       else mesh.group(model.cfg.axis_name or "data"))
         collectives.sync_batchnorm_(model, self.group)
         if cfg.compute_dtype == "bfloat16" and model.cfg.dtype != "bfloat16":
-            model.cfg = dataclasses.replace(model.cfg, dtype="bfloat16")
+            mixed = dataclasses.replace(model.cfg, dtype="bfloat16")
+            check_dtype(mixed)   # the shipped towers only, as in JAX
+            model.cfg = mixed
 
     def init_train_state(self, seed: Optional[int] = 0,
                          device=None) -> CAVPTrainState:

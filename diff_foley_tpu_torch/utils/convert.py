@@ -21,14 +21,18 @@ and a transpose per leaf:
   GroupNorm is folded into its parent.
 
 Covers the UNet, the classifier, ``VideoFeatEncoderPosembed``, the whole
-VAE, the PatchGAN discriminator, LPIPS/LPAPS and the CAVP towers. Load
-with ``strict=True``.
+VAE, the PatchGAN discriminator, LPIPS/LPAPS and every CAVP tower: a
+Conv1d patch embedding's kernel, LayerNorm's ``scale``, and the ViT
+towers' free parameters (``positional_embedding``, ``class_embedding``,
+``proj``, ``pos_embedding``, the CLS tokens), which keep their names and
+layouts. Load with ``strict=True``.
 The same function carries gradients and updated parameters of a JAX train
 step into the port's layout, so a test compares them leaf by leaf under
 the state dict's names.
 """
 from __future__ import annotations
 
+import math
 from collections.abc import Mapping
 
 import numpy as np
@@ -489,6 +493,195 @@ def convert_sound_vae(sd: Mapping, prefix: str = "", n_blocks: int = 4,
         raise ValueError(f"{len(left)} reference keys have no place in the "
                          f"model: {left[:5]}")
     return {"params": m.tree}
+
+
+# ---- the factory's other CAVP towers ------------------------------------
+#
+# Each walk takes a reference tower's state dict (keys under ``prefix``)
+# to the flax variables of the JAX module, which ``from_jax_params`` turns
+# into the port tower's state dict; the structure arguments are the
+# config's (a cut tower walks its own blocks).
+
+
+def _conv3d_nobias(m: _Mapper, my: str, key: str) -> None:
+    m.take(f"{my}/kernel", f"{key}.weight", _conv3d)
+
+
+def convert_x3d(sd: Mapping, prefix: str = "", base_blocks=(1, 2, 5, 3),
+                depth_factor: float = 5.0) -> dict:
+    """PySlowFast X3D (``s1.pathway0_stem.{conv_xy,conv,bn}``,
+    ``s{2..5}.pathway0_res{i}.branch2.{a,b,c,*_bn,se}``, ``branch1(_bn)``
+    on each stage's first block, ``head.{conv_5,conv_5_bn,lin_5,
+    projection}``; ``lin_5`` is a 1×1×1 conv used as a Dense) → X3D's
+    flax variables."""
+    m = _Mapper(sd, prefix)
+    _conv3d_nobias(m, "s1/conv_xy", "s1.pathway0_stem.conv_xy")
+    _conv3d_nobias(m, "s1/conv", "s1.pathway0_stem.conv")
+    m.bn("s1/norm/bn", "s1.pathway0_stem.bn")
+    for stage, base_n in enumerate(base_blocks, start=2):
+        for i in range(int(math.ceil(depth_factor * base_n))):
+            my, res = f"s{stage}_b{i}", f"s{stage}.pathway0_res{i}"
+            for c in ("a", "b", "c"):
+                _conv3d_nobias(m, f"{my}/{c}", f"{res}.branch2.{c}")
+                m.bn(f"{my}/{c}_bn/bn", f"{res}.branch2.{c}_bn")
+            if (i + 1) % 2 == 1:   # squeeze-excitation on even indices
+                for fc in ("fc1", "fc2"):
+                    _conv3d_nobias(m, f"{my}/se/{fc}", f"{res}.branch2.se.{fc}")
+                    m.take(f"{my}/se/{fc}/bias", f"{res}.branch2.se.{fc}.bias")
+            if i == 0:
+                _conv3d_nobias(m, f"{my}/branch1", f"{res}.branch1")
+                m.bn(f"{my}/branch1_bn/bn", f"{res}.branch1_bn")
+    _conv3d_nobias(m, "conv_5", "head.conv_5")
+    m.bn("conv_5_bn/bn", "head.conv_5_bn")
+    m.take("lin_5/kernel", "head.lin_5.weight",
+           lambda t: _np(t).reshape(t.shape[0], t.shape[1]).T)
+    m.dense("projection", "head.projection")
+    m.check_used()
+    return m.params()
+
+
+def convert_i3d(sd: Mapping, prefix: str = "",
+                stage_blocks=(3, 4, 6, 3)) -> dict:
+    """PySlowFast I3D ResNet (``s1.pathway0_stem.{conv,bn}``,
+    ``s{2..5}.pathway0_res{i}.branch2.*``, ``head.projection``) →
+    I3DResNet's flax variables."""
+    m = _Mapper(sd, prefix)
+    _conv3d_nobias(m, "stem_conv", "s1.pathway0_stem.conv")
+    m.bn("stem_bn/bn", "s1.pathway0_stem.bn")
+    for stage, blocks in enumerate(stage_blocks, start=2):
+        for i in range(blocks):
+            my, res = f"s{stage}_b{i}", f"s{stage}.pathway0_res{i}"
+            for c in ("a", "b", "c"):
+                _conv3d_nobias(m, f"{my}/{c}", f"{res}.branch2.{c}")
+                m.bn(f"{my}/{c}_bn/bn", f"{res}.branch2.{c}_bn")
+            if i == 0:
+                _conv3d_nobias(m, f"{my}/branch1", f"{res}.branch1")
+                m.bn(f"{my}/branch1_bn/bn", f"{res}.branch1_bn")
+    m.dense("projection", "head.projection")
+    m.check_used()
+    return m.params()
+
+
+def convert_r2plus1d(sd: Mapping, prefix: str = "",
+                     stage_blocks=(3, 4, 6, 3)) -> dict:
+    """mmaction ResNet2Plus1d (``conv1.conv.{conv_s,bn_s,conv_t}`` and
+    ``conv1.bn``, ``layer{s}.{b}.conv{1,2}`` and the downsample of each
+    stage's first block past the first stage, with the same nesting,
+    ``project``) → ResNet2Plus1d's flax variables."""
+    m = _Mapper(sd, prefix)
+
+    def convmod(my: str, key: str) -> None:
+        _conv3d_nobias(m, f"{my}/conv/conv_s", f"{key}.conv.conv_s")
+        m.bn(f"{my}/conv/bn_s", f"{key}.conv.bn_s")
+        _conv3d_nobias(m, f"{my}/conv/conv_t", f"{key}.conv.conv_t")
+        m.bn(f"{my}/bn", f"{key}.bn")
+
+    convmod("conv1", "conv1")
+    for s, blocks in enumerate(stage_blocks, start=1):
+        for b in range(blocks):
+            convmod(f"layer{s}_{b}/conv1", f"layer{s}.{b}.conv1")
+            convmod(f"layer{s}_{b}/conv2", f"layer{s}.{b}.conv2")
+            if b == 0 and s > 1:
+                convmod(f"layer{s}_{b}/downsample", f"layer{s}.{b}.downsample")
+    m.dense("project", "project")
+    m.check_used()
+    return m.params()
+
+
+def convert_spec_resnet50(sd: Mapping, prefix: str = "",
+                          stage_blocks=(3, 4, 6, 3)) -> dict:
+    """The audio ResNet-50 (``conv1.{0,1}``, ``conv{2..5}_x.{i}.
+    residual_function.{0,1,3,4,6,7}`` and ``shortcut.{0,1}``) →
+    SpecResNet50's flax variables."""
+    m = _Mapper(sd, prefix)
+    m.take("stem_conv/kernel", "conv1.0.weight", _conv)
+    m.bn("stem_bn", "conv1.1")
+    for stage, blocks in enumerate(stage_blocks, start=2):
+        for b in range(blocks):
+            my, blk = f"conv{stage}_{b}", f"conv{stage}_x.{b}"
+            for j, (ci, bi) in enumerate(((0, 1), (3, 4), (6, 7)), start=1):
+                m.take(f"{my}/conv{j}/kernel",
+                       f"{blk}.residual_function.{ci}.weight", _conv)
+                m.bn(f"{my}/bn{j}", f"{blk}.residual_function.{bi}")
+            if b == 0:
+                m.take(f"{my}/shortcut_conv/kernel", f"{blk}.shortcut.0.weight",
+                       _conv)
+                m.bn(f"{my}/shortcut_bn", f"{blk}.shortcut.1")
+    m.check_used()
+    return m.params()
+
+
+def convert_spec_vit(sd: Mapping, prefix: str = "", layers: int = 12,
+                     cls_token: bool = True) -> dict:
+    """Spec_VIT / Spec_VIT_mean (``conv1``, ``class_embedding``,
+    ``positional_embedding``, ``ln_pre``/``ln_post``,
+    ``transformer.resblocks.{i}.{ln_1,attn,ln_2,mlp}``, ``proj``) →
+    SpecViT's / SpecViTMean's flax params."""
+    m = _Mapper(sd, prefix)
+    m.take("conv1/kernel", "conv1.weight", _conv1d)
+    if cls_token:
+        m.take("class_embedding", "class_embedding")
+    m.take("positional_embedding", "positional_embedding")
+    for ln in ("ln_pre", "ln_post"):
+        m.gn_flat(ln, ln)
+    for i in range(layers):
+        my, blk = f"block{i}", f"transformer.resblocks.{i}"
+        m.gn_flat(f"{my}/ln_1", f"{blk}.ln_1")
+        m.gn_flat(f"{my}/ln_2", f"{blk}.ln_2")
+        m.take(f"{my}/attn/in_proj/kernel", f"{blk}.attn.in_proj_weight",
+               _dense)
+        m.take(f"{my}/attn/in_proj/bias", f"{blk}.attn.in_proj_bias")
+        m.dense(f"{my}/attn/out_proj", f"{blk}.attn.out_proj")
+        m.dense(f"{my}/c_fc", f"{blk}.mlp.c_fc")
+        m.dense(f"{my}/c_proj", f"{blk}.mlp.c_proj")
+    m.take("proj", "proj")
+    m.check_used()
+    return m.params()
+
+
+def convert_vivit(sd: Mapping, prefix: str = "", spatial_depth: int = 8,
+                  temporal_depth: int = 4, temporal_cls: bool = True) -> dict:
+    """ViViT / ViViT_mean (``to_patch_embedding.{1,2,3}``,
+    ``pos_embedding``, the CLS tokens, ``{spatial,temporal}_transformer.
+    layers.{i}.{0: norm + attention, 1: norm + feed-forward}``) →
+    ViViT's / ViViTMean's flax params."""
+    m = _Mapper(sd, prefix)
+    m.gn_flat("patch_norm1", "to_patch_embedding.1")
+    m.dense("patch_proj", "to_patch_embedding.2")
+    m.gn_flat("patch_norm2", "to_patch_embedding.3")
+    m.take("pos_embedding", "pos_embedding")
+    m.take("spatial_cls_token", "spatial_cls_token")
+    if temporal_cls:
+        m.take("temporal_cls_token", "temporal_cls_token")
+    for name, depth in (("spatial_transformer", spatial_depth),
+                        ("temporal_transformer", temporal_depth)):
+        for i in range(depth):
+            layer = f"{name}.layers.{i}"
+            m.gn_flat(f"{name}/attn{i}_norm", f"{layer}.0.norm")
+            m.dense(f"{name}/attn{i}/to_qkv", f"{layer}.0.fn.to_qkv",
+                    bias=False)
+            m.dense(f"{name}/attn{i}/to_out", f"{layer}.0.fn.to_out.0")
+            m.gn_flat(f"{name}/ff{i}_norm", f"{layer}.1.norm")
+            m.dense(f"{name}/ff{i}_in", f"{layer}.1.fn.net.0")
+            m.dense(f"{name}/ff{i}_out", f"{layer}.1.fn.net.3")
+    m.check_used()
+    return m.params()
+
+
+def convert_cnn10(sd: Mapping, prefix: str = "") -> dict:
+    """PANN Cnn10 (``bn0``, ``conv_block{1..5}.{conv1,bn1,conv2,bn2}``,
+    ``fc1``, ``final_project``) → Cnn10's flax variables."""
+    m = _Mapper(sd, prefix)
+    m.bn("bn0", "bn0")
+    for i in range(1, 6):
+        for j in (1, 2):
+            m.take(f"conv_block{i}/conv{j}/kernel",
+                   f"conv_block{i}.conv{j}.weight", _conv)
+            m.bn(f"conv_block{i}/bn{j}", f"conv_block{i}.bn{j}")
+    m.dense("fc1", "fc1")
+    m.dense("final_project", "final_project")
+    m.check_used()
+    return m.params()
 
 
 _LDM_PREFIXES = (("model.diffusion_model.", 0), ("first_stage_model.", 1),

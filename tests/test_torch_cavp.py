@@ -127,8 +127,13 @@ def test_cavp_forward_temporal_matches_jax(cavp_pair):
         float(ref["logit_scale"]), rel=1e-6)
 
 def test_cavp_rejects_other_towers():
-    for kw in ({"video_arch": "x3d"}, {"spec_arch": "cnn10"}):
-        with pytest.raises(ValueError, match="long tail"):
+    # every factory tower is ported: an unknown one is refused, and so is
+    # a compute dtype on a tower other than the shipped ones, as in JAX
+    for kw, match in (({"video_arch": "slowfast"}, "unknown video_arch"),
+                      ({"spec_arch": "panns"}, "unknown spec_arch"),
+                      ({"video_arch": "x3d", "dtype": "bfloat16"},
+                       "only supported")):
+        with pytest.raises(ValueError, match=match):
             tc.CAVPModel(tc.CAVPConfig(**kw))
 
 

@@ -576,11 +576,11 @@ def test_cp_async_ready_operands():
     assert not ha._cp_async_ready(torch.zeros(4 * 2 * 320 + 1)[1:])
 
 
-@pytest.mark.parametrize("d,ok", [(32, True), (512, True), (40, False),
-                                  (64, False), (128, False)])
+@pytest.mark.parametrize("d,ok", [(32, True), (512, True), (256, True),
+                                  (40, False), (64, False), (128, False)])
 def test_per_head_wrappers_take_head_dims_32_and_512(d, ok):
-    # csrc/attention_head_{fwd,bwd}.cu take the VAE's 512 and the tiny
-    # VAE's 32 only
+    # csrc/attention_head_{fwd,bwd}.cu take the VAE's 512, the spec
+    # decoder's 256 and the tiny VAEs' 32 only
     t = torch.empty(1, 1, 64, d, device="meta")
     if ok:
         assert ha._check_per_head(t, t, t) == d
@@ -899,3 +899,50 @@ def test_cuda_per_head_backward_ragged_lengths(layout):
         assert o.stride() == t.stride()
         rms = float(r.square().mean().sqrt())
         assert float((o - r).abs().max()) <= 2e-5 * rms
+
+
+D256 = [(8, 16, torch.float32), (2, 1000, torch.float32),
+        (2, 1000, torch.bfloat16)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,l,dtype", D256)
+def test_cuda_per_head_forward_at_head_dim_256(b, l, dtype):
+    """Kernel 3 at the spec decoder's mid attention (8, 1, 16, 256) of
+    ``train/stage2_decode.py`` in its token layout, and at a ragged length
+    with tile edges."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    gen = torch.Generator("cuda").manual_seed(0)
+    q, k, v = (torch.randn((b, 256, l), generator=gen, device="cuda")
+               .to(dtype)[:, None].transpose(2, 3) for _ in range(3))
+    before = ha.LAUNCHES["attn_fwd"]
+    out = multi_head_attention(q, k, v)
+    ref = _forward_yardstick(q, k, v, 256**-0.5)
+    torch.cuda.synchronize()
+    assert ha.LAUNCHES["attn_fwd"] == before + 1
+    _forward_limits(out, ref, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,l,dtype", D256)
+def test_cuda_per_head_backward_at_head_dim_256(b, l, dtype):
+    """Kernel 4 at the same shapes, through the attention's gradient."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    gen = torch.Generator("cuda").manual_seed(1)
+    q, k, v, g = (torch.randn((b, 256, l), generator=gen, device="cuda")
+                  .to(dtype)[:, None].transpose(2, 3) for _ in range(4))
+    before = ha.LAUNCHES["attn_bwd"]
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    grads = torch.autograd.grad(multi_head_attention(*leaves), leaves, g)
+    refs = _backward_yardstick(q, k, v, g, 256**-0.5)
+    torch.cuda.synchronize()
+    assert ha.LAUNCHES["attn_bwd"] == before + 1
+    max_tol, rms_tol = {torch.float32: (2e-5, 1.5e-6),
+                        torch.bfloat16: (0.25, 0.015)}[dtype]
+    for o, r in zip(grads, refs):
+        o, r = o.double(), r.double()
+        rms = float(r.square().mean().sqrt())
+        assert float((o - r).abs().max()) <= max_tol * rms
+        assert float((o - r).square().mean().sqrt()) <= rms_tol * rms

@@ -288,6 +288,18 @@ def test_cavp_two_ranks_float64_equal_one_process(two, one_cavp, kind):
                                    err_msg=k)
 
 
+def test_cavp_towers_two_ranks_float64_equal_one_process(two):
+    # the other towers (i3d × resnet50, tiny): their BatchNorms take the
+    # two ranks' statistics and the loss every rank's features
+    got, ref = two("cavp_towers"), ranks.case_cavp_towers(None)
+    close_metrics(got["metrics"], ref["metrics"])
+    close_leaves(got["grads"], ref["grads"])
+    assert ref["stats"]
+    for k, r in ref["stats"].items():
+        np.testing.assert_allclose(got["stats"][k], r, rtol=1e-6, atol=1e-6,
+                                   err_msg=k)
+
+
 def test_gathered_contrastive_loss_matches_jax_global_batch(two):
     # every rank computes the global loss; its feature gradients are the
     # data degree × its rows' share (the grad_mean_ convention), so the

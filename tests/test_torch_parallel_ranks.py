@@ -249,6 +249,32 @@ def case_cavp(mesh):
     return out
 
 
+def case_cavp_towers(mesh):
+    """One float64 train step of the other towers at ``cli.train_cavp``'s
+    ``--tiny`` cut (i3d × resnet50, every norm a BatchNorm, no dropout):
+    the metrics, the gradients and the BatchNorm statistics after it."""
+    from diff_foley_tpu_torch.cli.train_cavp import TINY_TOWERS
+
+    model = randomize_(CAVPModel64(CAVPConfig(
+        video_arch="i3d", spec_arch="resnet50", axis_name="data",
+        video_tower=TINY_TOWERS["i3d"], spec_tower=TINY_TOWERS["resnet50"])),
+        16).double().train()
+    trainer = ts1.Stage1Trainer(model, ts1.Stage1TrainConfig(
+        lr=1e-3, warmup_steps=0, clip_num=CLIP), mesh=mesh)
+    params = dict(model.named_parameters())
+    state = ts1.CAVPTrainState(0, params, ts1.make_optimizer(
+        trainer.cfg, params), None, ts1.batch_stats(model))
+    data = np.random.default_rng(17)
+    batch = {"video": torch.from_numpy(data.uniform(
+                 size=(B, CLIP, 4, 32, 32, 3))),
+             "spec": torch.from_numpy(data.uniform(
+                 size=(B, CLIP, 128, 256)))}
+    m = trainer.train_step(state, rows(mesh, batch))
+    return {"metrics": {k: float(v) for k, v in m.items()},
+            "grads": {k: _np(p.grad) for k, p in params.items()},
+            "stats": {k: _np(v) for k, v in state.batch_stats.items()}}
+
+
 # ---- the building blocks --------------------------------------------------
 
 def contrastive_inputs():
@@ -442,7 +468,8 @@ GROUPS = {
                                                         steps=4)),
                  ("stage2_tp", None), ("stage2_restore", case_stage2_restore),
                  ("vae", case_vae), ("classifier", case_classifier),
-                 ("cavp", case_cavp), ("contrastive", case_contrastive),
+                 ("cavp", case_cavp), ("cavp_towers", case_cavp_towers),
+                 ("contrastive", case_contrastive),
                  ("batchnorm", case_batchnorm)],
     "composition": [("stage2_fsdp_tp", None)],
     "entries": [("generate", case_generate), ("serving", case_serving),

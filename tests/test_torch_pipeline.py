@@ -166,7 +166,9 @@ def test_port_imports_no_jax():
                  "logging.py", "spec_transform.py", "transform_spec.py",
                  "sound_vae.py", "sound_gan.py", "train_sound_vae.py",
                  "resilience.py", "callbacks.py", "config.py", "tiled.py",
-                 "samplers.py", "guidance.py"):
+                 "samplers.py", "guidance.py", "x3d.py", "r2plus1d.py",
+                 "spec_towers.py", "vivit.py", "spec_augment.py",
+                 "stage2_decode.py"):
         assert any(p.name == name for p in files), name
     banned = ("jax", "flax", "optax", "orbax", "diff_foley_tpu")
     for path in files:

@@ -555,10 +555,15 @@ def test_cavp_cli_trains_evaluates_and_resumes(cavp_logdir):
 
 def test_cavp_cli_refusals(cavp_logdir):
     base = ["--train-shards", cavp_logdir["pattern"], "--device", "cpu"]
-    # the C++ reader is ported: its flag is no longer refused
-    cavp_cli.refuse(cavp_cli.parse_args(base + ["--native-loader"]))
-    with pytest.raises(SystemExit, match="long tail"):
-        cavp_cli.main(base + ["--video-encode", "x3d"])
+    # every tower is ported; bf16 towers are the shipped ones only, and
+    # another tower under --mixed-precision fails as the JAX CLI's does
+    args = cavp_cli.parse_args(base + ["--native-loader", "--video-encode",
+                                       "x3d", "--spec-encode", "resnet50"])
+    assert (args.native_loader, args.video_encode) == (True, "x3d")
+    with pytest.raises(ValueError, match="only supported for the shipped"):
+        cavp_cli.main(base + ["--tiny", "--video-encode", "x3d",
+                              "--mixed-precision", "--logdir",
+                              str(cavp_logdir["root"] / "refused")])
     assert cavp_cli.parse_args(base[:2]).device == "cuda"
 
 

@@ -142,12 +142,30 @@
     kernel-3 and one kernel-4 launch at (8, 1, 16, 256) and 26 GroupNorm
     forwards a step); the kernel phase's rows of this run (PERF.md's
     column r).
+11d. The models beside the main paths, each in fp32 at its published
+    widths with its launches held to the module structure's prediction
+    (PERF.md's columns u, p and n): the 1-D audio UNet at
+    ``AudioUNetConfig()`` over (4, 4096, 128) latents (one 8.192-s window
+    of the sound VAE's 128-channel latents) and a (4, 32, 768) context, a
+    forward and the gradient of Σ out² over the parameters and the input,
+    twice (kernels 1 and 2 at head dims 48 and 96, the GroupNorm kernels
+    over (B, C, 1, L) maps); the diffusion prior at ``PriorConfig()``,
+    three ``p_losses`` steps at batch 64 with optax-style Adam, then two
+    ``sample`` calls at batch 16, 50 steps, CFG 3 (kernels 3 and 4 at
+    head dim 64); ``EncoderUNetModel`` at ``CLASSIFIER_BACKBONE`` with
+    each of the four pools over (16, 16, 64, 4) latents, the forward and
+    the gradient of the summed output over the input, twice a pool
+    (kernels 1 and 2 at D 32, and the attention pool's kernels 3 and 4
+    with one query against 65 keys). Outputs, losses, samples and
+    gradients finite; seconds, peak memory.
 12. Agreement: tiny ``generate``, ``inpaint``, ``DiffFoley.extract_features``
    plus ``generate_from_features``, two tiny VAE train steps, one tiny
    stage-2 train step, one tiny classifier train step (D 32, 40 keys) and
    one tiny CAVP train step, one on the other towers (i3d × resnet50),
    one tiny spec-decoder step (D 32), one tiny waveform-VAE step (against the
-   CPU in float64), one call of each sampler family and the tiled pair
+   CPU in float64), the tiny audio UNet (D 48 and 96), prior (D 64,
+   ``p_losses`` and ``sample`` under shared draws) and EncoderUNetModel at
+   each pool (D 32), one call of each sampler family and the tiled pair
    (``agreement_sampler_phase``: shared x_T and step draws, the adaptive
    solver's model calls equal) in float32 on the GPU (kernels) against the
    same on the CPU (plain versions), shared noise, phase, draws and
@@ -225,14 +243,22 @@ from diff_foley_tpu_torch.diffusion.schedule import make_ddim_timesteps
 from diff_foley_tpu_torch.diffusion.tiled import SplitInputParams
 from diff_foley_tpu_torch.eval.align_acc import (alignment_accuracy,
                                                  make_align_acc_fn)
-from diff_foley_tpu_torch.models.attention import SpatialTransformer
+from diff_foley_tpu_torch.models.attention import (SpatialTransformer,
+                                                   SpatialTransformer1D)
+from diff_foley_tpu_torch.models.audio_unet import (AudioUNetConfig,
+                                                    AudioUNetModel,
+                                                    Upsample1D)
 from diff_foley_tpu_torch.models.cavp import CAVPConfig, CAVPModel
 from diff_foley_tpu_torch.models.cavp import cnn14 as cnn14_module
 from diff_foley_tpu_torch.models.sound_vae import SoundVAEConfig
-from diff_foley_tpu_torch.models.layers import (Downsample, GroupNorm32,
-                                                Upsample)
+from diff_foley_tpu_torch.models.layers import (Conv1d, Downsample,
+                                                GroupNorm32, Upsample,
+                                                init_weights_)
+from diff_foley_tpu_torch.models.prior import DiffusionPrior, PriorConfig
 from diff_foley_tpu_torch.models.unet import (CLASSIFIER_BACKBONE, LDM_UNET,
-                                              ClassifierBackbone, UNetConfig)
+                                              POOLS, AttentionPool2d,
+                                              ClassifierBackbone,
+                                              EncoderUNetModel, UNetConfig)
 from diff_foley_tpu_torch.models.vae import (SD_VAE, AutoencoderKL, Decoder,
                                              VAEConfig, VAEDownsample,
                                              VAEUpsample)
@@ -261,12 +287,12 @@ from diff_foley_tpu_torch.train.stage1_cavp import (Stage1TrainConfig,
                                                     Stage1Trainer)
 from diff_foley_tpu_torch.train.stage2_decode import (DecodeConfig,
                                                       DecoderWrapper,
-                                                      GANDecoderWrapper)
+                                                      GANDecoderWrapper,
+                                                      _adam)
 from diff_foley_tpu_torch.train.stage2_ldm import (Stage2TrainConfig,
                                                    Stage2Trainer,
                                                    init_ldm_weights_)
-from diff_foley_tpu_torch.train.vae import (VAETrainConfig, VAETrainer,
-                                            init_weights_)
+from diff_foley_tpu_torch.train.vae import VAETrainConfig, VAETrainer
 from diff_foley_tpu_torch.train.vae_losses import VAELossConfig
 from diff_foley_tpu_torch.utils import checkpoint as checkpoint_module
 from diff_foley_tpu_torch.utils.checkpoint import (load_native_cavp,
@@ -334,6 +360,24 @@ TOWER_BATCH, TOWER_STEPS = 4, 3
 # the stage-2 spec decoder at DecodeConfig's defaults: DEC_STEPS MSE steps
 # and DEC_STEPS GAN steps at batch DEC_BATCH over (128, DEC_T) specs
 DEC_BATCH, DEC_STEPS, DEC_T = 8, 4, 256
+# the 1-D audio UNet at AudioUNetConfig's published widths (run
+# "audio_unet", fp32): the sound VAE's 128-channel latents of one 8.192-s,
+# 131072-sample window at its 32× stride (AU_LEN steps), the cond
+# encoder's AU_CTX tokens of 768 a window, batch AU_BATCH; a forward and
+# the gradient of Σ out² over the parameters and the input, AU_CALLS times
+# (the first call and a warm one)
+AU_BATCH, AU_LEN, AU_CTX, AU_CALLS = 4, 131072 // 32, 32, 2
+# the diffusion prior at PriorConfig() (run "prior", fp32): PR_STEPS
+# p_losses steps at batch PR_BATCH with optax-style Adam, then
+# PR_SAMPLE_CALLS sample calls at batch PR_SAMPLE_BATCH, PR_SAMPLE_STEPS
+# strided steps at CFG PR_COND_SCALE (two network calls a step)
+PR_BATCH, PR_STEPS, PR_LR = 64, 3, 1e-4
+PR_SAMPLE_BATCH, PR_SAMPLE_STEPS, PR_COND_SCALE, PR_SAMPLE_CALLS = (
+    16, 50, 3.0, 2)
+# EncoderUNetModel at CLASSIFIER_BACKBONE's widths (run "encoder_unet",
+# fp32) at each pool over EN_BATCH latents of LATENT_HW: the forward and
+# the gradient of the summed output over the input, EN_CALLS times a pool
+EN_BATCH, EN_CALLS = 16, 2
 # the stage-2 CLI's SoundLogger: every SL_EVERY steps of the main-path
 # call (SL_CALLS calls), SL_N items (the UNet at the CFG batch 2·SL_N,
 # the VAE encoder once and the decoder twice at SL_N), the JAX logger's
@@ -441,21 +485,24 @@ SYMBOLS = {"fwd": ("attn_packed_fwd",), "bwd": ("head_bwd_",),
            "apply": ("gn_stream_apply_kernel",)}
 RUNS = ("generate", "inpaint", "train_vae", "video", "train_stage2",
         "train_classifier", "align_acc", "serve", "sound_log",
-        "train_sound_vae", "samplers", "decode")
+        "train_sound_vae", "samplers", "decode", "audio_unet", "prior",
+        "encoder_unet")
 
 
 def calls(generate: int = 0, inpaint: int = 0, train_vae: int = 0,
           video: int = 0, train_stage2: int = 0, train_classifier: int = 0,
           align_acc: int = 0, serve: int = 0, sound_log: int = 0,
           train_sound_vae: int = 0, samplers: int = 0,
-          decode: int = 0) -> dict:
+          decode: int = 0, audio_unet: int = 0, prior: int = 0,
+          encoder_unet: int = 0) -> dict:
     """Calls of one kernel shape in each main-path run."""
     return {"generate": generate, "inpaint": inpaint, "train_vae": train_vae,
             "video": video, "train_stage2": train_stage2,
             "train_classifier": train_classifier, "align_acc": align_acc,
             "serve": serve, "sound_log": sound_log,
             "train_sound_vae": train_sound_vae, "samplers": samplers,
-            "decode": decode}
+            "decode": decode, "audio_unet": audio_unet, "prior": prior,
+            "encoder_unet": encoder_unet}
 
 
 class Units(dict):
@@ -880,6 +927,8 @@ def predicted_launches(pipe, steps: int, sp=None):
             for run in RUNS:
                 pred[run][f"{k}/{str(dtype).split('.')[-1]}"] += per_run[run]
     pred["decode"].update(decode_launches())
+    for run, c in new_model_launches().items():
+        pred[run].update(c)
     return {run: {k: n for k, n in sorted(c.items()) if n}
             for run, c in pred.items()}
 
@@ -897,6 +946,101 @@ def decode_launches() -> collections.Counter:
         for k in gn_kernels(c, h, w, 4):
             dec[f"{k}/float32"] += 2 * DEC_STEPS
     return dec
+
+
+def audio_unet_sites(cfg: AudioUNetConfig = AudioUNetConfig(),
+                     length: int = AU_LEN):
+    """The audio UNet at ``cfg``, built on the meta device: (its GroupNorm32
+    sites of one forward, (channels, length, eps, act); its attention
+    sites, (tag, Lq, Lk, H·D, heads, calls per forward) of the self and the
+    cross attention at each width). The model registers its children in
+    the order the forward runs them, each stride-2 Conv1d halves the
+    length and each Upsample1D doubles it."""
+    with torch.device("meta"):
+        model = AudioUNetModel(cfg)
+    gns, attn, n = [], collections.Counter(), length
+    for m in model.modules():
+        if isinstance(m, Conv1d) and m.stride == 2:
+            n //= 2
+        elif isinstance(m, Upsample1D):
+            n *= 2
+        elif isinstance(m, GroupNorm32):
+            gns.append((m.weight.shape[0], n, m.eps, m.act))
+        elif isinstance(m, SpatialTransformer1D):
+            attn[(n, m.proj_in.weight.shape[0])] += m.depth
+    sites = []
+    for (n, hd), per in attn.items():
+        d = hd // cfg.num_heads
+        sites.append((f"u-d{d}-self", n, n, hd, cfg.num_heads, per))
+        sites.append((f"u-d{d}-cross", n, AU_CTX, hd, cfg.num_heads, per))
+    return gns, sites
+
+
+def encoder_unet_sites(pool: str, cfg: UNetConfig = CLASSIFIER_BACKBONE,
+                       hw=LATENT_HW):
+    """EncoderUNetModel at ``cfg`` with ``pool``, on the meta device: (its
+    GroupNorm32 sites of one forward as ``gn_sites``, the spatial_v2
+    head's over its (B, 2048, 1, 1) features; its SpatialTransformers'
+    (Lq, H·D) with their attention calls per forward, self and cross
+    alike: with no context the cross attention reads the tokens; the
+    attention pool's (Lq, Lk, H·D), or None)."""
+    with torch.device("meta"):
+        model = EncoderUNetModel(cfg, pool, hw=hw)
+    gns = gn_sites(model, hw)
+    if pool == "spatial_v2":   # the head's norm, registered last
+        gns[-1] = (gns[-1][0], 1, 1) + gns[-1][3:]
+    h, w = hw
+    attn = collections.Counter()
+    for m in model.modules():
+        if isinstance(m, Downsample):
+            h, w = h // 2, w // 2
+        elif isinstance(m, SpatialTransformer):
+            attn[(h * w, m.proj_in.weight.shape[0])] += 2 * m.depth
+    pool_site = None
+    if pool == "attention":
+        pos = model.attn_pool.pos_emb
+        pool_site = (1, pos.shape[0], pos.shape[1])
+    return gns, attn, pool_site
+
+
+def new_model_launches() -> dict:
+    """{run: Counter of "kernel/dtype" launches} of the three fp32 runs.
+    The audio UNet: each call's forward launches kernel 1 at each
+    attention and the GroupNorm kernels at each GroupNorm32, its backward
+    kernel 2 at each attention (the GroupNorm backward is the plain
+    formula). The prior: kernel 3 once a block in every network call
+    (one a p_losses step, two a sampler step at CFG ≠ 1), kernel 4 once a
+    block a p_losses step (sampling takes no gradient). EncoderUNetModel
+    at each pool: kernels 1 and 2 at each attention of its trunk, the
+    GroupNorm kernels at each GroupNorm32, the attention pool kernels 3
+    and 4 once."""
+    out = {run: collections.Counter()
+           for run in ("audio_unet", "prior", "encoder_unet")}
+    gns, sites = audio_unet_sites()
+    u = out["audio_unet"]
+    per = sum(site[-1] for site in sites)
+    u["attn_packed_fwd/float32"] = u["attn_packed_bwd/float32"] = \
+        AU_CALLS * per
+    for c, n, _, _ in gns:
+        for k in gn_kernels(c, 1, n, 4):
+            u[f"{k}/float32"] += AU_CALLS
+    depth = PriorConfig().depth
+    p = out["prior"]
+    p["attn_fwd/float32"] = depth * (
+        PR_STEPS + PR_SAMPLE_CALLS * 2 * PR_SAMPLE_STEPS)
+    p["attn_bwd/float32"] = depth * PR_STEPS
+    e = out["encoder_unet"]
+    for pool in POOLS:
+        gns, attn, pool_site = encoder_unet_sites(pool)
+        e["attn_packed_fwd/float32"] += EN_CALLS * sum(attn.values())
+        e["attn_packed_bwd/float32"] += EN_CALLS * sum(attn.values())
+        for c, h, w, _, _ in gns:
+            for k in gn_kernels(c, h, w, 4):
+                e[f"{k}/float32"] += EN_CALLS
+        if pool_site is not None:
+            e["attn_fwd/float32"] += EN_CALLS
+            e["attn_bwd/float32"] += EN_CALLS
+    return out
 
 
 # ---- the kernel phase ---------------------------------------------------------
@@ -1313,26 +1457,49 @@ def check_packed(kind: str, tag, b, lq, lk, hd, heads, dtype, gen):
             **row}
 
 
+def _check_per_head(kind: str, q, k, v, g=None):
+    """Kernel 3 (``kind`` "head") or 4 ("head_bwd", output gradient g) on
+    the given (B, H, L, D) operands. fp32 sums on the tensor cores run in
+    another order than cuBLAS's fp32 products in the plain version, whose
+    own error reaches 2.5e-5 of rms at the VAE's shape (max|Δ| to
+    float64): fp32 is held against the plain version on float64 copies,
+    at the same limits."""
+    b, h, lq, d = q.shape
+    scale = d**-0.5
+    dtype = q.dtype
+    bound = bound_ms("fwd" if kind == "head" else "bwd", b, lq, k.shape[2],
+                     h * d, q.element_size(), attn_peak(dtype))
+    if kind == "head":
+        exact = None if dtype == BF16 else (
+            lambda: ha.attention_reference(*(t.double() for t in (q, k, v)),
+                                           scale))
+        row = run_check(
+            "head", dtype, lambda: ha.attention_fwd(q, k, v, scale),
+            lambda: ha.attention_reference(q, k, v, scale),
+            planted("head", q, k, v, scale),
+            lambda: F.scaled_dot_product_attention(q, k, v, scale=scale),
+            bound, exact)
+    else:
+        ql, kl, vl = (t.detach().requires_grad_(True) for t in (q, k, v))
+        o = F.scaled_dot_product_attention(ql, kl, vl, scale=scale)
+        exact = None if dtype == BF16 else (
+            lambda: ha.attention_backward_reference(
+                *(t.double() for t in (q, k, v, g)), scale))
+        row = run_check(
+            "head_bwd", dtype, lambda: ha.attention_bwd(q, k, v, g, scale),
+            lambda: ha.attention_backward_reference(q, k, v, g, scale),
+            planted("head_bwd", q, k, v, g, scale),
+            lambda: torch.autograd.grad(o, (ql, kl, vl), g,
+                                        retain_graph=True), bound, exact)
+    return {"B": b, "Lq": lq, "Lk": k.shape[2], "HD": h * d, "D": d, **row}
+
+
 def check_head(tag, b, lq, lk, d, dtype, gen):
     """The per-head kernel on the VAE's layout: the (B, 1, h·w, C) token
     view of NCHW projections."""
     q, k, v = (torch.randn((b, d, n), generator=gen, device="cuda")
                .to(dtype)[:, None].transpose(2, 3) for n in (lq, lk, lk))
-    scale = d**-0.5
-    peak = attn_peak(dtype)
-    # as the backward: fp32 sums on the tensor cores are held against the
-    # plain version on float64 copies, at the same limits
-    exact = None if dtype == BF16 else (
-        lambda: ha.attention_reference(*(t.double() for t in (q, k, v)),
-                                       scale))
-    row = run_check(
-        "head", dtype, lambda: ha.attention_fwd(q, k, v, scale),
-        lambda: ha.attention_reference(q, k, v, scale),
-        planted("head", q, k, v, scale),
-        lambda: F.scaled_dot_product_attention(q, k, v, scale=scale),
-        bound_ms("fwd", b, lq, lk, d, q.element_size(), peak), exact)
-    return {"shape": tag, "B": b, "Lq": lq, "Lk": lk, "HD": d, "D": d,
-            **row}
+    return {"shape": tag, **_check_per_head("head", q, k, v)}
 
 
 def check_head_bwd(tag, b, lq, lk, d, dtype, gen):
@@ -1341,24 +1508,86 @@ def check_head_bwd(tag, b, lq, lk, d, dtype, gen):
     q, k, v, g = (torch.randn((b, d, n), generator=gen, device="cuda")
                   .to(dtype)[:, None].transpose(2, 3)
                   for n in (lq, lk, lk, lq))
-    scale = d**-0.5
-    peak = attn_peak(dtype)
-    ql, kl, vl = (t.detach().requires_grad_(True) for t in (q, k, v))
-    o = F.scaled_dot_product_attention(ql, kl, vl, scale=scale)
-    # fp32 sums on the tensor cores run in another order than cuBLAS's
-    # fp32 products in the plain version, whose own error reaches 2.5e-5 of
-    # rms at this shape (max|Δ| to float64): fp32 is held against the plain
-    # version on float64 copies, at the same limits
-    exact = None if dtype == BF16 else (
-        lambda: ha.attention_backward_reference(
-            *(t.double() for t in (q, k, v, g)), scale))
-    row = run_check(
-        "head_bwd", dtype, lambda: ha.attention_bwd(q, k, v, g, scale),
-        lambda: ha.attention_backward_reference(q, k, v, g, scale),
-        planted("head_bwd", q, k, v, g, scale),
-        lambda: torch.autograd.grad(o, (ql, kl, vl), g, retain_graph=True),
-        bound_ms("bwd", b, lq, lk, d, q.element_size(), peak), exact)
-    return {"shape": tag, "B": b, "Lq": lq, "Lk": lk, "HD": d, "D": d, **row}
+    return {"shape": tag, **_check_per_head("head_bwd", q, k, v, g)}
+
+
+def check_head_rows(kind: str, tag, b, h, lq, lk, d, dtype, gen):
+    """Kernel 3 (``kind`` "head") or 4 ("head_bwd") over row-major
+    (B, H, L, D) operands, as the prior and the attention pool make
+    them."""
+    q = torch.randn((b, h, lq, d), generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn((b, h, lk, d), generator=gen, device="cuda")
+            .to(dtype) for _ in range(2))
+    g = (torch.randn((b, h, lq, d), generator=gen, device="cuda").to(dtype)
+         if kind == "head_bwd" else None)
+    return {"shape": tag, "H": h, **_check_per_head(kind, q, k, v, g)}
+
+
+def new_model_rows(gen) -> list:
+    """The kernel rows of the three fp32 runs, each credited its calls:
+    the audio UNet's packed attention (D 48 and 96) forward and backward
+    and its GroupNorms over (B, C, 1, L) maps; the prior's per-head
+    attention (D 64) in p_losses and in sample; EncoderUNetModel's packed
+    attention (D 32) over all four pools, its GroupNorms, and the
+    attention pool's one query against h·w + 1 keys, forward and
+    backward. Then each new head dim once in bf16 at a ragged length."""
+    rows = []
+    gns, sites = audio_unet_sites()
+    for tag, lq, lk, hd, heads, per in sites:
+        for kind, name in (("fwd", "attn_packed_fwd"),
+                           ("bwd", "attn_packed_bwd")):
+            rows.append((name, {**check_packed(
+                kind, tag, AU_BATCH, lq, lk, hd, heads, FP32, gen),
+                "calls": calls(audio_unet=AU_CALLS * per)}))
+    for (c, n, eps, act), k in collections.Counter(gns).items():
+        for name, r in check_gn(f"u-{c}x1x{n}", AU_BATCH, c, 1, n, eps, act,
+                                FP32, gen):
+            rows.append((name, {**r, "calls": calls(
+                audio_unet=AU_CALLS * k)}))
+        torch.cuda.empty_cache()
+    cfg = PriorConfig()
+    d = cfg.dim // cfg.heads
+    for tag, b, n in (("p-loss", PR_BATCH, PR_STEPS),
+                      ("p-sample", PR_SAMPLE_BATCH,
+                       PR_SAMPLE_CALLS * 2 * PR_SAMPLE_STEPS)):
+        for kind, name in (("head", "attn_fwd"), ("head_bwd", "attn_bwd")):
+            if kind == "head_bwd" and tag == "p-sample":
+                continue   # sampling takes no gradient
+            rows.append((name, {**check_head_rows(
+                kind, tag, b, cfg.heads, cfg.seq_len, cfg.seq_len, d, FP32,
+                gen), "calls": calls(prior=cfg.depth * n)}))
+    attn, gn_all, pool_site = collections.Counter(), collections.Counter(), None
+    for pool in POOLS:
+        gns, sites, site = encoder_unet_sites(pool)
+        attn.update(sites)
+        gn_all.update(gns)
+        pool_site = site or pool_site
+    heads = CLASSIFIER_BACKBONE.num_heads
+    for (n, hd), per in attn.items():
+        for kind, name in (("fwd", "attn_packed_fwd"),
+                           ("bwd", "attn_packed_bwd")):
+            rows.append((name, {**check_packed(
+                kind, f"n-{n}-self", EN_BATCH, n, n, hd, heads, FP32, gen),
+                "calls": calls(encoder_unet=EN_CALLS * per)}))
+    for (c, h, w, eps, act), k in gn_all.items():
+        for name, r in check_gn(f"n-{c}x{h}x{w}", EN_BATCH, c, h, w, eps, act,
+                                FP32, gen):
+            rows.append((name, {**r, "calls": calls(
+                encoder_unet=EN_CALLS * k)}))
+    lq, lk, hd = pool_site
+    for kind, name in (("head", "attn_fwd"), ("head_bwd", "attn_bwd")):
+        rows.append((name, {**check_head_rows(
+            kind, "n-pool", EN_BATCH, heads, lq, lk, hd // heads, FP32, gen),
+            "calls": calls(encoder_unet=EN_CALLS)}))
+    for dh in (48, 96):
+        for kind, name in (("fwd", "attn_packed_fwd"),
+                           ("bwd", "attn_packed_bwd")):
+            rows.append((name, check_packed(kind, f"ragged-{dh}", 2, 1000,
+                                            1000, 8 * dh, 8, BF16, gen)))
+    for kind, name in (("head", "attn_fwd"), ("head_bwd", "attn_bwd")):
+        rows.append((name, check_head_rows(kind, "ragged-64", 2, 8, 1000,
+                                           1000, 64, BF16, gen)))
+    return rows
 
 
 def check_gn(tag, b, c, h, w, eps, act, dtype, gen):
@@ -1630,6 +1859,10 @@ def kernel_phase(pipe, sp):
     for edge in APPLY_EDGES:
         rows.append(check_apply_edge(*edge, gen))
         torch.cuda.empty_cache()
+    # the three fp32 runs of the audio UNet, the prior and EncoderUNetModel,
+    # from a generator of their own: every row above keeps its inputs
+    rows += new_model_rows(torch.Generator("cuda").manual_seed(16))
+    torch.cuda.empty_cache()
     # the block kernel's branch-free SiLU division, bit for bit __fdiv_rn's
     # over every fp32 input in its range (the rest go through __fdiv_rn)
     off, taken = hg.silu_division_check("cuda")
@@ -3853,6 +4086,148 @@ def stage2_decode_phase(cavp_logdir: str, expect: dict):
                       "first_step_s": [step_s["mse"][0], step_s["gan"][0]]}
 
 
+def finite_grads(what: str, grads) -> None:
+    bad = [i for i, g in enumerate(grads) if not bool(torch.isfinite(g).all())]
+    if bad:
+        raise AssertionError(f"{what}: gradients not finite at {bad[:5]}")
+
+
+def audio_unet_phase(expect: dict):
+    """``AudioUNetModel(AudioUNetConfig())`` at its published widths in
+    fp32 with seeded random weights: AU_CALLS calls of a forward over
+    (AU_BATCH, AU_LEN, 128) latents, (AU_BATCH,) times and an (AU_BATCH,
+    AU_CTX, 768) context, then the gradient of Σ out² over the parameters
+    and the input, the launch counts reset before the first call and read
+    after the last: they must equal the prediction. The output and every
+    gradient finite; first and warm seconds, peak memory."""
+    model = randomize_(AudioUNetModel(AudioUNetConfig()), 41).cuda()
+    params = list(model.parameters())
+    rng = np.random.default_rng(42)
+    x = torch.as_tensor(rng.standard_normal((AU_BATCH, AU_LEN, 128)),
+                        dtype=FP32, device="cuda").requires_grad_(True)
+    t = torch.as_tensor(rng.integers(0, 1000, AU_BATCH), dtype=FP32,
+                        device="cuda")
+    ctx = torch.as_tensor(rng.standard_normal((AU_BATCH, AU_CTX, 768)),
+                          dtype=FP32, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    call_s = []
+    for _ in range(AU_CALLS):
+        t0 = time.perf_counter()
+        out = model(x, t, ctx)
+        grads = torch.autograd.grad(out.square().sum(), [x] + params)
+        torch.cuda.synchronize()
+        call_s.append(time.perf_counter() - t0)
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"audio_unet AudioUNetConfig() ({sum(p.numel() for p in params)} "
+        f"parameters) fp32, x {tuple(x.shape)}, context {tuple(ctx.shape)}: "
+        f"forward + gradient s {call_s}, peak_mem_GiB {peak:.3f}, out rms "
+        f"{float(out.detach().square().mean().sqrt()):.4e}")
+    check_launches("audio_unet", launches, expect)
+    if out.shape != x.shape or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"audio UNet output {tuple(out.shape)} not "
+                             f"finite or of x's shape")
+    finite_grads("audio_unet", grads)
+    return launches, {"first_call_s": call_s[0],
+                      "warm_call_s": min(call_s[1:]), "peak_mem_GiB": peak}
+
+
+def prior_phase(expect: dict):
+    """``DiffusionPrior(PriorConfig())`` in fp32 with flax's seeded
+    initialisation on the card: PR_STEPS ``p_losses`` steps at batch
+    PR_BATCH over seeded (video, spec) features, each gradient applied by
+    optax-style Adam (``train/stage2_decode.py::_adam``), then
+    PR_SAMPLE_CALLS ``sample`` calls at batch PR_SAMPLE_BATCH,
+    PR_SAMPLE_STEPS steps at CFG PR_COND_SCALE; the launch counts reset
+    before the first step and read after the last call. Losses and
+    samples finite; seconds a step and a sample call."""
+    cfg = PriorConfig()
+    prior = DiffusionPrior(cfg).init_params(seed=43)
+    params = list(prior.net.parameters())
+    opt = _adam(params, PR_LR)
+    rng = np.random.default_rng(44)
+    video, spec = (torch.as_tensor(rng.standard_normal(
+        (PR_BATCH, cfg.seq_len, cfg.dim)), dtype=FP32, device="cuda")
+        for _ in range(2))
+    gen = torch.Generator("cuda").manual_seed(45)
+    torch.cuda.synchronize()
+    reset_counts()
+    losses, step_s, sample_s = [], [], []
+    for _ in range(PR_STEPS):
+        t0 = time.perf_counter()
+        loss = prior.p_losses(video, spec, generator=gen)
+        opt.step(torch.autograd.grad(loss, params))
+        losses.append(float(loss))
+        step_s.append(time.perf_counter() - t0)
+    for _ in range(PR_SAMPLE_CALLS):
+        t0 = time.perf_counter()
+        x = prior.sample(video[:PR_SAMPLE_BATCH], generator=gen,
+                         steps=PR_SAMPLE_STEPS, cond_scale=PR_COND_SCALE)
+        torch.cuda.synchronize()
+        sample_s.append(time.perf_counter() - t0)
+    launches = read_counts()
+    log(f"prior PriorConfig() ({sum(p.numel() for p in params)} parameters)"
+        f" fp32: p_losses at batch {PR_BATCH} losses {losses} step s "
+        f"{step_s}; sample ({PR_SAMPLE_BATCH}, {PR_SAMPLE_STEPS} steps, CFG "
+        f"{PR_COND_SCALE}: {2 * PR_SAMPLE_STEPS} network calls) s "
+        f"{sample_s}, sample rms {float(x.square().mean().sqrt()):.4e}")
+    check_launches("prior", launches, expect)
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"prior losses not finite: {losses}")
+    if not bool(torch.isfinite(x).all()):
+        raise AssertionError("prior samples not finite")
+    return launches, {"warm_step_s": min(step_s[1:]),
+                      "first_step_s": step_s[0],
+                      "first_sample_s": sample_s[0],
+                      "warm_sample_s": min(sample_s[1:])}
+
+
+def encoder_unet_phase(expect: dict):
+    """``EncoderUNetModel(CLASSIFIER_BACKBONE, pool)`` in fp32 with seeded
+    random weights at each pool: EN_CALLS calls of the forward over
+    (EN_BATCH, 16, 64, 4) latents and (EN_BATCH,) times, then the gradient
+    of the summed output over the input (guided diffusion's classifier
+    gradient). The launch counts are reset before the first pool and read
+    after the last; each pool's share is logged. Outputs and gradients
+    finite; first and warm seconds per pool."""
+    rng = np.random.default_rng(46)
+    x = torch.as_tensor(rng.standard_normal((EN_BATCH, *LATENT_HW, 4)),
+                        dtype=FP32, device="cuda").requires_grad_(True)
+    t = torch.as_tensor(rng.integers(0, 1000, EN_BATCH), dtype=FP32,
+                        device="cuda")
+    models = {pool: randomize_(EncoderUNetModel(CLASSIFIER_BACKBONE, pool),
+                               47 + i).cuda()
+              for i, pool in enumerate(POOLS)}
+    torch.cuda.synchronize()
+    reset_counts()
+    times, shares, before = {}, {}, {}
+    for pool, model in models.items():
+        call_s = []
+        for _ in range(EN_CALLS):
+            t0 = time.perf_counter()
+            out = model(x, t)
+            (g,) = torch.autograd.grad(out.sum(), x)
+            torch.cuda.synchronize()
+            call_s.append(time.perf_counter() - t0)
+        if out.shape != (EN_BATCH, CLASSIFIER_BACKBONE.out_channels) or not (
+                bool(torch.isfinite(out).all())
+                and bool(torch.isfinite(g).all())):
+            raise AssertionError(f"EncoderUNetModel {pool}: output "
+                                 f"{tuple(out.shape)} or gradient not finite")
+        now = read_counts()
+        shares[pool] = {k: n - before.get(k, 0) for k, n in now.items()
+                        if n - before.get(k, 0)}
+        before = now
+        times[pool] = {"first_s": call_s[0], "warm_s": min(call_s[1:])}
+    launches = read_counts()
+    log(f"encoder_unet CLASSIFIER_BACKBONE fp32 x {tuple(x.shape)}: seconds "
+        f"{json.dumps(times)}; launches by pool {json.dumps(shares)}")
+    check_launches("encoder_unet", launches, expect)
+    return launches, times
+
+
 def native_compose_phase(clip: str, ldm_logdir: str, cavp_logdir: str,
                          clf_logdir: str):
     """``DiffFoley.from_native_checkpoints`` over the port's own three
@@ -4134,6 +4509,97 @@ def agreement_decode_phase():
         raise AssertionError("GPU spec-decoder loss disagrees with the CPU's")
     if not caught:
         raise AssertionError("the decoder agreement passes the planted fault")
+
+
+def agreement_new_models_phase():
+    """The three new models at tiny fp32 widths whose head dims the kernels
+    take, on the GPU (kernels) against the CPU (plain versions) from equal
+    seeded weights and inputs; each output and gradient held per tensor at
+    GRAD_TOL (max|Δ| and rms(Δ) against rms(cpu)):
+
+    - the audio UNet (96 base channels, mult (1, 2), 2 heads: D 48 at the
+      attention of resolution 1, D 96 at resolution 2 and in the middle,
+      a 6-token context): the output, and the gradient of Σ out² over
+      every parameter and the input;
+    - the prior (dim 128, 8 tokens, depth 2, 2 heads: D 64): the
+      ``p_losses`` gradient under shared draws, and 10 ``sample`` steps at
+      CFG 3 under shared x_T and step noise, held at SAMPLER_AGREE_TOL of
+      max(1, max|x_cpu|);
+    - EncoderUNetModel (64 base channels, mult (1, 1), 2 heads: D 32,
+      attention pool over 32 + 1 keys) at each pool: the output and the
+      gradient of its sum over the input."""
+    report = {}
+
+    def held(what, gpu: dict, cpu: dict):
+        report[what] = list(gradient_agreement(gpu, cpu, noise_gradients(cpu),
+                                               *GRAD_TOL))
+
+    ucfg = AudioUNetConfig(in_channels=8, out_channels=8, model_channels=96,
+                           num_res_blocks=1, attention_resolutions=(1, 2),
+                           channel_mult=(1, 2), num_heads=2, context_dim=32)
+    unet = randomize_(AudioUNetModel(ucfg), 51)
+    rng = np.random.default_rng(52)
+    ux = torch.as_tensor(rng.standard_normal((2, 64, 8)), dtype=FP32)
+    ut = torch.as_tensor([3.0, 710.0])
+    uc = torch.as_tensor(rng.standard_normal((2, 6, 32)), dtype=FP32)
+    pcfg = PriorConfig(dim=128, seq_len=8, depth=2, heads=2,
+                       num_timesteps=100)
+    prior = DiffusionPrior(pcfg).init_params(53, "cpu")
+    pv, ps = (torch.as_tensor(rng.standard_normal((3, 8, 128)), dtype=FP32)
+              for _ in range(2))
+    draws = {"t": torch.as_tensor([5, 50, 99]),
+             "noise": torch.as_tensor(rng.standard_normal((3, 8, 128)),
+                                      dtype=FP32),
+             "video_keep": torch.as_tensor([True, False, True]),
+             "spec_keep": torch.as_tensor([True, True, False])}
+    sdraws = {"x_T": torch.as_tensor(rng.standard_normal((3, 8, 128)),
+                                     dtype=FP32),
+              "noise": torch.as_tensor(rng.standard_normal((10, 3, 8, 128)),
+                                       dtype=FP32)}
+    ecfg = UNetConfig(in_channels=4, out_channels=3, model_channels=64,
+                      num_res_blocks=1, attention_resolutions=(2,),
+                      channel_mult=(1, 1), num_heads=2)
+    encoders = {pool: randomize_(EncoderUNetModel(ecfg, pool, hw=(8, 16)),
+                                 54 + i) for i, pool in enumerate(POOLS)}
+    ex = torch.as_tensor(rng.standard_normal((2, 8, 16, 4)), dtype=FP32)
+    et = torch.as_tensor([0.0, 500.0])
+    runs = {}
+    samples = {}
+    for device in ("cuda", "cpu"):
+        out = {}
+        m = copy.deepcopy(unet).to(device)
+        x = ux.to(device).requires_grad_(True)
+        y = m(x, ut.to(device), uc.to(device))
+        names = ["x"] + [k for k, _ in m.named_parameters()]
+        grads = torch.autograd.grad(y.square().sum(),
+                                    [x] + list(m.parameters()))
+        out["audio_unet"] = {"out": y.detach().cpu(), **{
+            n: g.cpu() for n, g in zip(names, grads)}}
+        p = copy.deepcopy(prior).to(device)
+        loss = p.p_losses(pv.to(device), ps.to(device), draws=draws)
+        grads = torch.autograd.grad(loss, list(p.net.parameters()))
+        out["prior_p_losses"] = {"loss": loss.detach().cpu()[None], **{
+            k: g.cpu() for (k, _), g in zip(p.net.named_parameters(), grads)}}
+        samples[device] = p.sample(pv.to(device), steps=10, cond_scale=3.0,
+                                   draws=sdraws).cpu()
+        for pool, model in encoders.items():
+            m = copy.deepcopy(model).to(device)
+            x = ex.to(device).requires_grad_(True)
+            y = m(x, et.to(device))
+            (g,) = torch.autograd.grad(y.sum(), x)
+            out[f"encoder_{pool}"] = {"out": y.detach().cpu(), "x": g.cpu()}
+        runs[device] = out
+    for what in runs["cpu"]:
+        held(what, runs["cuda"][what], runs["cpu"][what])
+    d_sample = float((samples["cuda"] - samples["cpu"]).abs().max()) / max(
+        1.0, float(samples["cpu"].abs().max()))
+    report["prior_sample"] = d_sample
+    log(f"agreement tiny fp32 audio UNet / prior / EncoderUNetModel "
+        f"gpu-vs-cpu, worst (max|Δ|, rms(Δ)) / rms(cpu) and tensor: "
+        f"{json.dumps(report)} (limits {list(GRAD_TOL)}; prior sample "
+        f"max|Δ| / max(1, max|x|) limit {SAMPLER_AGREE_TOL})")
+    if not d_sample <= SAMPLER_AGREE_TOL:
+        raise AssertionError("GPU prior samples disagree with the CPU's")
 
 
 # The planted fault of the stage-2 agreement: this leaf's GPU gradient 1%
@@ -5183,6 +5649,14 @@ def main(argv):
                                                         expect["decode"])
         times["phase_s"] = time.perf_counter() - t0
         log("stage2_decode times " + json.dumps(times))
+        for run, phase in (("audio_unet", audio_unet_phase),
+                           ("prior", prior_phase),
+                           ("encoder_unet", encoder_unet_phase)):
+            t0 = time.perf_counter()
+            launches[run], times = phase(expect[run])
+            times["phase_s"] = time.perf_counter() - t0
+            log(f"{run} times " + json.dumps(times))
+            torch.cuda.empty_cache()
         # last of the main paths: the group it forms would be joined by
         # every CLI run after it
         t0 = time.perf_counter()
@@ -5198,6 +5672,7 @@ def main(argv):
     agreement_cavp_phase()
     agreement_cavp_towers_phase()
     agreement_decode_phase()
+    agreement_new_models_phase()
     check_rows_cover(rows, launches)
     log(json.dumps({"kernels": summarize(rows, launches)}))
     log(card)

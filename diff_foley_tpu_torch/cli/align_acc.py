@@ -61,9 +61,9 @@ def iter_batches(spec_dir, feat_dir, batch_size):
 def load_classifier(ckpt):
     """(classifier, VAE) of a port logdir, a reference checkpoint, or
     seeded random weights (``ckpt`` None)."""
+    from ..models.layers import init_weights_
     from ..train.classifier import (AlignmentClassifier, ClassifierTrainer,
                                     init_classifier_weights_)
-    from ..train.vae import init_weights_
     from ..utils.checkpoint import (is_native_logdir, is_port_logdir,
                                     load_native_classifier,
                                     load_reference_classifier)

@@ -76,7 +76,7 @@ def build_trainer(args, mesh=None):
 
 def frozen_vae(args, vae, device) -> None:
     """Load or draw the frozen VAE in place on ``device``."""
-    from ..train.vae import init_weights_
+    from ..models.layers import init_weights_
     from ..utils.checkpoint import (is_native_logdir, is_port_logdir,
                                     load_native_vae, load_vae_checkpoint)
 

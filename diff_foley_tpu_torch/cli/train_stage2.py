@@ -107,7 +107,7 @@ def build_ldm(args):
 
 def first_stage(args, ldm, device) -> None:
     """Load or draw the frozen VAE into ``ldm.vae`` on ``device``."""
-    from ..train.vae import init_weights_
+    from ..models.layers import init_weights_
     from ..utils.checkpoint import (is_port_logdir, load_native_vae,
                                     load_vae_checkpoint)
 

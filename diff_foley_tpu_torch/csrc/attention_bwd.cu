@@ -4,7 +4,8 @@
 // (launched by _pallas_backward_packed, vjp _packed_bwd). The path runs it
 // in the classifier guidance of every sampler step: the classifier's
 // self- and cross-attention, B 4, 8 heads of D 32, L ≤ 256. Stage-2
-// training will run it at the UNet's D 40/80/160, L ≤ 1024.
+// training runs it at the UNet's D 40/80/160, L ≤ 1024, and the 1-D audio
+// UNet's gradient at D 48 (L 2048) and 96 (L 1024).
 //
 // q, k, v and the output gradient g are packed (B, L, H·D), exactly as the
 // Linear layers emit them; head h of such an operand is the strided view
@@ -34,7 +35,7 @@
 // addresses and strides other than 1 multiples of 16 bytes. scratch as for
 // dft_attn_bwd: 2·b·heads·lq·lds fp32 and 2·b·heads·lq·lds operand
 // elements, lds = lk rounded up to 8. Operands of one dtype (DTYPE_F32 or
-// DTYPE_BF16); head dims 32, 40, 80 and 160. Returns the cudaError_t of the
+// DTYPE_BF16); head dims 32, 40, 48, 80, 96 and 160. Returns the cudaError_t of the
 // launches; 1 (cudaErrorInvalidValue) for arguments it does not take.
 extern "C" int dft_attn_packed_bwd(const void* q, const void* k,
                                    const void* v, const void* g, void* dq,
@@ -52,6 +53,6 @@ extern "C" int dft_attn_packed_bwd(const void* q, const void* k,
                               {ksb, ksh, ksl, ksd},
                               {vsb, vsh, vsl, vsd},
                               {gsb, gsh, gsl, gsd}};
-  return dft::head_bwd<true>(q, k, v, g, dq, dk, dv, scratch, b, heads, lq,
-                             lk, d, st, scale, dtype, stream);
+  return dft::head_bwd(q, k, v, g, dq, dk, dv, scratch, b, heads, lq, lk,
+                       d, st, scale, dtype, stream);
 }

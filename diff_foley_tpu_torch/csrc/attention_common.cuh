@@ -1,5 +1,6 @@
 // The fp32 pieces of the packed-heads attention forward (attention_fwd.cu's
-// fp32 kernel, which only the GPU-vs-CPU agreement of tiny pipelines runs).
+// fp32 kernel: the fp32 classifier, the 1-D audio UNet, EncoderUNetModel
+// and the GPU-vs-CPU agreement of tiny pipelines).
 //
 // Operands are the projections exactly as the Linear layers emit them:
 // packed (B, L, H*D), row-major and contiguous. A block owns one
@@ -98,9 +99,23 @@ __device__ __forceinline__ float row16_sum(float x) {
   return x;
 }
 
+// A row's reference max may trail its max by up to RESCALE_GAP: every
+// exp(s·scale − reference) is then at most e¹⁶, so a row's sum stays far
+// inside fp32's range at any length.
+constexpr float RESCALE_GAP = 16.f;
+
 // Row max m and row sum l of exp(s·scale − m) over all keys, for the
 // thread's four rows of the query tile staged in Qs. Ks is scratch for
-// the key tiles. Ends with every thread of a row holding its stats.
+// the key tiles. Ends with every thread of a row holding its stats. The
+// key tiles' sums are taken against a reference max that moves to a
+// tile's max only when that passes it by more than RESCALE_GAP (the first
+// tile always), so a row rescales about once, not at every new max; they
+// are added with a compensation term (TwoSum), and the sum is brought to
+// the row max m once at the end, in fp64. Rescaling and adding in fp32 at
+// every new max drifted by a few ulps of l over the 32 key tiles of L
+// 2048 (the 1-D audio UNet), which scales the row's output alike. m stays
+// the row max: the second pass's exp(s·scale − m) then rounds as the
+// plain version's does.
 template <typename T>
 __device__ __forceinline__ void row_stats(const float* Qs, float* Ks,
                                           const T* kb, int lk, int hd,
@@ -108,10 +123,11 @@ __device__ __forceinline__ void row_stats(const float* Qs, float* Ks,
                                           float m[4], float l[4]) {
   const int ld = tile_ld(d);
   const int tx = threadIdx.x & 15;
+  float mr[4], lo[4];   // the reference maxima, l's compensation terms
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
-    m[a] = -INFINITY;
-    l[a] = 0.f;
+    m[a] = mr[a] = -INFINITY;
+    l[a] = lo[a] = 0.f;
   }
   for (int k0 = 0; k0 < lk; k0 += BK) {
     __syncthreads();
@@ -125,15 +141,35 @@ __device__ __forceinline__ void row_stats(const float* Qs, float* Ks,
 #pragma unroll
       for (int b = 0; b < 4; ++b)
         if (k0 + tx + 16 * b < lk) mx = fmaxf(mx, s[a][b] * scale);
-      const float mn = fmaxf(m[a], row16_max(mx));
+      mx = row16_max(mx);
+      m[a] = fmaxf(m[a], mx);
+      // a select, not a branch: the branch cost D 96 a third of its time
+      const bool up = mx > mr[a] + RESCALE_GAP;
+      const float r = expf(up ? mr[a] - mx : 0.f);   // 1 unless up
+      l[a] *= r;
+      lo[a] *= r;
+      mr[a] = up ? mx : mr[a];
       float sum = 0.f;
 #pragma unroll
       for (int b = 0; b < 4; ++b)
-        if (k0 + tx + 16 * b < lk) sum += expf(s[a][b] * scale - mn);
-      l[a] = l[a] * expf(m[a] - mn) + row16_sum(sum);
-      m[a] = mn;
+        if (k0 + tx + 16 * b < lk) sum += expf(s[a][b] * scale - mr[a]);
+      sum = row16_sum(sum);
+      const float t = l[a] + sum, bt = t - l[a];
+      lo[a] += (l[a] - (t - bt)) + (sum - bt);
+      l[a] = t;
     }
   }
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+    l[a] = (float)(((double)l[a] + (double)lo[a]) *
+                   exp((double)mr[a] - (double)m[a]));
+}
+
+// The fp32 forward's least blocks an SM holds (its __launch_bounds__): at
+// D ≤ 48 shared memory admits four or more, so three (80 registers a
+// thread); above, shared memory or registers admit fewer.
+__host__ __device__ constexpr int fwd_min_blocks(int nc) {
+  return nc <= 12 ? 3 : 1;
 }
 
 }  // namespace dft
@@ -148,8 +184,14 @@ __device__ __forceinline__ void row_stats(const float* Qs, float* Ks,
     } else if ((d) == 40) {                     \
       constexpr int NC = 10;                    \
       __VA_ARGS__;                              \
+    } else if ((d) == 48) {                     \
+      constexpr int NC = 12;                    \
+      __VA_ARGS__;                              \
     } else if ((d) == 80) {                     \
       constexpr int NC = 20;                    \
+      __VA_ARGS__;                              \
+    } else if ((d) == 96) {                     \
+      constexpr int NC = 24;                    \
       __VA_ARGS__;                              \
     } else if ((d) == 160) {                    \
       constexpr int NC = 40;                    \

@@ -22,7 +22,7 @@
 // stay in registers for the whole block. Key and value tiles of 64 rows go
 // straight from the packed rows into shared memory in bf16 by 16-byte
 // cp.async, FWD_STAGES tiles in flight (a head's columns start h·D·2 bytes
-// into a row: 16-byte aligned at D 32, 40, 80, 160). Both passes compute
+// into a row: 16-byte aligned at D 32, 40, 48, 80, 96, 160). Both passes compute
 // S = Q Kᵀ on mma.sync.m16n8k16 (K fragments by ldmatrix; D 40 pads the
 // depth to 48 with zero columns, which add exactly 0). Pass 1 keeps the
 // row max and sum in the accumulators' registers; pass 2 forms
@@ -33,9 +33,11 @@
 // The output is rounded to bf16 once. Rows past Lq or Lk are zero-filled
 // and masked.
 //
-// fp32 (attn_packed_fwd_kernel) runs only in the GPU-vs-CPU agreement of
-// tiny pipelines: fp32 FMAs from shared memory, tiles staged as fp32,
-// correct and simple, not fast.
+// fp32 (attn_packed_fwd_kernel) runs the fp32 classifier, the 1-D audio
+// UNet and EncoderUNetModel, and the GPU-vs-CPU agreement of tiny
+// pipelines: fp32 FMAs from shared memory, tiles staged as fp32, each row's
+// sum compensated and brought to the row max in fp64 once
+// (attention_common.cuh::row_stats); correct and simple, not fast.
 #include "attention_common.cuh"
 #include "mma.cuh"
 
@@ -43,7 +45,7 @@ namespace dft {
 
 // grid (ceil(Lq/BQ), H, B), NT threads
 template <typename T, int NC>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NT, fwd_min_blocks(NC))
     attn_packed_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, T* __restrict__ o,
                            int lq, int lk, int heads, int d, float scale) {

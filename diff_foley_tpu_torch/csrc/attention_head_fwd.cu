@@ -5,8 +5,10 @@
 //   O[b, h] = softmax(Q[b, h] K[b, h]ᵀ · scale) V[b, h]
 // no mask. The path runs it in the VAE's single-head mid attention
 // (B, 1, 1024, 512), encoder and decoder, and the spec decoder's of
-// train/stage2_decode.py at (B, 1, 16, 256); the tiny agreement VAEs at
-// D 32.
+// train/stage2_decode.py at (B, 1, 16, 256); the diffusion prior's
+// self-attention at (B, 8, 16, 64) and EncoderUNetModel's attention pool,
+// one query against h·w + 1 keys at (B, 8, 1, 65, 32); the tiny agreement
+// VAEs at D 32.
 //
 // Numerics are the TPU kernel's and the plain version's: fp32 scores times
 // scale, row max, P = e / Σe in fp32, P rounded to V's type (P̃), then P̃·V
@@ -155,8 +157,8 @@ static cudaError_t launch_head_fwd(const void* q, const void* k,
 // [8:12] v's, [12:16] o's. Each operand has stride 1 along its rows or its
 // columns; q's, k's and v's other strides and addresses are multiples of
 // 16 bytes. scratch holds b·h·lq·lds fp32, lds = lk rounded up to 8.
-// Operands of one dtype (DTYPE_F32 or DTYPE_BF16); head dims 512, 256 and
-// 32.
+// Operands of one dtype (DTYPE_F32 or DTYPE_BF16); head dims 512, 256, 64
+// and 32.
 // Returns the cudaError_t of the launches; 1 (cudaErrorInvalidValue) for
 // arguments it does not take.
 extern "C" int dft_attn_fwd(const void* q, const void* k, const void* v,
@@ -169,7 +171,7 @@ extern "C" int dft_attn_fwd(const void* q, const void* k, const void* v,
                             long long osl, long long osd, float scale,
                             int dtype, void* stream) {
   if (b < 1 || h < 1 || lq < 1 || lk < 1 ||
-      (d != 512 && d != 256 && d != 32))
+      (d != 512 && d != 256 && d != 64 && d != 32))
     return (int)cudaErrorInvalidValue;
   const dft::Strides st[4] = {{qsb, qsh, qsl, qsd},
                               {ksb, ksh, ksl, ksd},

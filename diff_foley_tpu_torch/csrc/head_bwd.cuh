@@ -37,7 +37,7 @@ namespace dft {
 
 // grid (ceil(Lk/64), ceil(Lq/64), 2·B·H): z = 2·(b·H + h) + product.
 // S (product 0) and dP (product 1) are (B·H, Lq, lds) fp32 in the scratch.
-template <typename T, bool PRECISE>
+template <typename T>
 __global__ void __launch_bounds__(GNT) head_bwd_scores_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ g, float* __restrict__ scores, int heads, int lq,
@@ -47,7 +47,7 @@ __global__ void __launch_bounds__(GNT) head_bwd_scores_kernel(
   const int b = bh / heads, h = bh - b * heads;
   const Strides as = job ? gs : qs, bs = job ? vs : ks;
   const size_t plane = (size_t)(gridDim.z >> 1) * lq * lds;
-  score_tile<T, PRECISE>(reinterpret_cast<T*>(smem),
+  score_tile<T, true>(reinterpret_cast<T*>(smem),
                          (job ? g : q) + b * as.b + h * as.h, as,
                          (job ? v : k) + b * bs.b + h * bs.h, bs, lq, lk, d,
                          scores + job * plane + (size_t)bh * lq * lds, lds);
@@ -103,10 +103,47 @@ __global__ void __launch_bounds__(32 * ROW_WARPS) head_bwd_rows_kernel(
   }
 }
 
+// fp32 products of a depth under SHALLOW_K: the attention pool's
+// dK = dSᵀ·Q and dV = P̃ᵀ·g, whose depth is its one query. There each
+// output element is a single product, which 3xTF32 keeps to ~2⁻²² of
+// itself; the softmax's heavy tail puts the largest such element tens of
+// times over the rms, beyond the 2e-5 limit. They are summed by fp32 FMAs
+// straight from global memory instead (one rounding a term).
+constexpr int SHALLOW_K = 8;
+
+// The thread's share of C = A·Bᵀ (gemm_tile's layout) by fp32 FMAs over a
+// depth K < SHALLOW_K, A and B read through their strides.
+template <typename T>
+__device__ __forceinline__ void gemm_shallow(const T* a, long long asr,
+                                             long long ask, int M, const T* b,
+                                             long long bsr, long long bsk,
+                                             int N, int K, int m0, int n0,
+                                             float acc[2][4][4]) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = m0 + (warp >> 1) * 32 + (lane >> 2);
+  const int c0 = n0 + (warp & 1) * 32 + 2 * (lane & 3);
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = r0 + mt * 16 + (e >> 1) * 8, c = c0 + nt * 8 + (e & 1);
+        float sum = 0.f;
+        if (r < M && c < N)
+          for (int k = 0; k < K; ++k)
+            sum = fmaf(to_f<T>(a[r * asr + k * ask]),
+                       to_f<T>(b[c * bsr + k * bsk]), sum);
+        acc[mt][nt][e] = sum;
+      }
+}
+
 // grid (ceil(D/64), ceil(max(Lq, Lk)/64), 3·B·H): z = 3·(b·H + h) + product,
 // product 0 dQ = dS·K·scale, 1 dK = dSᵀ·Q·scale, 2 dV = P̃ᵀ·g. dS and P̃
-// are (B·H, Lq, lds) in T.
-template <typename T, bool PRECISE>
+// are (B·H, Lq, lds) in T. SHALLOW (fp32, Lq or Lk under SHALLOW_K): a
+// product of depth under SHALLOW_K goes through gemm_shallow; the other
+// instantiation holds the tile GEMM alone.
+template <typename T, bool SHALLOW>
 __global__ void __launch_bounds__(GNT) head_bwd_products_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ g,
     const T* __restrict__ pt, const T* __restrict__ ds, T* __restrict__ dq,
@@ -126,8 +163,11 @@ __global__ void __launch_bounds__(GNT) head_bwd_products_kernel(
   const Strides bs = job == 0 ? ks : (job == 1 ? qs : gs);
   const T* bp = (job == 0 ? k : (job == 1 ? q : g)) + b * bs.b + h * bs.h;
   float acc[2][4][4];
-  gemm_any<T, PRECISE>(reinterpret_cast<T*>(smem), a, asr, ask, M, bp, bs.d,
-                       bs.l, d, K, m0, n0, acc);
+  if (SHALLOW && K < SHALLOW_K)   // uniform over the block
+    gemm_shallow<T>(a, asr, ask, M, bp, bs.d, bs.l, d, K, m0, n0, acc);
+  else
+    gemm_any<T, true>(reinterpret_cast<T*>(smem), a, asr, ask, M, bp, bs.d,
+                      bs.l, d, K, m0, n0, acc);
   const Strides os = job == 0 ? qs : (job == 1 ? ks : vs);
   T* out = (job == 0 ? dq : (job == 1 ? dk : dv)) + b * os.b + h * os.h;
   const float mult = job == 2 ? 1.f : scale;
@@ -136,7 +176,7 @@ __global__ void __launch_bounds__(GNT) head_bwd_products_kernel(
   });
 }
 
-template <typename T, bool PRECISE>
+template <typename T>
 static cudaError_t launch_head_bwd(const void* q, const void* k,
                                    const void* v, const void* g, void* dq,
                                    void* dk, void* dv, void* scratch, int b,
@@ -149,13 +189,17 @@ static cudaError_t launch_head_bwd(const void* q, const void* k,
   T* pt = (T*)(scores + 2 * plane);
   T* ds = pt + plane;
   constexpr int smem = GemmTile<T>::SMEM;
-  static SmemLimit limit_s, limit_p;
-  cudaError_t err = limit_s.raise(head_bwd_scores_kernel<T, PRECISE>, smem);
+  constexpr bool F32 = sizeof(T) == 4;
+  const bool shallow = F32 && (lq < SHALLOW_K || lk < SHALLOW_K);
+  auto products = shallow ? head_bwd_products_kernel<T, F32>
+                          : head_bwd_products_kernel<T, false>;
+  static SmemLimit limit_s, limit_p, limit_ps;
+  cudaError_t err = limit_s.raise(head_bwd_scores_kernel<T>, smem);
   if (err != cudaSuccess) return err;
-  err = limit_p.raise(head_bwd_products_kernel<T, PRECISE>, smem);
+  err = (shallow ? limit_ps : limit_p).raise(products, smem);
   if (err != cudaSuccess) return err;
   dim3 g1((lk + GM - 1) / GM, (lq + GM - 1) / GM, 2 * bh);
-  head_bwd_scores_kernel<T, PRECISE><<<g1, GNT, smem, stream>>>(
+  head_bwd_scores_kernel<T><<<g1, GNT, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)g, scores, h, lq, lk, d,
       lds, st[0], st[1], st[2], st[3]);
   err = cudaGetLastError();
@@ -168,7 +212,7 @@ static cudaError_t launch_head_bwd(const void* q, const void* k,
   if (err != cudaSuccess) return err;
   const int lmax = lq > lk ? lq : lk;
   dim3 g3((d + GM - 1) / GM, (lmax + GM - 1) / GM, 3 * bh);
-  head_bwd_products_kernel<T, PRECISE><<<g3, GNT, smem, stream>>>(
+  products<<<g3, GNT, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)g, pt, ds, (T*)dq, (T*)dk, (T*)dv,
       h, lq, lk, d, lds, st[0], st[1], st[2], st[3], scale);
   return cudaGetLastError();
@@ -176,9 +220,8 @@ static cudaError_t launch_head_bwd(const void* q, const void* k,
 
 // The whole backward for one dtype code: 1 (cudaErrorInvalidValue) for
 // shapes or strides it does not take (each operand with stride 1 along its
-// rows or its columns), else the cudaError_t of the launches. PRECISE: the
-// fp32 products by gemm_tile's precise accumulation.
-template <bool PRECISE>
+// rows or its columns), else the cudaError_t of the launches. The fp32
+// products take gemm_tile's precise accumulation.
 static int head_bwd(const void* q, const void* k, const void* v,
                     const void* g, void* dq, void* dk, void* dv,
                     void* scratch, int b, int h, int lq, int lk, int d,
@@ -190,11 +233,10 @@ static int head_bwd(const void* q, const void* k, const void* v,
     if (st[i].l != 1 && st[i].d != 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == DTYPE_F32)
-    return (int)launch_head_bwd<float, PRECISE>(q, k, v, g, dq, dk, dv,
-                                                scratch, b, h, lq, lk, d, st,
-                                                scale, s);
+    return (int)launch_head_bwd<float>(q, k, v, g, dq, dk, dv, scratch, b,
+                                       h, lq, lk, d, st, scale, s);
   if (dtype == DTYPE_BF16)
-    return (int)launch_head_bwd<__nv_bfloat16, PRECISE>(
+    return (int)launch_head_bwd<__nv_bfloat16>(
         q, k, v, g, dq, dk, dv, scratch, b, h, lq, lk, d, st, scale, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,9 +1,11 @@
-"""Spatial transformer blocks of the UNet (``diff_foley_tpu/models/attention.py``).
+"""Spatial transformer blocks of the UNets (``diff_foley_tpu/models/attention.py``).
 
 SpatialTransformer: GroupNorm (ε 1e-6) → 1×1 proj_in → h·w tokens →
 BasicTransformerBlock (self-attn → cross-attn → GEGLU feed-forward, each
-pre-LayerNorm and residual) → 1×1 proj_out → + input. Attention runs on the
-packed (B, L, H·D) projections through ``multi_head_attention_packed``.
+pre-LayerNorm and residual) → 1×1 proj_out → + input. SpatialTransformer1D
+is the same over an NCL sequence (the 1-D audio UNet), its 1×1
+projections Conv1d. Attention runs on the packed (B, L, H·D) projections
+through ``multi_head_attention_packed``.
 With ``checkpoint`` each block runs under ``torch.utils.checkpoint`` while
 gradients are on: its activations are recomputed in the backward, so its
 attention forward runs twice a train step.
@@ -16,7 +18,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from ..ops.attention import multi_head_attention_packed
-from .layers import Dense, GroupNorm, LayerNorm, conv1x1
+from .layers import Conv1d, Dense, GroupNorm, LayerNorm, conv1x1
 
 
 class CrossAttention(nn.Module):
@@ -109,3 +111,31 @@ class SpatialTransformer(nn.Module):
         # back to a contiguous NCHW map, as the GroupNorm kernels take them
         t = t.transpose(1, 2).reshape(b, inner, h, w).contiguous()
         return self.proj_out(t) + x
+
+
+class SpatialTransformer1D(nn.Module):
+    """Token-space transformer over an NCL sequence. ``context_dim`` is the
+    width of the context it will be called with; None when it runs
+    without one, whose cross-attention then reads the tokens themselves
+    (flax infers attn2's key and value width from the first call)."""
+
+    def __init__(self, channels: int, context_dim: int | None, heads: int,
+                 dim_head: int, depth: int = 1):
+        super().__init__()
+        inner = heads * dim_head
+        self.norm = GroupNorm(channels, eps=1e-6)
+        self.proj_in = Conv1d(channels, inner, 1)
+        self.depth = depth
+        for i in range(depth):
+            setattr(self, f"block{i}", BasicTransformerBlock(
+                inner, inner if context_dim is None else context_dim, heads,
+                dim_head))
+        self.proj_out = Conv1d(inner, channels, 1)
+
+    def forward(self, x, context=None):
+        # (B, L, inner) tokens: the blocks' Linear layers emit the packed
+        # (B, L, H·D) projections the attention kernels read in place
+        t = self.proj_in(self.norm(x)).transpose(1, 2).contiguous()
+        for i in range(self.depth):
+            t = getattr(self, f"block{i}")(t, context)
+        return self.proj_out(t.transpose(1, 2).contiguous()) + x

@@ -13,11 +13,38 @@ kernels on CUDA tensors, their plain versions on CPU tensors.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.hopper_groupnorm import fused_group_norm
+
+
+@torch.no_grad()
+def init_weights_(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """flax's default initialisation: lecun-normal kernels (σ² = 1 / fan-in),
+    zero biases and unit scales (the modules' construction values); drawn
+    on the generator's device."""
+    for name, p in module.named_parameters():
+        if name.endswith("weight") and p.dim() >= 2:
+            std = 1.0 / math.sqrt(p[0].numel())
+            p.copy_(torch.randn(p.shape, generator=generator,
+                                device=generator.device) * std)
+    return module
+
+
+@torch.no_grad()
+def zero_init_(model: nn.Module, resblocks, transformers=()) -> None:
+    """Zero the layers the JAX models wrap in ``zero_module``: the
+    ``out_conv`` of each submodule of a type in ``resblocks`` and the
+    ``proj_out`` of each of a type in ``transformers``."""
+    for m in model.modules():
+        if isinstance(m, resblocks):
+            m.out_conv.weight.zero_()
+        elif isinstance(m, transformers):
+            m.proj_out.weight.zero_()
 
 
 def _promote(x: torch.Tensor, *params) -> torch.dtype:
@@ -59,6 +86,23 @@ class Conv2d(nn.Module):
     def forward(self, x):
         dt = _promote(x, self.weight, self.bias)
         return F.conv2d(x.to(dt), self.weight.to(dt), _cast(self.bias, dt),
+                        self.stride, self.padding)
+
+
+class Conv1d(nn.Module):
+    """flax nn.Conv over NCL sequences: weight (out, in, K), symmetric
+    padding, bias."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int = 1,
+                 padding: int = 0):
+        super().__init__()
+        self.weight = nn.Parameter(torch.zeros(out_ch, in_ch, kernel))
+        self.bias = nn.Parameter(torch.zeros(out_ch))
+        self.stride, self.padding = stride, padding
+
+    def forward(self, x):
+        dt = _promote(x, self.weight, self.bias)
+        return F.conv1d(x.to(dt), self.weight.to(dt), self.bias.to(dt),
                         self.stride, self.padding)
 
 
@@ -189,3 +233,22 @@ class ResBlock(nn.Module):
         if self.skip_conv is not None:
             x = self.skip_conv(x)
         return x + h
+
+
+def run_plan(model: nn.Module, plan, h, emb, context, hs: list):
+    """Run a UNet's flat plan of (child name, kind) steps over h: "push"
+    saves the current map for a skip, "cat" joins the last saved one on
+    the channels, "res" calls a ResBlock with the time embedding, "attn" a
+    SpatialTransformer with the context, any other kind the child alone."""
+    for name, kind in plan:
+        if kind == "push":
+            hs.append(h)
+        elif kind == "cat":
+            h = torch.cat([h, hs.pop()], dim=1)
+        elif kind == "res":
+            h = getattr(model, name)(h, emb)
+        elif kind == "attn":
+            h = getattr(model, name)(h, context)
+        else:
+            h = getattr(model, name)(h)
+    return h

@@ -1,4 +1,5 @@
-"""The conditional ε-UNet and the half-UNet alignment classifier
+"""The conditional ε-UNet, the half-UNet alignment classifier and the
+generic half-UNet encoder with a pooled head
 (``diff_foley_tpu/models/unet.py``).
 
 Shipped operating points:
@@ -19,11 +20,14 @@ from typing import Sequence
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from ..diffusion.schedule import timestep_embedding
+from ..ops.attention import multi_head_attention
 from .attention import SpatialTransformer
 from .layers import (Dense, Downsample, GroupNorm32, ResBlock,
-                     TimestepEmbedMLP, Upsample, conv3x3)
+                     TimestepEmbedMLP, Upsample, conv1x1, conv3x3,
+                     init_weights_, run_plan, zero_init_)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,18 +122,7 @@ class _Trunk(nn.Module):
         plan.append((name, kind))
 
     def run(self, plan, h, emb, context, hs):
-        for name, kind in plan:
-            if kind == "push":
-                hs.append(h)
-            elif kind == "cat":
-                h = torch.cat([h, hs.pop()], dim=1)
-            elif kind == "res":
-                h = getattr(self, name)(h, emb)
-            elif kind == "attn":
-                h = getattr(self, name)(h, context)
-            else:
-                h = getattr(self, name)(h)
-        return h
+        return run_plan(self, plan, h, emb, context, hs)
 
     def trunk(self, x, timesteps, context, hs):
         """NHWC input → (NCHW map after the middle block, emb, context)."""
@@ -199,3 +192,162 @@ class ClassifierBackbone(_Trunk):
         h = self.out_conv(self.out_norm(h)).mean(dim=(2, 3))
         logits = self.classifier(h.float())
         return logits if return_logits else torch.sigmoid(logits)
+
+
+class AttentionPool2d(nn.Module):
+    """CLIP-style attention pooling over an NCHW map: tokens [mean |
+    spatial] plus a learned position embedding, one multi-head attention
+    whose only query is the mean token (against h·w + 1 keys), projected
+    to ``out_dim``."""
+
+    def __init__(self, channels: int, tokens: int, num_heads: int,
+                 out_dim: int):
+        super().__init__()
+        self.num_heads = num_heads
+        self.pos_emb = nn.Parameter(torch.zeros(tokens + 1, channels))
+        self.qkv = Dense(channels, 3 * channels)
+        self.proj = Dense(channels, out_dim)
+
+    def forward(self, x):
+        b, c = x.shape[:2]
+        tokens = x.reshape(b, c, -1).transpose(1, 2)
+        tokens = torch.cat([tokens.mean(dim=1, keepdim=True), tokens], dim=1)
+        q, k, v = self.qkv(tokens + self.pos_emb[None]).chunk(3, dim=-1)
+        dh = c // self.num_heads
+        # slices of the packed qkv rows (row stride 3c), made dense
+        # (B, H, L, D) for the per-head kernels
+        split = lambda a: a.reshape(b, a.shape[1], self.num_heads,
+                                    dh).transpose(1, 2).contiguous()
+        out = multi_head_attention(split(q[:, :1]), split(k), split(v),
+                                   scale=dh**-0.5)
+        return self.proj(out.transpose(1, 2).reshape(b, c))
+
+
+POOLS = ("adaptive", "attention", "spatial", "spatial_v2")
+
+
+class EncoderUNetModel(nn.Module):
+    """The generic half-UNet encoder with a pooled head (guided-diffusion's
+    classifier): the trunk's down path with self-attention only (no
+    context) and a middle of two ResBlocks (no attention), then ``pool``:
+
+    - "adaptive": GN·SiLU → spatial mean → 1×1 conv;
+    - "attention": GN·SiLU → :class:`AttentionPool2d`, in float32;
+    - "spatial": the spatial means of every hidden state concatenated →
+      Dense(2048) → ReLU → Dense(out);
+    - "spatial_v2": the same with GN32·SiLU between the Denses.
+
+    (B, H, W, C) latents and (B,) times → (B, out_channels) float32.
+    ``hw`` is the input's (H, W), which sizes the attention pool's
+    position embedding (flax sizes it at the first call)."""
+
+    def __init__(self, cfg: UNetConfig = CLASSIFIER_BACKBONE,
+                 pool: str = "adaptive", hw: tuple = (16, 64)):
+        super().__init__()
+        if pool not in POOLS:
+            raise ValueError(f"pool {pool!r} is not one of {POOLS}")
+        if cfg.dropout > 0:
+            raise NotImplementedError(
+                f"UNet dropout {cfg.dropout}: the port runs the shipped rate "
+                "0 only (ROADMAP §1, the long tail)")
+        self.cfg, self.pool = cfg, pool
+        mc = cfg.model_channels
+        emb_dim = 4 * mc
+        self.time_embed = TimestepEmbedMLP(mc, emb_dim)
+        self.in_conv = conv3x3(cfg.in_channels, mc)
+        # (child name, kind), in the forward's order; "mean" records the
+        # spatial mean of the current map for the spatial pools
+        spatial = pool.startswith("spatial")
+        self.plan = [(None, "mean")] if spatial else []
+        means, ch, ds = [mc], mc, 1
+
+        def add(name, module, kind):
+            setattr(self, name, module)
+            self.plan.append((name, kind))
+
+        for level, mult in enumerate(cfg.channel_mult):
+            out = mult * mc
+            for i in range(cfg.num_res_blocks):
+                add(f"down_{level}_{i}_res", ResBlock(ch, out, emb_dim),
+                    "res")
+                ch = out
+                if ds in cfg.attention_resolutions:
+                    # no context: the cross-attention reads the tokens
+                    add(f"down_{level}_{i}_attn", SpatialTransformer(
+                        ch, ch, cfg.num_heads, ch // cfg.num_heads,
+                        cfg.transformer_depth), "attn")
+                if spatial:
+                    self.plan.append((None, "mean"))
+                    means.append(ch)
+            if level != len(cfg.channel_mult) - 1:
+                add(f"down_{level}_ds", Downsample(ch), "plain")
+                if spatial:
+                    self.plan.append((None, "mean"))
+                    means.append(ch)
+                ds *= 2
+        add("mid_res1", ResBlock(ch, ch, emb_dim), "res")
+        add("mid_res2", ResBlock(ch, ch, emb_dim), "res")
+        if spatial:
+            self.plan.append((None, "mean"))
+            means.append(ch)
+            self.head_fc1 = Dense(sum(means), 2048)
+            if pool == "spatial_v2":
+                self.head_norm = GroupNorm32(2048, act="silu")
+            self.head_fc2 = Dense(2048, cfg.out_channels)
+        else:
+            self.out_norm = GroupNorm32(ch, act="silu")
+            if pool == "attention":
+                h, w = hw
+                for _ in range(len(cfg.channel_mult) - 1):
+                    h, w = -(-h // 2), -(-w // 2)   # stride-2 convs, pad 1
+                tokens = h * w
+                self.attn_pool = AttentionPool2d(ch, tokens, cfg.num_heads,
+                                                 cfg.out_channels)
+            else:
+                self.out_conv = conv1x1(ch, cfg.out_channels)
+
+    def forward(self, x, timesteps):
+        dt = self.cfg.compute_dtype
+        emb = self.time_embed(
+            timestep_embedding(timesteps, self.cfg.model_channels)).to(dt)
+        h = self.in_conv(x.permute(0, 3, 1, 2).to(dt).contiguous())
+        results = []
+        for name, kind in self.plan:
+            if kind == "mean":
+                results.append(h.mean(dim=(2, 3)))
+            elif kind == "res":
+                h = getattr(self, name)(h, emb)
+            else:
+                h = getattr(self, name)(h)
+        if results:
+            feats = self.head_fc1(torch.cat([r.float() for r in results],
+                                            dim=-1))
+            if self.pool == "spatial_v2":
+                feats = self.head_norm(feats[:, :, None, None])[:, :, 0, 0]
+            else:
+                feats = F.relu(feats)
+            return self.head_fc2(feats)
+        h = self.out_norm(h)
+        if self.pool == "attention":
+            return self.attn_pool(h.float())
+        h = self.out_conv(h.mean(dim=(2, 3), keepdim=True))
+        return h[:, :, 0, 0].float()
+
+
+@torch.no_grad()
+def init_encoder_unet_weights_(model: EncoderUNetModel,
+                               generator: torch.Generator) -> EncoderUNetModel:
+    """flax's initialisation, drawn on the generator's device: lecun-normal
+    kernels, zero biases, unit scales, the attention pool's positions
+    N(0, 1/channels), and zeros in the layers the JAX model zero-inits
+    (each ResBlock's ``out_conv``, each SpatialTransformer's ``proj_out``,
+    the adaptive head's ``out_conv``)."""
+    init_weights_(model, generator)
+    zero_init_(model, ResBlock, SpatialTransformer)
+    if model.pool == "attention":
+        p = model.attn_pool.pos_emb
+        p.copy_(torch.randn(p.shape, generator=generator,
+                            device=generator.device) * p.shape[1]**-0.5)
+    if model.pool == "adaptive":
+        model.out_conv.weight.zero_()
+    return model

@@ -57,12 +57,14 @@ LAUNCHES = {"attn_packed_fwd": 0, "attn_packed_bwd": 0, "attn_fwd": 0,
 LAUNCHES_BY_DTYPE = collections.Counter()   # {(wrapper, "bfloat16"): n}
 
 # the path's head dims; csrc/common.cuh::supported_head_dim, the packed
-# entries take these only
-_HEAD_DIMS = (32, 40, 80, 160)
+# entries take these only: the classifier's and EncoderUNetModel's 32, the
+# UNet's 40/80/160, the 1-D audio UNet's 48/96
+_HEAD_DIMS = (32, 40, 48, 80, 96, 160)
 # the per-head kernel's: the SD VAE's mid attention (512), the spec
-# decoder's of train/stage2_decode.py (256), and the tiny VAEs (ch 32) of
-# chip_smoke.py's agreement runs
-_HEAD_DIMS_PER_HEAD = (32, 256, 512)
+# decoder's of train/stage2_decode.py (256), the diffusion prior's (64),
+# and EncoderUNetModel's attention pool and the tiny VAEs (ch 32) of
+# chip_smoke.py's agreement runs (32)
+_HEAD_DIMS_PER_HEAD = (32, 64, 256, 512)
 
 
 def reset_launch_counts() -> None:

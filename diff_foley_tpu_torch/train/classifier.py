@@ -27,14 +27,13 @@ import torch.nn as nn
 from ..diffusion.schedule import DiffusionSchedule
 from ..models.attention import SpatialTransformer
 from ..models.cond_encoder import VideoFeatEncoderPosembed
-from ..models.layers import ResBlock
+from ..models.layers import ResBlock, init_weights_, zero_init_
 from ..models.unet import CLASSIFIER_BACKBONE, ClassifierBackbone, UNetConfig
 from ..models.vae import AutoencoderKL
 from ..parallel import collectives
 from ..parallel.mesh import Mesh, draw_rows, global_rows
 from ..pipeline import resolve_device
 from .optim import AdamW, TrainState, global_norm
-from .vae import init_weights_
 
 BCE_CLIP = 1e-7
 
@@ -92,11 +91,7 @@ def init_classifier_weights_(model: AlignmentClassifier,
                                          generator=generator,
                                          device=generator.device))
     model.backbone.out_conv.weight.zero_()
-    for m in model.backbone.modules():
-        if isinstance(m, ResBlock):
-            m.out_conv.weight.zero_()
-        elif isinstance(m, SpatialTransformer):
-            m.proj_out.weight.zero_()
+    zero_init_(model.backbone, ResBlock, SpatialTransformer)
     return model
 
 

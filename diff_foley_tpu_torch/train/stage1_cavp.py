@@ -37,13 +37,13 @@ import torch
 from ..models.cavp import CAVPModel
 from ..models.cavp.cavp import check_dtype
 from ..models.cavp.layers import frozen_statistics
+from ..models.layers import init_weights_
 from ..parallel import collectives
 from ..parallel.mesh import Mesh, global_rows
 from ..pipeline import resolve_device
 from ..utils.lr_schedules import cosine_with_warmup
 from .losses import intra_contrast_loss
 from .optim import AdamW, TrainState, global_norm
-from .vae import init_weights_
 
 LOG_100 = math.log(100.0)
 

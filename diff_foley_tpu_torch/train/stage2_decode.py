@@ -33,10 +33,10 @@ from typing import Callable, Optional
 import torch
 
 from ..models.cavp import CAVPConfig, CAVPModel
+from ..models.layers import init_weights_
 from ..models.vae import Decoder, VAEConfig
 from ..pipeline import resolve_device
 from .optim import AdamW
-from .vae import init_weights_
 from .vae_losses import NLayerDiscriminator, VAELossConfig, \
     discriminator_loss
 

@@ -45,7 +45,7 @@ import torch
 
 from ..diffusion.latent_diffusion import LatentDiffusion
 from ..models.attention import SpatialTransformer
-from ..models.layers import ResBlock
+from ..models.layers import ResBlock, init_weights_, zero_init_
 from ..parallel import collectives, sharding_rules
 from ..parallel.mesh import Mesh, draw_rows, global_rows
 from ..parallel.sharding_rules import (FsdpLayout, gather_tp, param_specs,
@@ -55,7 +55,6 @@ from ..utils.ema import EmaState, ema_init, ema_update
 from ..utils.lr_schedules import lambda_linear
 from ..utils.precision import cast_floating, swapped_parameters
 from .optim import AdamW, TrainState, global_norm
-from .vae import init_weights_
 
 DTYPES = {None: torch.float32, "float32": torch.float32,
           "bfloat16": torch.bfloat16}
@@ -96,11 +95,7 @@ def init_ldm_weights_(ldm: LatentDiffusion, generator: torch.Generator):
                                        generator=generator,
                                        device=generator.device))
     ldm.unet.out_conv.weight.zero_()
-    for m in ldm.unet.modules():
-        if isinstance(m, ResBlock):
-            m.out_conv.weight.zero_()
-        elif isinstance(m, SpatialTransformer):
-            m.proj_out.weight.zero_()
+    zero_init_(ldm.unet, ResBlock, SpatialTransformer)
     return ldm
 
 

@@ -34,6 +34,7 @@ from typing import Callable, Optional
 
 import torch
 
+from ..models.layers import init_weights_
 from ..models.vae import AutoencoderKL, VAEConfig
 from ..parallel import collectives
 from ..parallel.mesh import Mesh, global_rows
@@ -69,19 +70,6 @@ class VAETrainState:
         self.opt.load_state_dict(sd["opt"])
         self.disc_opt.load_state_dict(sd["disc_opt"])
         self.step = int(sd["step"])
-
-
-@torch.no_grad()
-def init_weights_(module: torch.nn.Module, generator: torch.Generator):
-    """flax's default initialisation: lecun-normal kernels (σ² = 1 / fan-in),
-    zero biases and unit scales (the modules' construction values); drawn
-    on the generator's device."""
-    for name, p in module.named_parameters():
-        if name.endswith("weight") and p.dim() >= 2:
-            std = 1.0 / math.sqrt(p[0].numel())
-            p.copy_(torch.randn(p.shape, generator=generator,
-                                device=generator.device) * std)
-    return module
 
 
 class VAETrainer:

@@ -25,7 +25,10 @@ VAE, the PatchGAN discriminator, LPIPS/LPAPS and every CAVP tower: a
 Conv1d patch embedding's kernel, LayerNorm's ``scale``, and the ViT
 towers' free parameters (``positional_embedding``, ``class_embedding``,
 ``proj``, ``pos_embedding``, the CLS tokens), which keep their names and
-layouts. Load with ``strict=True``.
+layouts; the 1-D audio UNet (Conv1d kernels), the diffusion prior (its
+time ``Embed`` table and the free ``null_video_embeds`` and
+``null_spec_embeds``) and ``EncoderUNetModel`` (the attention pool's
+``pos_emb``). Load with ``strict=True``.
 The same function carries gradients and updated parameters of a JAX train
 step into the port's layout, so a test compares them leaf by leaf under
 the state dict's names.
@@ -226,8 +229,15 @@ class _Mapper:
                             depth: int) -> None:
         self.gn_flat(f"{my}/norm", f"{torch_key}.norm")
         self.conv(f"{my}/proj_in", f"{torch_key}.proj_in")
+        self.transformer_blocks(f"{my}/", f"{torch_key}.", depth)
+        self.conv(f"{my}/proj_out", f"{torch_key}.proj_out")
+
+    def transformer_blocks(self, my: str, torch_key: str,
+                           depth: int) -> None:
+        """The BasicTransformerBlocks under the prefixes ``my`` and
+        ``torch_key`` (each empty or ending in its separator)."""
         for d in range(depth):
-            tb, mb = f"{torch_key}.transformer_blocks.{d}", f"{my}/block{d}"
+            tb, mb = f"{torch_key}transformer_blocks.{d}", f"{my}block{d}"
             for n in (1, 2, 3):
                 self.gn_flat(f"{mb}/norm{n}", f"{tb}.norm{n}")
             for a in ("attn1", "attn2"):
@@ -238,7 +248,6 @@ class _Mapper:
                               f"{mb}/ff/geglu/proj_gate",
                               f"{tb}.ff.net.0.proj")
             self.dense(f"{mb}/ff/out", f"{tb}.ff.net.2")
-        self.conv(f"{my}/proj_out", f"{torch_key}.proj_out")
 
     def params(self) -> dict:
         return {"params": self.tree, "batch_stats": self.stats} \
@@ -434,6 +443,25 @@ def _conv1d(t) -> np.ndarray:
     # torch (out, in, K) → flax (K, in, out); ConvTranspose1d's (in, out,
     # K) → flax transpose_kernel's (K, out, in) by the same reversal
     return _np(t).transpose(2, 1, 0)
+
+
+def _conv1d_full(m: _Mapper, my: str, torch_key: str) -> None:
+    m.take(f"{my}/kernel", f"{torch_key}.weight", _conv1d)
+    m.take(f"{my}/bias", f"{torch_key}.bias")
+
+
+def convert_spatial_transformer1d(sd: Mapping, prefix: str = "",
+                                  depth: int = 1) -> dict:
+    """Reference 1-D SpatialTransformer state dict (GroupNorm ``norm``,
+    Conv1d ``proj_in``/``proj_out``, ``transformer_blocks``) → flax params
+    of ``models/attention.py::SpatialTransformer1D``."""
+    m = _Mapper(sd, prefix)
+    m.gn_flat("norm", "norm")
+    _conv1d_full(m, "proj_in", "proj_in")
+    m.transformer_blocks("", "", depth)
+    _conv1d_full(m, "proj_out", "proj_out")
+    m.check_used()
+    return m.params()
 
 
 def _lstm_layer(m: _Mapper, my: str, torch_key: str, layer: int) -> None:

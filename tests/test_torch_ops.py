@@ -160,8 +160,8 @@ def test_per_head_wrapper_takes_the_path_layouts():
     # q, k and v may each lie in either layout, forward and backward alike
     assert ha._check_per_head(meta, meta, tok) == 512
     assert ha._check_per_head(tok, meta, meta) == 512
-    odd = torch.empty(2, 1, 64, 64, device="meta")
-    with pytest.raises(ValueError, match="head dim 64"):
+    odd = torch.empty(2, 1, 64, 128, device="meta")
+    with pytest.raises(ValueError, match="head dim 128"):
         ha._check_per_head(odd, odd, odd)
 
 
@@ -353,8 +353,9 @@ def test_cuda_kernels_match_plain(kind, dtype):
 
 
 @pytest.mark.parametrize("d,ok", [(32, True), (40, True), (80, True),
-                                  (160, True), (64, False), (48, False),
-                                  (16, False), (20, False), (512, False)])
+                                  (160, True), (64, False), (48, True),
+                                  (96, True), (16, False), (20, False),
+                                  (512, False)])
 def test_kernel_wrappers_take_the_path_head_dims(d, ok):
     # the CUDA sources instantiate the path's head dims only
     heads = 2
@@ -577,10 +578,12 @@ def test_cp_async_ready_operands():
 
 
 @pytest.mark.parametrize("d,ok", [(32, True), (512, True), (256, True),
-                                  (40, False), (64, False), (128, False)])
+                                  (40, False), (64, True), (128, False),
+                                  (48, False)])
 def test_per_head_wrappers_take_head_dims_32_and_512(d, ok):
     # csrc/attention_head_{fwd,bwd}.cu take the VAE's 512, the spec
-    # decoder's 256 and the tiny VAEs' 32 only
+    # decoder's 256, the prior's 64 and the tiny VAEs' and the attention
+    # pool's 32 only
     t = torch.empty(1, 1, 64, d, device="meta")
     if ok:
         assert ha._check_per_head(t, t, t) == d
@@ -633,7 +636,7 @@ def _packed_backward_yardstick(q3, k3, v3, g3, scale, heads):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d", [32, 40, 80, 160])
+@pytest.mark.parametrize("d", [32, 40, 48, 80, 96, 160])
 @pytest.mark.parametrize("lq,lk", [(200, 72), (130, 32)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_packed_backward_head_dims(dtype, d, lq, lk):
@@ -664,7 +667,7 @@ def test_cuda_packed_backward_head_dims(dtype, d, lq, lk):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d", [32, 40, 80, 160])
+@pytest.mark.parametrize("d", [32, 40, 48, 80, 96, 160])
 @pytest.mark.parametrize("lq,lk", [(200, 72), (130, 32)])
 def test_cuda_packed_forward_bf16_head_dims(d, lq, lk):
     """The bf16 tensor-core forward at each path head dim, with Lq and Lk
@@ -939,6 +942,49 @@ def test_cuda_per_head_backward_at_head_dim_256(b, l, dtype):
     refs = _backward_yardstick(q, k, v, g, 256**-0.5)
     torch.cuda.synchronize()
     assert ha.LAUNCHES["attn_bwd"] == before + 1
+    max_tol, rms_tol = {torch.float32: (2e-5, 1.5e-6),
+                        torch.bfloat16: (0.25, 0.015)}[dtype]
+    for o, r in zip(grads, refs):
+        o, r = o.double(), r.double()
+        rms = float(r.square().mean().sqrt())
+        assert float((o - r).abs().max()) <= max_tol * rms
+        assert float((o - r).square().mean().sqrt()) <= rms_tol * rms
+
+
+# The diffusion prior's self-attention (its p_losses batch 64 and its
+# sample batch 16 of 8 heads over 16 tokens, D 64), a ragged length with
+# tile edges, and EncoderUNetModel's attention pool: one mean-token query
+# against the 4 × 16 map's 64 tokens and itself (D 32)
+PRIOR_AND_POOL = [(64, 16, 16, 64, torch.float32),
+                  (2, 1000, 1000, 64, torch.float32),
+                  (2, 1000, 1000, 64, torch.bfloat16),
+                  (16, 1, 65, 32, torch.float32)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,lq,lk,d,dtype", PRIOR_AND_POOL)
+def test_cuda_per_head_kernels_at_the_prior_and_pool_shapes(b, lq, lk, d,
+                                                            dtype):
+    """Kernels 3 and 4 over row-major (B, 8, L, D) operands, as the prior
+    and the pool hand them in, against the yardsticks at chip_smoke.py's
+    limits; one launch each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    gen = torch.Generator("cuda").manual_seed(lq + d)
+    q, g = (torch.randn((b, 8, lq, d), generator=gen, device="cuda")
+            .to(dtype) for _ in range(2))
+    k, v = (torch.randn((b, 8, lk, d), generator=gen, device="cuda")
+            .to(dtype) for _ in range(2))
+    before = dict(ha.LAUNCHES)
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    out = multi_head_attention(*leaves)
+    grads = torch.autograd.grad(out, leaves, g)
+    ref = _forward_yardstick(q, k, v, d**-0.5)
+    refs = _backward_yardstick(q, k, v, g, d**-0.5)
+    torch.cuda.synchronize()
+    assert ha.LAUNCHES["attn_fwd"] == before["attn_fwd"] + 1
+    assert ha.LAUNCHES["attn_bwd"] == before["attn_bwd"] + 1
+    _forward_limits(out.detach(), ref, dtype)
     max_tol, rms_tol = {torch.float32: (2e-5, 1.5e-6),
                         torch.bfloat16: (0.25, 0.015)}[dtype]
     for o, r in zip(grads, refs):

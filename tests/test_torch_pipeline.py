@@ -168,7 +168,7 @@ def test_port_imports_no_jax():
                  "resilience.py", "callbacks.py", "config.py", "tiled.py",
                  "samplers.py", "guidance.py", "x3d.py", "r2plus1d.py",
                  "spec_towers.py", "vivit.py", "spec_augment.py",
-                 "stage2_decode.py"):
+                 "stage2_decode.py", "audio_unet.py", "prior.py"):
         assert any(p.name == name for p in files), name
     banned = ("jax", "flax", "optax", "orbax", "diff_foley_tpu")
     for path in files:

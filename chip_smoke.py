@@ -158,6 +158,19 @@
     (kernels 1 and 2 at D 32, and the attention pool's kernels 3 and 4
     with one query against 65 keys). Outputs, losses, samples and
     gradients finite; seconds, peak memory.
+11e. The other conditioning and first stages (PERF.md's columns o and
+    f): run o, ``VideoFeatEncoderPosembedAR()`` at its defaults (8 heads
+    of D 64) over stage 2's batch 16, a (16, 32, 512) feature and a (16,
+    16, 64, 4) previous latent (1024 keys), forward and the gradient of Σ
+    out² over inputs and parameters, twice in fp32 and twice in bf16;
+    then the 860M UNet in bf16 at batch 2 through
+    ``LatentDiffusion.apply_model``, twice in each mode, one model built
+    on the card at a time: concat, hybrid, adm (309 classes), ResBlock
+    positions (64) with the cond encoder's context, and crossattn over one
+    ``ClassEmbedder`` token. Run f, fp32: ``LatentRescaler`` (×2, mid
+    512: kernels 3 and 4 at L 4096, D 512), ``UpsampleDecoder`` and
+    ``SimpleDecoder``, forward and the gradient of Σ out², twice each.
+    Launches as predicted; outputs and gradients finite; seconds.
 12. Agreement: tiny ``generate``, ``inpaint``, ``DiffFoley.extract_features``
    plus ``generate_from_features``, two tiny VAE train steps, one tiny
    stage-2 train step, one tiny classifier train step (D 32, 40 keys) and
@@ -165,7 +178,9 @@
    one tiny spec-decoder step (D 32), one tiny waveform-VAE step (against the
    CPU in float64), the tiny audio UNet (D 48 and 96), prior (D 64,
    ``p_losses`` and ``sample`` under shared draws) and EncoderUNetModel at
-   each pool (D 32), one call of each sampler family and the tiled pair
+   each pool (D 32), the AR and plain video encoders (D 64), the UNet's
+   five conditioning modes (D 32) and the three other first stages (D
+   32), one call of each sampler family and the tiled pair
    (``agreement_sampler_phase``: shared x_T and step draws, the adaptive
    solver's model calls equal) in float32 on the GPU (kernels) against the
    same on the CPU (plain versions), shared noise, phase, draws and
@@ -250,6 +265,9 @@ from diff_foley_tpu_torch.models.audio_unet import (AudioUNetConfig,
                                                     Upsample1D)
 from diff_foley_tpu_torch.models.cavp import CAVPConfig, CAVPModel
 from diff_foley_tpu_torch.models.cavp import cnn14 as cnn14_module
+from diff_foley_tpu_torch.models.cond_encoder import (
+    VideoFeatEncoderMLP, VideoFeatEncoderPosembedAR, VideoFeatEncoderSimple)
+from diff_foley_tpu_torch.models.cond_text import ClassEmbedder
 from diff_foley_tpu_torch.models.sound_vae import SoundVAEConfig
 from diff_foley_tpu_torch.models.layers import (Conv1d, Downsample,
                                                 GroupNorm32, Upsample,
@@ -258,10 +276,13 @@ from diff_foley_tpu_torch.models.prior import DiffusionPrior, PriorConfig
 from diff_foley_tpu_torch.models.unet import (CLASSIFIER_BACKBONE, LDM_UNET,
                                               POOLS, AttentionPool2d,
                                               ClassifierBackbone,
-                                              EncoderUNetModel, UNetConfig)
+                                              EncoderUNetModel, UNetConfig,
+                                              UNetModel)
 from diff_foley_tpu_torch.models.vae import (SD_VAE, AutoencoderKL, Decoder,
-                                             VAEConfig, VAEDownsample,
-                                             VAEUpsample)
+                                             LatentRescaler, NearestResize,
+                                             SimpleDecoder, UpsampleDecoder,
+                                             VAEAttnBlock, VAEConfig,
+                                             VAEDownsample, VAEUpsample)
 from diff_foley_tpu_torch.ops import cuda_build
 from diff_foley_tpu_torch.ops import hopper_attention as ha
 from diff_foley_tpu_torch.ops import hopper_groupnorm as hg
@@ -378,6 +399,36 @@ PR_SAMPLE_BATCH, PR_SAMPLE_STEPS, PR_COND_SCALE, PR_SAMPLE_CALLS = (
 # fp32) at each pool over EN_BATCH latents of LATENT_HW: the forward and
 # the gradient of the summed output over the input, EN_CALLS times a pool
 EN_BATCH, EN_CALLS = 16, 2
+# the other conditioning (run "other_cond", column o): the AR cond encoder
+# at its reference defaults (hidden 512, embed 768, depth 2, seq_len 215,
+# 8 heads of D 64) over stage 2's training batch AR_BATCH, AR_TOKENS video
+# features of 512 and the previous window's latent of LATENT_HW × 4: a
+# forward and the gradient of Σ out² over the inputs and the parameters,
+# AR_CALLS times in fp32, then as many in bf16. Then the 860M LDM_UNET in
+# bf16 at batch OC_BATCH through LatentDiffusion.apply_model, OC_CALLS
+# calls (the first and a warm one) of each variant, one UNet built at a
+# time: {variant: (conditioning key, UNet config changes, context tokens;
+# 0: none)}: concat (8 input channels, no context), hybrid (8 and the cond
+# encoder's context), adm (OC_CLASSES classes, VGGSound's, no context),
+# ResBlock positions over OC_POS latent steps with the cond encoder's
+# context, and crossattn over one ClassEmbedder(768, OC_CLASSES) token
+AR_BATCH, AR_TOKENS, AR_CALLS = 16, 32, 2
+OC_BATCH, OC_CALLS, OC_CLASSES, OC_POS = 2, 2, 309, 64
+OC_VARIANTS = {"concat": ("concat", dict(in_channels=8), 0),
+               "hybrid": ("hybrid", dict(in_channels=8), WINDOW_FEATS),
+               "adm": ("adm", dict(num_classes=OC_CLASSES), 0),
+               "pos": ("crossattn", dict(pos_seq_len=OC_POS), WINDOW_FEATS),
+               "class": ("crossattn", {}, 1)}
+# the other first stages (run "first_stages", column f), fp32 at batch
+# FS_BATCH: a forward and the gradient of Σ out² over the input and the
+# parameters, FS_CALLS times each: (name, module, NHWC input shape)
+FS_BATCH, FS_CALLS = 2, 2
+FIRST_STAGES = (
+    ("rescaler", lambda: LatentRescaler(2.0, 4, 512, 512, depth=2),
+     (FS_BATCH, *LATENT_HW, 4)),
+    ("upsample", lambda: UpsampleDecoder(512, 3, 128, 2, (2, 2)),
+     (FS_BATCH, *LATENT_HW, 512)),
+    ("simple", lambda: SimpleDecoder(128, 3), (FS_BATCH, 32, 128, 128)))
 # the stage-2 CLI's SoundLogger: every SL_EVERY steps of the main-path
 # call (SL_CALLS calls), SL_N items (the UNet at the CFG batch 2·SL_N,
 # the VAE encoder once and the decoder twice at SL_N), the JAX logger's
@@ -486,7 +537,7 @@ SYMBOLS = {"fwd": ("attn_packed_fwd",), "bwd": ("head_bwd_",),
 RUNS = ("generate", "inpaint", "train_vae", "video", "train_stage2",
         "train_classifier", "align_acc", "serve", "sound_log",
         "train_sound_vae", "samplers", "decode", "audio_unet", "prior",
-        "encoder_unet")
+        "encoder_unet", "other_cond", "first_stages")
 
 
 def calls(generate: int = 0, inpaint: int = 0, train_vae: int = 0,
@@ -494,7 +545,8 @@ def calls(generate: int = 0, inpaint: int = 0, train_vae: int = 0,
           align_acc: int = 0, serve: int = 0, sound_log: int = 0,
           train_sound_vae: int = 0, samplers: int = 0,
           decode: int = 0, audio_unet: int = 0, prior: int = 0,
-          encoder_unet: int = 0) -> dict:
+          encoder_unet: int = 0, other_cond: int = 0,
+          first_stages: int = 0) -> dict:
     """Calls of one kernel shape in each main-path run."""
     return {"generate": generate, "inpaint": inpaint, "train_vae": train_vae,
             "video": video, "train_stage2": train_stage2,
@@ -502,7 +554,8 @@ def calls(generate: int = 0, inpaint: int = 0, train_vae: int = 0,
             "serve": serve, "sound_log": sound_log,
             "train_sound_vae": train_sound_vae, "samplers": samplers,
             "decode": decode, "audio_unet": audio_unet, "prior": prior,
-            "encoder_unet": encoder_unet}
+            "encoder_unet": encoder_unet, "other_cond": other_cond,
+            "first_stages": first_stages}
 
 
 class Units(dict):
@@ -741,20 +794,28 @@ def path_shapes(n: int, lk: int):
             + attention_sites("clf", CLASSIFIER_BACKBONE, n, lk, False))
 
 
-def gn_sites(model, hw):
-    """(channels, h, w, eps, act) of each GroupNorm32 call of one forward.
-    The models register their children in the order the forward runs
-    them, and each Down/Upsample halves/doubles the map."""
+def module_maps(model, hw):
+    """(module, h, w) of each module of ``model`` in registration order,
+    with the map size it sees. The models register their children in the
+    order the forward runs them; each Down/Upsample halves/doubles the
+    map, a NearestResize takes it to its size."""
     h, w = hw
-    out = []
     for m in model.modules():
         if isinstance(m, (Downsample, VAEDownsample)):
             h, w = h // 2, w // 2
         elif isinstance(m, (Upsample, VAEUpsample)):
             h, w = 2 * h, 2 * w
-        elif isinstance(m, GroupNorm32):
-            out.append((m.weight.shape[0], h, w, m.eps, m.act))
-    return out
+        elif isinstance(m, NearestResize):
+            h, w = m.out_hw(h, w)
+        yield m, h, w
+
+
+def gn_sites(model, hw):
+    """(channels, h, w, eps, act) of each GroupNorm32 call of one
+    forward."""
+    return [(m.weight.shape[0], h, w, m.eps, m.act)
+            for m, h, w in module_maps(model, hw)
+            if isinstance(m, GroupNorm32)]
 
 
 def gn_kernels(channels: int, h: int, w: int, itemsize: int):
@@ -927,6 +988,8 @@ def predicted_launches(pipe, steps: int, sp=None):
             for run in RUNS:
                 pred[run][f"{k}/{str(dtype).split('.')[-1]}"] += per_run[run]
     pred["decode"].update(decode_launches())
+    for run, c in other_launches().items():
+        pred[run].update(c)
     for run, c in new_model_launches().items():
         pred[run].update(c)
     return {run: {k: n for k, n in sorted(c.items()) if n}
@@ -1041,6 +1104,81 @@ def new_model_launches() -> dict:
             e["attn_fwd/float32"] += EN_CALLS
             e["attn_bwd/float32"] += EN_CALLS
     return out
+
+
+def ar_depth() -> int:
+    with torch.device("meta"):
+        return VideoFeatEncoderPosembedAR().fusion_net.fusion_module.depth
+
+
+def ar_sites():
+    """(tag, Lq, Lk) of the AR encoder's attentions, each once a block:
+    self over the video tokens, cross over the latent's h·w tokens."""
+    return (("ar-self", AR_TOKENS, AR_TOKENS),
+            ("ar-cross", AR_TOKENS, LATENT_HW[0] * LATENT_HW[1]))
+
+
+def oc_attention_sites() -> collections.Counter:
+    """{(level, Lq, Lk, H·D): kernel-1 calls} over run o's UNet calls.
+    With no context (concat, adm) each cross-attention reads the tokens:
+    Lk = Lq, the self-attention's shape; the class token gives Lk 1."""
+    out = collections.Counter()
+    for key, _, lk in OC_VARIANTS.values():
+        for tag, _, lq, lk_, hd, _, per in attention_sites(
+                "o-unet", LDM_UNET, OC_BATCH, lk, True):
+            if tag.endswith("cross") and lk == 0:
+                lk_ = lq
+            out[(tag.split("-")[2], lq, lk_, hd)] += OC_CALLS * per
+    return out
+
+
+def oc_gn_sites() -> collections.Counter:
+    """{GroupNorm32 site: calls in one UNet forward}; the variants change
+    the input conv, the time embedding and the ResBlocks' sums, not a
+    norm."""
+    with torch.device("meta"):
+        unet = UNetModel(LDM_UNET)
+    return collections.Counter(gn_sites(unet, LATENT_HW))
+
+
+def first_stage_sites():
+    """Run f's ({GroupNorm32 site: calls}, [(L, D) of each attention
+    block, one per call]) over its FS_CALLS calls of each first stage."""
+    gns, attn = collections.Counter(), []
+    for _, build, shape in FIRST_STAGES:
+        with torch.device("meta"):
+            model = build()
+        for m, h, w in module_maps(model, shape[1:3]):
+            if isinstance(m, GroupNorm32):
+                gns[(m.weight.shape[0], h, w, m.eps, m.act)] += FS_CALLS
+            elif isinstance(m, VAEAttnBlock):
+                attn += [(h * w, m.q.weight.shape[0])] * FS_CALLS
+    return gns, attn
+
+
+def other_launches() -> dict:
+    """{run: Counter of "kernel/dtype" launches} of runs o and f. The AR
+    encoder: kernels 1 and 2 at each attention of its blocks, each call, in
+    each dtype (it has no GroupNorm). The UNets: kernel 1 at each attention
+    and the GroupNorm kernels at each GroupNorm32 of each forward (no
+    gradient). The first stages: the GroupNorm kernels at each forward's
+    norms (the backward is the plain formula), kernels 3 and 4 once a call
+    at the rescaler's attention."""
+    o, f = collections.Counter(), collections.Counter()
+    per = AR_CALLS * ar_depth() * len(ar_sites())
+    for dt in ("float32", "bfloat16"):
+        o[f"attn_packed_fwd/{dt}"] += per
+        o[f"attn_packed_bwd/{dt}"] += per
+    o["attn_packed_fwd/bfloat16"] += sum(oc_attention_sites().values())
+    for (c, h, w, _, _), n in oc_gn_sites().items():
+        for k in gn_kernels(c, h, w, 2):
+            o[f"{k}/bfloat16"] += n * len(OC_VARIANTS) * OC_CALLS
+    gns, attn = first_stage_sites()
+    for (c, h, w, _, _), n in gns.items():
+        for k in gn_kernels(c, h, w, 4):
+            f[f"{k}/float32"] += n
+    f["attn_fwd/float32"] = f["attn_bwd/float32"] = len(attn)
+    return {"other_cond": o, "first_stages": f}
 
 
 # ---- the kernel phase ---------------------------------------------------------
@@ -1590,6 +1728,53 @@ def new_model_rows(gen) -> list:
     return rows
 
 
+def other_rows(gen) -> list:
+    """The kernel rows of runs o and f, each credited its calls: the AR
+    encoder's packed attention at D 64 (8 heads; 32 queries against
+    themselves and against the latent's 1024 tokens), forward and
+    backward in fp32 and bf16; the bf16 UNet's packed forward at batch
+    OC_BATCH over the tokens themselves, 32 context tokens and one class
+    token (Lk 1 once more in fp32), and its GroupNorms; the rescaler's
+    per-head attention at L 4096, D 512 (fp32, and once more in bf16),
+    forward and backward, and the first stages' fp32 GroupNorms."""
+    rows = []
+    depth, heads, hd = ar_depth(), 8, 512
+    for dtype in (FP32, BF16):
+        for tag, lq, lk in ar_sites():
+            for kind, name in (("fwd", "attn_packed_fwd"),
+                               ("bwd", "attn_packed_bwd")):
+                rows.append((name, {**check_packed(
+                    kind, f"o-{tag}", AR_BATCH, lq, lk, hd, heads, dtype,
+                    gen), "calls": calls(other_cond=AR_CALLS * depth)}))
+    for (level, lq, lk, hd), n in sorted(oc_attention_sites().items()):
+        rows.append(("attn_packed_fwd", {**check_packed(
+            "fwd", f"o-unet-{level}-lk{lk}", OC_BATCH, lq, lk, hd,
+            LDM_UNET.num_heads, BF16, gen), "calls": calls(other_cond=n)}))
+    rows.append(("attn_packed_fwd", check_packed(
+        "fwd", "o-unet-0-lk1", OC_BATCH, LATENT_HW[0] * LATENT_HW[1], 1,
+        LDM_UNET.model_channels, LDM_UNET.num_heads, FP32, gen)))
+    for (c, h, w, eps, act), n in oc_gn_sites().items():
+        for name, r in check_gn(f"o-unet-{c}x{h}x{w}", OC_BATCH, c, h, w,
+                                eps, act, BF16, gen):
+            rows.append((name, {**r, "calls": calls(
+                other_cond=n * len(OC_VARIANTS) * OC_CALLS)}))
+    gns, attn = first_stage_sites()
+    for (l, d), n in collections.Counter(attn).items():
+        for check, name in ((check_head, "attn_fwd"),
+                            (check_head_bwd, "attn_bwd")):
+            rows.append((name, {**check("f-rescaler-mid", FS_BATCH, l, l, d,
+                                        FP32, gen),
+                                "calls": calls(first_stages=n)}))
+            rows.append((name, check("f-rescaler-mid", FS_BATCH, l, l, d,
+                                     BF16, gen)))
+            torch.cuda.empty_cache()
+    for (c, h, w, eps, act), n in gns.items():
+        for name, r in check_gn(f"f-{c}x{h}x{w}", FS_BATCH, c, h, w, eps,
+                                act, FP32, gen):
+            rows.append((name, {**r, "calls": calls(first_stages=n)}))
+    return rows
+
+
 def check_gn(tag, b, c, h, w, eps, act, dtype, gen):
     """The GroupNorm kernels one call at this map launches: the block
     kernel, or the stats and apply pair (one row each)."""
@@ -1862,6 +2047,9 @@ def kernel_phase(pipe, sp):
     # the three fp32 runs of the audio UNet, the prior and EncoderUNetModel,
     # from a generator of their own: every row above keeps its inputs
     rows += new_model_rows(torch.Generator("cuda").manual_seed(16))
+    torch.cuda.empty_cache()
+    # runs o and f, from a generator of their own
+    rows += other_rows(torch.Generator("cuda").manual_seed(17))
     torch.cuda.empty_cache()
     # the block kernel's branch-free SiLU division, bit for bit __fdiv_rn's
     # over every fp32 input in its range (the rest go through __fdiv_rn)
@@ -4228,6 +4416,168 @@ def encoder_unet_phase(expect: dict):
     return launches, times
 
 
+def oc_model(variant: str, seed: int):
+    """Run o's LatentDiffusion for ``variant`` (``OC_VARIANTS``), built on
+    the card with lecun-normal kernels and embedding tables drawn there
+    (flax's scheme, without its zero-init layers), N(0, 1) cond
+    positions, zero biases and unit scales; the UNet in bf16, the cond
+    encoder in fp32."""
+    key, changes, _ = OC_VARIANTS[variant]
+    gen = torch.Generator("cuda").manual_seed(seed)
+    with torch.device("cuda"):
+        ldm = LatentDiffusion(LDMConfig(unet=dataclasses.replace(
+            LDM_UNET, dtype="bfloat16", **changes), conditioning_key=key))
+    # no zero-init output layers: every block's output reaches the result
+    init_weights_(ldm, gen)
+    with torch.no_grad():
+        ldm.cond.pos_emb.normal_(generator=gen)
+    ldm.unet.to(torch.bfloat16)
+    return ldm
+
+
+def other_cond_phase(expect: dict):
+    """Run o. The AR cond encoder at its reference defaults with seeded
+    random weights: AR_CALLS calls of a forward over (AR_BATCH, AR_TOKENS,
+    512) features and the (AR_BATCH, 16, 64, 4) previous latent, then the
+    gradient of Σ out² over both inputs and every parameter, in fp32, then
+    as many in bf16 (a bf16 copy of the weights and the inputs). Then the
+    860M UNet through ``LatentDiffusion.apply_model`` for each of
+    OC_VARIANTS, OC_CALLS forwards at batch OC_BATCH in bf16, one model
+    at a time (built, called, freed). The launch counts are reset before
+    the first call and read after the last: they must equal the
+    prediction. Outputs and gradients finite; first and warm seconds,
+    peak memory."""
+    rng = np.random.default_rng(60)
+    model = randomize_(VideoFeatEncoderPosembedAR(), 61).cuda()
+    video = torch.as_tensor(rng.standard_normal((AR_BATCH, AR_TOKENS, 512)),
+                            dtype=FP32, device="cuda")
+    prev = torch.as_tensor(rng.standard_normal((AR_BATCH, *LATENT_HW, 4)),
+                           dtype=FP32, device="cuda")
+    feats = torch.as_tensor(rng.standard_normal(
+        (OC_BATCH, WINDOW_FEATS, 512)), dtype=FP32, device="cuda")
+    x = torch.as_tensor(rng.standard_normal((OC_BATCH, *LATENT_HW, 4)),
+                        dtype=FP32, device="cuda")
+    c_concat = torch.as_tensor(rng.standard_normal(x.shape), dtype=FP32,
+                               device="cuda")
+    t = torch.as_tensor(rng.integers(0, 1000, OC_BATCH), dtype=FP32,
+                        device="cuda")
+    y = torch.as_tensor(rng.integers(0, OC_CLASSES, OC_BATCH),
+                        device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    times = {}
+    for dtype in (FP32, BF16):
+        m = model if dtype == FP32 else copy.deepcopy(model).to(dtype)
+        batch = {"video_feat": video.to(dtype).requires_grad_(True),
+                 "spec_prev_z": prev.to(dtype).requires_grad_(True)}
+        params = list(m.parameters())
+        call_s = []
+        for _ in range(AR_CALLS):
+            t0 = time.perf_counter()
+            out = m(batch)
+            grads = torch.autograd.grad(out.float().square().sum(),
+                                        list(batch.values()) + params)
+            torch.cuda.synchronize()
+            call_s.append(time.perf_counter() - t0)
+        if out.shape != (AR_BATCH, AR_TOKENS, 768) or out.dtype != dtype or \
+                not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"AR encoder {dtype}: output "
+                                 f"{tuple(out.shape)} {out.dtype} not finite")
+        finite_grads(f"AR encoder {dtype}", grads)
+        times[f"ar_{str(dtype)[6:]}"] = {"first_s": call_s[0],
+                                         "warm_s": min(call_s[1:])}
+    ar_peak = torch.cuda.max_memory_allocated() / 2**30
+    del model, m, grads, out
+    shares, before = {}, read_counts()
+    for i, (variant, (key, _, lk)) in enumerate(OC_VARIANTS.items()):
+        t0 = time.perf_counter()
+        ldm = oc_model(variant, 62 + i)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        with torch.no_grad():
+            ctx = None
+            if variant == "class":
+                emb = init_weights_(ClassEmbedder(768, OC_CLASSES).cuda(),
+                                    torch.Generator("cuda").manual_seed(70))
+                ctx = emb(y)
+            elif lk:
+                ctx = ldm.get_learned_conditioning(feats)
+            kw = {"c_concat": c_concat} if key in ("concat", "hybrid") \
+                else {"y": y} if key == "adm" else {}
+            call_s = []
+            for _ in range(OC_CALLS):
+                t0 = time.perf_counter()
+                out = ldm.apply_model(x, t, ctx, **kw)
+                torch.cuda.synchronize()
+                call_s.append(time.perf_counter() - t0)
+        if out.shape != x.shape or out.dtype != FP32 or \
+                not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"UNet {variant}: output {tuple(out.shape)}"
+                                 f" {out.dtype} not finite")
+        if ctx is not None and tuple(ctx.shape) != (OC_BATCH, lk, 768):
+            raise AssertionError(f"{variant} context {tuple(ctx.shape)}")
+        now = read_counts()
+        shares[variant] = {k: n - before.get(k, 0) for k, n in now.items()
+                           if n - before.get(k, 0)}
+        before = now
+        times[variant] = {"build_s": build_s, "first_s": call_s[0],
+                          "warm_s": min(call_s[1:]),
+                          "out_rms": float(out.square().mean().sqrt())}
+        del ldm, out
+        torch.cuda.empty_cache()
+    launches = read_counts()
+    times["ar_peak_mem_GiB"] = ar_peak
+    times["peak_mem_GiB"] = torch.cuda.max_memory_allocated() / 2**30
+    log(f"other_cond AR encoder x ({AR_BATCH}, {AR_TOKENS}, 512) latent "
+        f"({AR_BATCH}, {LATENT_HW[0]}, {LATENT_HW[1]}, 4), LDM_UNET bf16 at "
+        f"batch {OC_BATCH} per variant: {json.dumps(times)}; launches by "
+        f"UNet variant {json.dumps(shares)}")
+    check_launches("other_cond", launches, expect)
+    return launches, times
+
+
+def first_stages_phase(expect: dict):
+    """Run f: each of FIRST_STAGES in fp32 with seeded random weights,
+    FS_CALLS calls of a forward over its seeded NHWC input and the
+    gradient of Σ out² over the input and every parameter; the launch
+    counts reset before the first call and read after the last. Outputs
+    and gradients finite; first and warm seconds, peak memory each."""
+    rng = np.random.default_rng(80)
+    torch.cuda.synchronize()
+    reset_counts()
+    times = {}
+    for i, (name, build, shape) in enumerate(FIRST_STAGES):
+        model = randomize_(build(), 81 + i).cuda()
+        params = list(model.parameters())
+        x = torch.as_tensor(rng.standard_normal(shape), dtype=FP32,
+                            device="cuda").requires_grad_(True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        call_s = []
+        for _ in range(FS_CALLS):
+            t0 = time.perf_counter()
+            out = model(x)
+            grads = torch.autograd.grad(out.square().sum(), [x] + params)
+            torch.cuda.synchronize()
+            call_s.append(time.perf_counter() - t0)
+        if out.dim() != 4 or out.shape[0] != FS_BATCH or \
+                not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"{name}: output {tuple(out.shape)} not "
+                                 f"finite")
+        finite_grads(name, grads)
+        times[name] = {"x": list(shape), "out": list(out.shape),
+                       "first_s": call_s[0], "warm_s": min(call_s[1:]),
+                       "peak_mem_GiB":
+                       torch.cuda.max_memory_allocated() / 2**30}
+        del model, params, grads, out
+        torch.cuda.empty_cache()
+    launches = read_counts()
+    log(f"first_stages fp32: {json.dumps(times)}")
+    check_launches("first_stages", launches, expect)
+    return launches, times
+
+
 def native_compose_phase(clip: str, ldm_logdir: str, cavp_logdir: str,
                          clf_logdir: str):
     """``DiffFoley.from_native_checkpoints`` over the port's own three
@@ -4600,6 +4950,103 @@ def agreement_new_models_phase():
         f"max|Δ| / max(1, max|x|) limit {SAMPLER_AGREE_TOL})")
     if not d_sample <= SAMPLER_AGREE_TOL:
         raise AssertionError("GPU prior samples disagree with the CPU's")
+
+
+def agreement_other_phase():
+    """Runs o and f at tiny fp32 widths whose head dims the kernels take,
+    on the GPU (kernels) against the CPU (plain versions) from equal
+    seeded weights and inputs; each output and gradient held per tensor
+    at GRAD_TOL (max|Δ| and rms(Δ) against rms(cpu)):
+
+    - the AR encoder (hidden 128, 2 heads of D 64, depth 1, a (2, 4, 8, 4)
+      latent: 32 keys): the output, and the gradient of Σ out² over both
+      inputs and every parameter; the MLP and the one-Linear video
+      encoders likewise (no kernel);
+    - ``LatentDiffusion.apply_model`` of a UNet of 64 base channels, mult
+      (1, 1), 2 heads (D 32), for concat, hybrid, adm (10 classes),
+      ResBlock positions (16) and crossattn over a ClassEmbedder token:
+      the output;
+    - ``LatentRescaler`` (factor 1.5, mid 32: the per-head kernels at D
+      32), ``UpsampleDecoder`` and ``SimpleDecoder`` at ch 32: the output
+      and the gradient of Σ out² over the input and every parameter."""
+    report = {}
+    rng = np.random.default_rng(90)
+    arr = lambda *shape: torch.as_tensor(rng.standard_normal(shape),
+                                         dtype=FP32)
+    ar = randomize_(VideoFeatEncoderPosembedAR(
+        origin_dim=24, hidden_dim=128, embed_dim=32, depth=1, seq_len=16,
+        heads=2, dim_head=64), 91)
+    ar_in = {"video_feat": arr(2, 8, 24), "spec_prev_z": arr(2, 4, 8, 4)}
+    plain_encoders = {"mlp_encoder": randomize_(VideoFeatEncoderMLP(24, 32),
+                                                99),
+                      "simple_encoder": randomize_(
+                          VideoFeatEncoderSimple(24, 32), 100)}
+    base = dict(model_channels=64, num_res_blocks=1,
+                attention_resolutions=(2,), channel_mult=(1, 1), num_heads=2,
+                context_dim=32)
+    tiny_vae = VAEConfig(ch=32, ch_mult=(1,), num_res_blocks=1)
+    variants = {"concat": ("concat", dict(in_channels=8)),
+                "hybrid": ("hybrid", dict(in_channels=8)),
+                "adm": ("adm", dict(num_classes=10)),
+                "pos": ("crossattn", dict(pos_seq_len=16)),
+                "class": ("crossattn", {})}
+    ldms = {v: randomize_(LatentDiffusion(LDMConfig(
+        unet=UNetConfig(**base, **changes), vae=tiny_vae, cond_origin_dim=24,
+        cond_embed_dim=32, cond_seq_len=8, conditioning_key=key)), 92 + i)
+        for i, (v, (key, changes)) in enumerate(variants.items())}
+    emb = randomize_(ClassEmbedder(32, 10), 97)
+    ux, ucat, uf = arr(2, 8, 16, 4), arr(2, 8, 16, 4), arr(2, 6, 24)
+    ut, uy = torch.as_tensor([3.0, 710.0]), torch.as_tensor([1, 7])
+    stages = {"rescaler": (LatentRescaler(1.5, 4, 32, 8, depth=1),
+                           (2, 5, 7, 4)),
+              "upsample": (UpsampleDecoder(64, 3, 32, 1, (1, 1)),
+                           (2, 4, 8, 64)),
+              "simple": (SimpleDecoder(32, 3), (2, 4, 8, 32))}
+    stages = {k: (randomize_(m, 98 + i), arr(*shape))
+              for i, (k, (m, shape)) in enumerate(stages.items())}
+
+    def with_grads(m, inputs: dict, out):
+        names = list(inputs) + [k for k, _ in m.named_parameters()]
+        grads = torch.autograd.grad(out.square().sum(), list(
+            inputs.values()) + list(m.parameters()))
+        return {"out": out.detach().cpu(),
+                **{n: g.cpu() for n, g in zip(names, grads)}}
+
+    runs = {}
+    for device in ("cuda", "cpu"):
+        out = {}
+        m = copy.deepcopy(ar).to(device)
+        inputs = {k: v.to(device).requires_grad_(True)
+                  for k, v in ar_in.items()}
+        out["ar_encoder"] = with_grads(m, inputs, m(inputs))
+        for name, enc in plain_encoders.items():
+            m = copy.deepcopy(enc).to(device)
+            xx = ar_in["video_feat"].to(device).requires_grad_(True)
+            out[name] = with_grads(m, {"x": xx}, m(xx))
+        e = copy.deepcopy(emb).to(device)
+        with torch.no_grad():
+            for v, ldm in ldms.items():
+                m = copy.deepcopy(ldm).to(device)
+                key = m.cfg.conditioning_key
+                ctx = (e(uy.to(device)) if v == "class"
+                       else m.get_learned_conditioning(uf.to(device)))
+                kw = ({"c_concat": ucat.to(device)}
+                      if key in ("concat", "hybrid") else
+                      {"y": uy.to(device)} if key == "adm" else {})
+                out[f"unet_{v}"] = {"out": m.apply_model(
+                    ux.to(device), ut.to(device), ctx, **kw).cpu()}
+        for name, (stage, x) in stages.items():
+            m = copy.deepcopy(stage).to(device)
+            xx = x.to(device).requires_grad_(True)
+            out[name] = with_grads(m, {"x": xx}, m(xx))
+        runs[device] = out
+    for what in runs["cpu"]:
+        report[what] = list(gradient_agreement(
+            runs["cuda"][what], runs["cpu"][what],
+            noise_gradients(runs["cpu"][what]), *GRAD_TOL))
+    log(f"agreement tiny fp32 AR encoder / UNet conditioning modes / first "
+        f"stages gpu-vs-cpu, worst (max|Δ|, rms(Δ)) / rms(cpu) and tensor: "
+        f"{json.dumps(report)} (limits {list(GRAD_TOL)})")
 
 
 # The planted fault of the stage-2 agreement: this leaf's GPU gradient 1%
@@ -5651,7 +6098,9 @@ def main(argv):
         log("stage2_decode times " + json.dumps(times))
         for run, phase in (("audio_unet", audio_unet_phase),
                            ("prior", prior_phase),
-                           ("encoder_unet", encoder_unet_phase)):
+                           ("encoder_unet", encoder_unet_phase),
+                           ("other_cond", other_cond_phase),
+                           ("first_stages", first_stages_phase)):
             t0 = time.perf_counter()
             launches[run], times = phase(expect[run])
             times["phase_s"] = time.perf_counter() - t0
@@ -5673,6 +6122,7 @@ def main(argv):
     agreement_cavp_towers_phase()
     agreement_decode_phase()
     agreement_new_models_phase()
+    agreement_other_phase()
     check_rows_cover(rows, launches)
     log(json.dumps({"kernels": summarize(rows, launches)}))
     log(card)

@@ -4,8 +4,10 @@
 // (launched by _pallas_backward_packed, vjp _packed_bwd). The path runs it
 // in the classifier guidance of every sampler step: the classifier's
 // self- and cross-attention, B 4, 8 heads of D 32, L ≤ 256. Stage-2
-// training runs it at the UNet's D 40/80/160, L ≤ 1024, and the 1-D audio
-// UNet's gradient at D 48 (L 2048) and 96 (L 1024).
+// training runs it at the UNet's D 40/80/160, L ≤ 1024, the 1-D audio
+// UNet's gradient at D 48 (L 2048) and 96 (L 1024), and the AR cond
+// encoder's gradient at D 64 (32 video queries against themselves and
+// against the previous window's 1024 latent tokens, H·D 512).
 //
 // q, k, v and the output gradient g are packed (B, L, H·D), exactly as the
 // Linear layers emit them; head h of such an operand is the strided view
@@ -19,7 +21,10 @@
 // 8-deep 3xTF32 product summed in fp32 round-to-nearest, the small parts
 // rounded, the k-tiles added with compensation): fp32 sums in cuBLAS's
 // order are themselves about 1e-5 of rms from exact at the classifier's
-// shapes, the limit this kernel is held to there.
+// shapes, the limit this kernel is held to there. Over at most 32 queries
+// (the AR cond encoder's 32 video tokens) the whole backward runs in fp64
+// (head_bwd.cuh::fp64_backward): there any fp32 sum of the scores leaves
+// the heavy-tailed dK and dV 2-5e-5 of rms from exact.
 //
 // Bound on this card: 10·B·H·Lq·Lk·D operations (five products) against
 // (3·Lq + 4·Lk)·B·H·D operand elements; at the classifier's shapes in
@@ -34,8 +39,9 @@
 // q's (and dq's), [4:8] k's (and dk's), [8:12] v's (and dv's), [12:16] g's;
 // addresses and strides other than 1 multiples of 16 bytes. scratch as for
 // dft_attn_bwd: 2·b·heads·lq·lds fp32 and 2·b·heads·lq·lds operand
-// elements, lds = lk rounded up to 8. Operands of one dtype (DTYPE_F32 or
-// DTYPE_BF16); head dims 32, 40, 48, 80, 96 and 160. Returns the cudaError_t of the
+// elements, lds = lk rounded up to 8 (4·b·heads·lq·lds fp64 for fp32 over
+// few queries or keys). Operands of one dtype (DTYPE_F32 or
+// DTYPE_BF16); head dims 32, 40, 48, 64, 80, 96 and 160. Returns the cudaError_t of the
 // launches; 1 (cudaErrorInvalidValue) for arguments it does not take.
 extern "C" int dft_attn_packed_bwd(const void* q, const void* k,
                                    const void* v, const void* g, void* dq,

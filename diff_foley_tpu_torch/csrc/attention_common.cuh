@@ -1,6 +1,7 @@
 // The fp32 pieces of the packed-heads attention forward (attention_fwd.cu's
-// fp32 kernel: the fp32 classifier, the 1-D audio UNet, EncoderUNetModel
-// and the GPU-vs-CPU agreement of tiny pipelines).
+// fp32 kernel: the fp32 classifier, the 1-D audio UNet, EncoderUNetModel,
+// the cond encoders' token transformer and the GPU-vs-CPU agreement of
+// tiny pipelines).
 //
 // Operands are the projections exactly as the Linear layers emit them:
 // packed (B, L, H*D), row-major and contiguous. A block owns one
@@ -186,6 +187,9 @@ __host__ __device__ constexpr int fwd_min_blocks(int nc) {
       __VA_ARGS__;                              \
     } else if ((d) == 48) {                     \
       constexpr int NC = 12;                    \
+      __VA_ARGS__;                              \
+    } else if ((d) == 64) {                     \
+      constexpr int NC = 16;                    \
       __VA_ARGS__;                              \
     } else if ((d) == 80) {                     \
       constexpr int NC = 20;                    \

@@ -22,7 +22,7 @@
 // stay in registers for the whole block. Key and value tiles of 64 rows go
 // straight from the packed rows into shared memory in bf16 by 16-byte
 // cp.async, FWD_STAGES tiles in flight (a head's columns start h·D·2 bytes
-// into a row: 16-byte aligned at D 32, 40, 48, 80, 96, 160). Both passes compute
+// into a row: 16-byte aligned at D 32, 40, 48, 64, 80, 96, 160). Both passes compute
 // S = Q Kᵀ on mma.sync.m16n8k16 (K fragments by ldmatrix; D 40 pads the
 // depth to 48 with zero columns, which add exactly 0). Pass 1 keeps the
 // row max and sum in the accumulators' registers; pass 2 forms
@@ -34,8 +34,8 @@
 // and masked.
 //
 // fp32 (attn_packed_fwd_kernel) runs the fp32 classifier, the 1-D audio
-// UNet and EncoderUNetModel, and the GPU-vs-CPU agreement of tiny
-// pipelines: fp32 FMAs from shared memory, tiles staged as fp32, each row's
+// UNet, EncoderUNetModel and the AR cond encoder, and the GPU-vs-CPU
+// agreement of tiny pipelines: fp32 FMAs from shared memory, tiles staged as fp32, each row's
 // sum compensated and brought to the row max in fp64 once
 // (attention_common.cuh::row_stats); correct and simple, not fast.
 #include "attention_common.cuh"

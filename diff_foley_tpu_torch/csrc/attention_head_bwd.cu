@@ -6,10 +6,11 @@
 // first-stage train step, encoder and decoder, and the spec decoder's
 // (B, 1, 16, 256) of train/stage2_decode.py, the diffusion prior's
 // (B, 8, 16, 64) and EncoderUNetModel's attention pool (B, 8, 1, 65, 32);
-// the tiny agreement VAEs at D 32. The three launches (scores, rows,
-// products) are head_bwd.cuh's, shared with the packed backward
-// (attention_bwd.cu), fp32 in the tile GEMM's precise mode; the scratch is
-// 64 MB at (4, 1, 1024, 512) in fp32.
+// the tiny agreement VAEs at D 32, and LatentRescaler's (B, 1, 4096, 512).
+// The three launches (scores, rows, products) are head_bwd.cuh's, shared
+// with the packed backward (attention_bwd.cu), fp32 in the tile GEMM's
+// precise mode, or in fp64 over at most 32 queries (the prior, the spec
+// decoder, the pool); the scratch is 64 MB at (4, 1, 1024, 512) in fp32.
 //
 // Bound on this card: 10·B·H·Lq·Lk·D operations (five products) against
 // (3·Lq + 4·Lk)·B·H·D operand elements: operation-bound at L 1024, D 512,
@@ -24,7 +25,9 @@
 // [4:8] k's (and dk's), [8:12] v's (and dv's), [12:16] g's. Each operand
 // has stride 1 along its rows or its columns, its other strides and its
 // address are multiples of 16 bytes. scratch holds 2·b·h·lq·lds fp32 and
-// then 2·b·h·lq·lds operand elements, lds = lk rounded up to 8. Operands of
+// then 2·b·h·lq·lds operand elements, lds = lk rounded up to 8 (fp32 over
+// few queries or keys, head_bwd.cuh::fp64_backward: 4·b·h·lq·lds fp64).
+// Operands of
 // one dtype (DTYPE_F32 or DTYPE_BF16); head dims 512, 256, 64 and 32. Returns
 // the cudaError_t of the launches; 1 (cudaErrorInvalidValue) for arguments it
 // does not take.
@@ -44,10 +47,10 @@ extern "C" int dft_attn_bwd(const void* q, const void* k, const void* v,
                               {ksb, ksh, ksl, ksd},
                               {vsb, vsh, vsl, vsd},
                               {gsb, gsh, gsl, gsd}};
-  // head_bwd's fp32 products take the tile GEMM's precise mode: at one
-  // query (EncoderUNetModel's attention pool) dQ = Σ_j dS_j·K_j sums terms
-  // of one sign-balanced row (Σ_j dS_j = 0), which chained 3xTF32 sums
-  // leave ~2e-5 of rms from exact
+  // head_bwd's fp32 products take the tile GEMM's precise mode, or fp64
+  // over few queries: at one query (EncoderUNetModel's attention pool)
+  // dQ = Σ_j dS_j·K_j sums terms of one sign-balanced row (Σ_j dS_j = 0),
+  // which chained 3xTF32 sums leave ~2e-5 of rms from exact
   return dft::head_bwd(q, k, v, g, dq, dk, dv, scratch, b, h, lq, lk, d, st,
                        scale, dtype, stream);
 }

@@ -43,9 +43,12 @@ __device__ __forceinline__ float round_as(float x) {
 // The packed attention kernels' head dims: 32 in the classifier and the
 // EncoderUNetModel; 40, 80 and 160 at the UNet's levels 0, 1 and 2 (160
 // also in its middle block); 48 and 96 at the 1-D audio UNet's attention
-// resolutions 2 and 4 (96 also in its middle block).
+// resolutions 2 and 4 (96 also in its middle block); 64 in the cond
+// encoders' token transformer (TokenTransformerCond: the AR encoder's
+// fusion net, 8 heads of 64).
 __host__ __device__ constexpr bool supported_head_dim(int d) {
-  return d == 32 || d == 40 || d == 48 || d == 80 || d == 96 || d == 160;
+  return d == 32 || d == 40 || d == 48 || d == 64 || d == 80 || d == 96 ||
+         d == 160;
 }
 
 // Raises a kernel's dynamic shared-memory limit to its fixed budget once

@@ -41,18 +41,25 @@ class LDMConfig:
     linear_end: float = 0.0120
     scale_factor: float = 0.18215
     cond_drop_prob: float = 0.2   # CFG dropout of the context in training
-    conditioning_key: str = "crossattn"
+    # how apply_model routes conditioning into the UNet: None, "concat",
+    # "crossattn", "hybrid" or "adm"
+    conditioning_key: Optional[str] = "crossattn"
+
+
+CONDITIONING_KEYS = (None, "concat", "crossattn", "hybrid", "adm")
 
 
 class LatentDiffusion(nn.Module):
     def __init__(self, cfg: LDMConfig = LDMConfig()):
         super().__init__()
-        if cfg.conditioning_key != "crossattn":
-            raise NotImplementedError(
-                f"conditioning_key {cfg.conditioning_key!r}: the port runs "
-                "the shipped 'crossattn' only (ROADMAP §1, the long tail)")
+        if cfg.conditioning_key not in CONDITIONING_KEYS:
+            raise ValueError(f"conditioning_key {cfg.conditioning_key!r} is "
+                             f"not one of {CONDITIONING_KEYS}")
         self.cfg = cfg
-        self.unet = UNetModel(cfg.unet)
+        # concat and adm call the UNet with no context: its cross-attention
+        # reads the tokens, as the JAX UNet initialised without one
+        self.unet = UNetModel(cfg.unet, with_context=cfg.conditioning_key
+                              not in ("concat", "adm"))
         self.cond = VideoFeatEncoderPosembed(
             cfg.cond_origin_dim, cfg.cond_embed_dim, cfg.cond_seq_len)
         self.vae = AutoencoderKL(cfg.vae)
@@ -63,9 +70,20 @@ class LatentDiffusion(nn.Module):
     def get_learned_conditioning(self, feat: torch.Tensor) -> torch.Tensor:
         return self.cond(feat)
 
-    def apply_model(self, x, t, context):
-        """Cross-attention conditioning into the UNet."""
-        return self.unet(x, t, context)
+    def apply_model(self, x, t, context=None, c_concat=None, y=None):
+        """Conditioning into the UNet by ``cfg.conditioning_key``
+        (DiffusionWrapper, ddpm.py:1545-1571): "concat" joins ``c_concat``
+        to the NHWC latents' channels and passes no context, "hybrid" joins
+        it and passes the context, "adm" passes the class ids ``y`` and no
+        context, "crossattn" and None pass the context."""
+        key = self.cfg.conditioning_key
+        if key in ("concat", "hybrid"):
+            if c_concat is None:
+                raise ValueError(f"conditioning_key {key!r} needs c_concat")
+            x = torch.cat([x, c_concat.to(x.dtype)], dim=-1)
+        if key in ("concat", "adm"):
+            context = None
+        return self.unet(x, t, context, y=y if key == "adm" else None)
 
     def apply_model_tiled(self, x: torch.Tensor, t: torch.Tensor,
                           context: torch.Tensor,

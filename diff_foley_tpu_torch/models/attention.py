@@ -81,9 +81,12 @@ class BasicTransformerBlock(nn.Module):
 
 
 class SpatialTransformer(nn.Module):
-    """Token-space transformer over an NCHW map."""
+    """Token-space transformer over an NCHW map. ``context_dim`` is the
+    width of the context it will be called with; None when it runs
+    without one, whose cross-attention then reads the tokens themselves
+    (flax infers attn2's key and value width from the first call)."""
 
-    def __init__(self, channels: int, context_dim: int, heads: int,
+    def __init__(self, channels: int, context_dim: int | None, heads: int,
                  dim_head: int, depth: int = 1, checkpoint: bool = False):
         super().__init__()
         inner = heads * dim_head
@@ -93,7 +96,8 @@ class SpatialTransformer(nn.Module):
         self.depth = depth
         for i in range(depth):
             setattr(self, f"block{i}", BasicTransformerBlock(
-                inner, context_dim, heads, dim_head))
+                inner, inner if context_dim is None else context_dim, heads,
+                dim_head))
         self.proj_out = conv1x1(inner, channels)
 
     def forward(self, x, context=None):

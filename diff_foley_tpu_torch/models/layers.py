@@ -215,13 +215,21 @@ class Downsample(nn.Module):
 class ResBlock(nn.Module):
     """Time-conditioned residual block:
     GN32·SiLU → conv3x3 → + Dense(SiLU(emb)) → GN32·SiLU → conv3x3, plus
-    the input (through a 1×1 conv when the width changes)."""
+    the input (through a 1×1 conv when the width changes).
 
-    def __init__(self, in_ch: int, out_ch: int, emb_dim: int):
+    ``pos_seq_len`` > 0 adds a learned positional embedding over the map's
+    W axis (the time axis of a mel latent) after the time embedding, as
+    the openai_unetmodel_pos.py variant does; a map wider than
+    ``pos_seq_len`` raises."""
+
+    def __init__(self, in_ch: int, out_ch: int, emb_dim: int,
+                 pos_seq_len: int = 0):
         super().__init__()
         self.in_norm = GroupNorm32(in_ch, act="silu")
         self.in_conv = conv3x3(in_ch, out_ch)
         self.emb_dense = Dense(emb_dim, out_ch)
+        self.pos_emb = (nn.Embedding(pos_seq_len, out_ch) if pos_seq_len > 0
+                        else None)
         self.out_norm = GroupNorm32(out_ch, act="silu")
         self.out_conv = conv3x3(out_ch, out_ch)
         self.skip_conv = conv1x1(in_ch, out_ch) if in_ch != out_ch else None
@@ -229,6 +237,11 @@ class ResBlock(nn.Module):
     def forward(self, x, emb):
         h = self.in_conv(self.in_norm(x))
         h = h + self.emb_dense(F.silu(emb))[:, :, None, None].to(h.dtype)
+        if self.pos_emb is not None:
+            w, n = h.shape[3], self.pos_emb.num_embeddings
+            if w > n:
+                raise ValueError(f"feature width {w} exceeds pos_seq_len {n}")
+            h = h + self.pos_emb.weight[:w].T[None, :, None, :].to(h.dtype)
         h = self.out_conv(self.out_norm(h))
         if self.skip_conv is not None:
             x = self.skip_conv(x)

@@ -48,6 +48,12 @@ class UNetConfig:
     dropout: float = 0.0
     use_checkpoint: bool = False
     remat_policy: str = "none"
+    # > 0: class conditioning, a label embedding added to the time
+    # embedding (the 'adm' mode); > 0: each ResBlock's learned positions
+    # over the map's W axis (the openai_unetmodel_pos.py variant). The
+    # UNet only: the classifier takes neither, as in the JAX package
+    num_classes: int = 0
+    pos_seq_len: int = 0
     dtype: str = "float32"
 
     @property
@@ -64,9 +70,13 @@ CLASSIFIER_BACKBONE = UNetConfig(
 
 class _Trunk(nn.Module):
     """Time embedding, input conv, down path and middle, shared by both
-    models; ``skips`` adds the pushes the UNet's up path consumes."""
+    models; ``skips`` adds the pushes the UNet's up path consumes. The
+    UNet passes its class count, ResBlock positions and ``with_context``
+    (False: each cross-attention reads the tokens, its key and value
+    width the block's)."""
 
-    def __init__(self, cfg: UNetConfig, skips: bool):
+    def __init__(self, cfg: UNetConfig, skips: bool, num_classes: int = 0,
+                 pos_seq_len: int = 0, with_context: bool = True):
         super().__init__()
         if cfg.dropout > 0:
             raise NotImplementedError(
@@ -78,9 +88,12 @@ class _Trunk(nn.Module):
                 "the port recomputes whole blocks (use_checkpoint) only "
                 "(ROADMAP §1, the long tail)")
         self.cfg = cfg
+        self.pos_seq_len, self.with_context = pos_seq_len, with_context
         mc = cfg.model_channels
         self.emb_dim = 4 * mc
         self.time_embed = TimestepEmbedMLP(mc, self.emb_dim)
+        self.label_emb = (nn.Embedding(num_classes, self.emb_dim)
+                          if num_classes > 0 else None)
         self.in_conv = conv3x3(cfg.in_channels, mc)
         self.skip_channels = [mc]
         self.down_plan, self.mid_plan = [], []
@@ -89,7 +102,7 @@ class _Trunk(nn.Module):
             out = mult * mc
             for i in range(cfg.num_res_blocks):
                 self._add(self.down_plan, f"down_{level}_{i}_res",
-                          ResBlock(ch, out, self.emb_dim), "res")
+                          self.res(ch, out), "res")
                 ch = out
                 if ds in cfg.attention_resolutions:
                     self._add(self.down_plan, f"down_{level}_{i}_attn",
@@ -105,17 +118,21 @@ class _Trunk(nn.Module):
                     self.skip_channels.append(ch)
                 ds *= 2
         for name, m, kind in (
-                ("mid_res1", ResBlock(ch, ch, self.emb_dim), "res"),
+                ("mid_res1", self.res(ch, ch), "res"),
                 ("mid_attn", self.attn(ch), "attn"),
-                ("mid_res2", ResBlock(ch, ch, self.emb_dim), "res")):
+                ("mid_res2", self.res(ch, ch), "res")):
             self._add(self.mid_plan, name, m, kind)
         self.channels, self.ds = ch, ds
 
+    def res(self, in_ch: int, out_ch: int) -> ResBlock:
+        return ResBlock(in_ch, out_ch, self.emb_dim, self.pos_seq_len)
+
     def attn(self, ch: int) -> SpatialTransformer:
         cfg = self.cfg
-        return SpatialTransformer(ch, cfg.context_dim, cfg.num_heads,
-                                  ch // cfg.num_heads, cfg.transformer_depth,
-                                  checkpoint=cfg.use_checkpoint)
+        return SpatialTransformer(
+            ch, cfg.context_dim if self.with_context else None,
+            cfg.num_heads, ch // cfg.num_heads, cfg.transformer_depth,
+            checkpoint=cfg.use_checkpoint)
 
     def _add(self, plan, name: str, module: nn.Module, kind: str):
         setattr(self, name, module)
@@ -124,11 +141,18 @@ class _Trunk(nn.Module):
     def run(self, plan, h, emb, context, hs):
         return run_plan(self, plan, h, emb, context, hs)
 
-    def trunk(self, x, timesteps, context, hs):
-        """NHWC input → (NCHW map after the middle block, emb, context)."""
+    def trunk(self, x, timesteps, context, hs, y=None):
+        """NHWC input → (NCHW map after the middle block, emb, context);
+        ``y`` the (B,) class ids of a class-conditional UNet."""
         dt = self.cfg.compute_dtype
         emb = self.time_embed(
-            timestep_embedding(timesteps, self.cfg.model_channels)).to(dt)
+            timestep_embedding(timesteps, self.cfg.model_channels))
+        if self.label_emb is not None:
+            if y is None:
+                raise ValueError("a class-conditional UNet (num_classes > 0) "
+                                 "needs y")
+            emb = emb + self.label_emb(y)
+        emb = emb.to(dt)
         if context is not None:
             context = context.to(dt)
         # contiguous NCHW maps throughout, as the GroupNorm kernels take them
@@ -140,10 +164,16 @@ class _Trunk(nn.Module):
 
 class UNetModel(_Trunk):
     """ε-prediction UNet: (B, H, W, C) latents, (B,) times and (B, L,
-    context_dim) tokens → (B, H, W, out) float32."""
+    context_dim) tokens → (B, H, W, out) float32; with ``cfg.num_classes``
+    also (B,) class ids ``y``. ``with_context=False`` builds the UNet the
+    concat and adm modes call with no context: each cross-attention then
+    reads the tokens themselves, its key and value width the block's, as
+    flax infers it from a first call without one."""
 
-    def __init__(self, cfg: UNetConfig = LDM_UNET):
-        super().__init__(cfg, skips=True)
+    def __init__(self, cfg: UNetConfig = LDM_UNET, with_context: bool = True):
+        super().__init__(cfg, skips=True, num_classes=cfg.num_classes,
+                         pos_seq_len=cfg.pos_seq_len,
+                         with_context=with_context)
         mc = cfg.model_channels
         ch, ds = self.channels, self.ds
         skip_ch = list(self.skip_channels)
@@ -153,8 +183,7 @@ class UNetModel(_Trunk):
             for i in range(cfg.num_res_blocks + 1):
                 self.up_plan.append((None, "cat"))
                 self._add(self.up_plan, f"up_{level}_{i}_res",
-                          ResBlock(ch + skip_ch.pop(), out, self.emb_dim),
-                          "res")
+                          self.res(ch + skip_ch.pop(), out), "res")
                 ch = out
                 if ds in cfg.attention_resolutions:
                     self._add(self.up_plan, f"up_{level}_{i}_attn",
@@ -166,9 +195,9 @@ class UNetModel(_Trunk):
         self.out_norm = GroupNorm32(ch, act="silu")
         self.out_conv = conv3x3(ch, cfg.out_channels)
 
-    def forward(self, x, timesteps, context=None):
+    def forward(self, x, timesteps, context=None, y=None):
         hs = []
-        h, emb, context = self.trunk(x, timesteps, context, hs)
+        h, emb, context = self.trunk(x, timesteps, context, hs, y)
         h = self.run(self.up_plan, h, emb, context, hs)
         assert not hs
         h = self.out_conv(self.out_norm(h))

@@ -8,6 +8,12 @@ h·w tokens (L 1024, D 512 at the shipped size), through
 ``multi_head_attention``: the per-head attention kernel on CUDA tensors.
 Every GroupNorm is a ``GroupNorm32`` (ε 1e-6): the GroupNorm kernels.
 Children are registered in the order the forward runs them.
+
+The other first stages of the reference are here too: ``SimpleDecoder``,
+``UpsampleDecoder`` and ``LatentRescaler`` (NHWC maps in and out, as the
+JAX modules; contiguous NCHW inside; the rescaler's attention is the
+VAE's, at the resized map's h·w tokens), and the pass-through
+``IdentityFirstStage``.
 """
 from __future__ import annotations
 
@@ -22,6 +28,10 @@ import torch.nn.functional as F
 from ..ops.attention import multi_head_attention
 from ..parallel.mesh import draw_rows
 from .layers import Conv2d, GroupNorm32, conv1x1, conv3x3
+
+
+def _nchw(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 3, 1, 2).contiguous()
 
 
 def _gn(channels: int, act: str | None = None) -> GroupNorm32:
@@ -162,6 +172,131 @@ class Decoder(nn.Module):
         for name in self.plan:
             h = getattr(self, name)(h)
         return self.conv_out(self.norm_out(h))
+
+
+class SimpleDecoder(nn.Module):
+    """1×1 conv → three ResnetBlocks (2×, 4×, 2× the input width) → 1×1
+    conv → upsample → GN·SiLU → 3×3 conv out
+    (stage1_autoencoder/model.py:666-699)."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__()
+        c = in_channels
+        self.conv0 = conv1x1(c, c)
+        self.res1 = VAEResnetBlock(c, 2 * c)
+        self.res2 = VAEResnetBlock(2 * c, 4 * c)
+        self.res3 = VAEResnetBlock(4 * c, 2 * c)
+        self.conv4 = conv1x1(2 * c, c)
+        self.upsample = VAEUpsample(c)
+        self.norm_out = _gn(c, "silu")
+        self.conv_out = conv3x3(c, out_channels)
+
+    def forward(self, x):
+        x = self.res3(self.res2(self.res1(self.conv0(_nchw(x)))))
+        x = self.upsample(self.conv4(x))
+        return self.conv_out(self.norm_out(x)).permute(0, 2, 3, 1)
+
+
+class UpsampleDecoder(nn.Module):
+    """Per level (num_res_blocks + 1) ResnetBlocks at ch·mult, an upsample
+    between levels, then GN·SiLU → 3×3 conv out (model.py:702-747).
+    ``in_channels``: the channels of the maps it decodes."""
+
+    def __init__(self, in_channels: int, out_channels: int, ch: int,
+                 num_res_blocks: int, ch_mult: Sequence[int] = (2, 2),
+                 dropout: float = 0.0):
+        super().__init__()
+        if dropout > 0:
+            raise NotImplementedError(
+                f"VAE dropout {dropout}: the port runs the shipped rate 0")
+        self.plan = []
+        c = in_channels
+        for level, mult in enumerate(ch_mult):
+            for i in range(num_res_blocks + 1):
+                setattr(self, f"res_{level}_{i}", VAEResnetBlock(c, ch * mult))
+                self.plan.append(f"res_{level}_{i}")
+                c = ch * mult
+            if level != len(ch_mult) - 1:
+                setattr(self, f"up_{level}", VAEUpsample(c))
+                self.plan.append(f"up_{level}")
+        self.norm_out = _gn(c, "silu")
+        self.conv_out = conv3x3(c, out_channels)
+
+    def forward(self, x):
+        x = _nchw(x)
+        for name in self.plan:
+            x = getattr(self, name)(x)
+        return self.conv_out(self.norm_out(x)).permute(0, 2, 3, 1)
+
+
+class NearestResize(nn.Module):
+    """Nearest resize of an NCHW map to (round(h·factor), round(w·factor))
+    by torch's index rule, src = floor(dst · in/out)."""
+
+    def __init__(self, factor: float):
+        super().__init__()
+        self.factor = factor
+
+    def out_hw(self, h: int, w: int) -> tuple:
+        return int(round(h * self.factor)), int(round(w * self.factor))
+
+    def forward(self, x):
+        return F.interpolate(x, size=self.out_hw(*x.shape[2:]),
+                             mode="nearest")
+
+
+class LatentRescaler(nn.Module):
+    """3×3 conv in → ``depth`` ResnetBlocks → nearest resize by ``factor``
+    → single-head attention over the resized map's tokens (kernels 3 and
+    4 on the card) → ``depth`` ResnetBlocks → 1×1 conv out
+    (model.py:750-780)."""
+
+    def __init__(self, factor: float, in_channels: int, mid_channels: int,
+                 out_channels: int, depth: int = 2):
+        super().__init__()
+        self.depth = depth
+        self.conv_in = conv3x3(in_channels, mid_channels)
+        for i in range(depth):
+            setattr(self, f"res1_{i}", VAEResnetBlock(mid_channels,
+                                                      mid_channels))
+        self.resize = NearestResize(factor)
+        self.attn = VAEAttnBlock(mid_channels)
+        for i in range(depth):
+            setattr(self, f"res2_{i}", VAEResnetBlock(mid_channels,
+                                                      mid_channels))
+        self.conv_out = conv1x1(mid_channels, out_channels)
+
+    def forward(self, x):
+        x = self.conv_in(_nchw(x))
+        for i in range(self.depth):
+            x = getattr(self, f"res1_{i}")(x)
+        x = self.attn(self.resize(x).contiguous())
+        for i in range(self.depth):
+            x = getattr(self, f"res2_{i}")(x)
+        return self.conv_out(x).permute(0, 2, 3, 1)
+
+
+class IdentityFirstStage:
+    """A pass-through first stage (models/autoencoder.py:426-441); with
+    ``vq_interface`` its ``quantize`` returns (x, None, [None, None,
+    None]) as a VQ model's does."""
+
+    def __init__(self, vq_interface: bool = False):
+        self.vq_interface = vq_interface
+
+    def encode(self, x, *args, **kwargs):
+        return x
+
+    def decode(self, x, *args, **kwargs):
+        return x
+
+    def quantize(self, x, *args, **kwargs):
+        if self.vq_interface:
+            return x, None, [None, None, None]
+        return x
+
+    def __call__(self, x, *args, **kwargs):
+        return x
 
 
 class DiagonalGaussian:

@@ -58,8 +58,9 @@ LAUNCHES_BY_DTYPE = collections.Counter()   # {(wrapper, "bfloat16"): n}
 
 # the path's head dims; csrc/common.cuh::supported_head_dim, the packed
 # entries take these only: the classifier's and EncoderUNetModel's 32, the
-# UNet's 40/80/160, the 1-D audio UNet's 48/96
-_HEAD_DIMS = (32, 40, 48, 80, 96, 160)
+# UNet's 40/80/160, the 1-D audio UNet's 48/96, and the cond encoders'
+# TokenTransformerCond's 64 (the AR encoder's 8 heads of 64)
+_HEAD_DIMS = (32, 40, 48, 64, 80, 96, 160)
 # the per-head kernel's: the SD VAE's mid attention (512), the spec
 # decoder's of train/stage2_decode.py (256), the diffusion prior's (64),
 # and EncoderUNetModel's attention pool and the tiny VAEs (ch 32) of
@@ -325,14 +326,25 @@ def attention_fwd(q, k, v, scale: float):
     return o
 
 
+# csrc/head_bwd.cuh::fp64_backward: an fp32 backward over at most
+# _FEW_QUERIES queries or under _SHALLOW_K keys runs in fp64
+_FEW_QUERIES, _SHALLOW_K = 32, 8
+
+
+def fp64_backward(dtype, lq: int, lk: int) -> bool:
+    return dtype == torch.float32 and (lq <= _FEW_QUERIES or lk < _SHALLOW_K)
+
+
 def head_bwd_scratch(b: int, h: int, lq: int, lk: int, dtype,
                      device) -> torch.Tensor:
     """The per-head backward's scratch as one fp32 buffer: S = Q·Kᵀ and
     dP = g·Vᵀ in fp32, then P̃ and dS in the operand type, each
-    (B·H, Lq, scratch_ld(Lk))."""
+    (B·H, Lq, scratch_ld(Lk)); for an fp32 call over few queries or keys
+    (:func:`fp64_backward`) S, dP, P and dS in fp64."""
     plane = b * h * lq * scratch_ld(lk)
-    return torch.empty(plane * (8 + 2 * dtype.itemsize) // 4,
-                       dtype=torch.float32, device=device)
+    per_entry = 32 if fp64_backward(dtype, lq, lk) else 8 + 2 * dtype.itemsize
+    return torch.empty(plane * per_entry // 4, dtype=torch.float32,
+                       device=device)
 
 
 def attention_bwd(q, k, v, g, scale: float):

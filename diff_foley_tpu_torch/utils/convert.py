@@ -20,8 +20,10 @@ and a transpose per leaf:
 - the ``GroupNorm_0`` scope that ``GroupNorm32`` opens for its flax
   GroupNorm is folded into its parent.
 
-Covers the UNet, the classifier, ``VideoFeatEncoderPosembed``, the whole
-VAE, the PatchGAN discriminator, LPIPS/LPAPS and every CAVP tower: a
+Covers the UNet (its ``label_emb`` and ResBlock ``pos_emb`` tables too),
+the classifier, every cond encoder, ``ClassEmbedder``, the CLIP text
+tower of ``transformers``, the whole VAE and the other first stages, the
+PatchGAN discriminator, LPIPS/LPAPS and every CAVP tower: a
 Conv1d patch embedding's kernel, LayerNorm's ``scale``, and the ViT
 towers' free parameters (``positional_embedding``, ``class_embedding``,
 ``proj``, ``pos_embedding``, the CLS tokens), which keep their names and
@@ -391,6 +393,114 @@ def convert_cond_encoder(sd: Mapping) -> dict:
     return m.params()
 
 
+def convert_cond_encoder_mlp(sd: Mapping, prefix: str = "") -> dict:
+    """Reference Video_Feat_Encoder (``embedder.{0,2}``) → flax params of
+    ``VideoFeatEncoderMLP``."""
+    m = _Mapper(sd, prefix)
+    m.dense("embedder_0", "embedder.0")
+    m.dense("embedder_2", "embedder.2")
+    m.check_used()
+    return m.params()
+
+
+def convert_cond_encoder_simple(sd: Mapping, prefix: str = "") -> dict:
+    """Reference Video_Feat_Encoder_simple (``embedder.0``) → flax params
+    of ``VideoFeatEncoderSimple``."""
+    m = _Mapper(sd, prefix)
+    m.dense("embedder", "embedder.0")
+    m.check_used()
+    return m.params()
+
+
+def convert_cond_encoder_ar(sd: Mapping, prefix: str = "",
+                            depth: int = 2) -> dict:
+    """Reference Video_Feat_Encoder_Posembed_AR (``embed_video_feat.0``,
+    ``embed_spec_feat.0``, the two position tables, ``fusion_net.
+    fusion_module.{norm,proj_in,transformer_blocks,proj_out}`` and
+    ``fusion_net.proj_out.0``) → flax params of
+    ``VideoFeatEncoderPosembedAR``."""
+    m = _Mapper(sd, prefix)
+    m.dense("embed_video_feat", "embed_video_feat.0")
+    m.conv("embed_spec_feat", "embed_spec_feat.0")
+    m.take("pos_emb_video", "pos_emb_video.weight")
+    m.take("pos_emb_spec", "pos_emb_spec.weight")
+    fm, tt = "fusion_net/fusion_module", "fusion_net.fusion_module"
+    m.gn_flat(f"{fm}/norm", f"{tt}.norm")
+    m.dense(f"{fm}/proj_in", f"{tt}.proj_in")
+    m.transformer_blocks(f"{fm}/", f"{tt}.", depth)
+    m.dense(f"{fm}/proj_out", f"{tt}.proj_out")
+    m.dense("fusion_net/proj_out", "fusion_net.proj_out.0")
+    m.check_used()
+    return m.params()
+
+
+def convert_clip_text(tree) -> dict[str, torch.Tensor]:
+    """A flax ``CLIPTextModel`` params tree of numpy arrays (``text_model/
+    {embeddings,encoder,final_layer_norm}``) → the state dict of
+    ``transformers``' torch ``CLIPTextModel``: its module names are the
+    flax ones, so this is ``from_jax_params``, checked for the
+    ``text_model`` root."""
+    tree = tree.get("params", tree)
+    if set(tree) != {"text_model"}:
+        raise ValueError(f"not a CLIP text params tree: roots {sorted(tree)}")
+    return from_jax_params(tree)
+
+
+def convert_simple_decoder(sd: Mapping, prefix: str = "") -> dict:
+    """Reference SimpleDecoder (``model.{0 conv, 1-3 ResnetBlocks, 4 conv,
+    5 upsample}``, ``norm_out``, ``conv_out``) → flax params."""
+    m = _Mapper(sd, prefix)
+    m.conv("conv0", "model.0")
+    for i, my in enumerate(("res1", "res2", "res3"), start=1):
+        _vae_resblock(m, my, f"model.{i}", has_skip=True)
+    m.conv("conv4", "model.4")
+    m.conv("upsample/conv", "model.5.conv")
+    m.gn_flat("norm_out", "norm_out")
+    m.conv("conv_out", "conv_out")
+    m.check_used()
+    return m.params()
+
+
+def convert_upsample_decoder(sd: Mapping, in_channels: int, ch: int,
+                             num_res_blocks: int, ch_mult=(2, 2),
+                             prefix: str = "") -> dict:
+    """Reference UpsampleDecoder (``res_blocks.{level}.{i}``,
+    ``upsample_blocks.{level}``, ``norm_out``, ``conv_out``) → flax
+    params."""
+    m = _Mapper(sd, prefix)
+    block_in = in_channels
+    for level, mult in enumerate(ch_mult):
+        for i in range(num_res_blocks + 1):
+            _vae_resblock(m, f"res_{level}_{i}", f"res_blocks.{level}.{i}",
+                          has_skip=block_in != ch * mult)
+            block_in = ch * mult
+        if level != len(ch_mult) - 1:
+            m.conv(f"up_{level}/conv", f"upsample_blocks.{level}.conv")
+    m.gn_flat("norm_out", "norm_out")
+    m.conv("conv_out", "conv_out")
+    m.check_used()
+    return m.params()
+
+
+def convert_latent_rescaler(sd: Mapping, depth: int = 2,
+                            prefix: str = "") -> dict:
+    """Reference LatentRescaler (``conv_in``, ``res_block{1,2}.{i}``,
+    ``attn.{norm,q,k,v,proj_out}``, ``conv_out``) → flax params; every
+    ResnetBlock is mid → mid, so none has a shortcut conv."""
+    m = _Mapper(sd, prefix)
+    m.conv("conv_in", "conv_in")
+    for i in range(depth):
+        _vae_resblock(m, f"res1_{i}", f"res_block1.{i}", has_skip=False)
+    m.gn_flat("attn/norm", "attn.norm")
+    for p in ("q", "k", "v", "proj_out"):
+        m.conv(f"attn/{p}", f"attn.{p}")
+    for i in range(depth):
+        _vae_resblock(m, f"res2_{i}", f"res_block2.{i}", has_skip=False)
+    m.conv("conv_out", "conv_out")
+    m.check_used()
+    return m.params()
+
+
 def _walk_cnn14(m: _Mapper) -> None:
     """PANN Cnn14's keys: bn, conv_block{1..6}.{conv1,bn1,conv2,bn2}, fc1,
     final_project."""
@@ -419,6 +529,115 @@ def _walk_slowonly(m: _Mapper, stage_blocks=(3, 4, 6, 3)) -> None:
                 convmod(f"layer{s}_{b}/{c}", f"layer{s}.{b}.{c}")
             if b == 0:
                 convmod(f"layer{s}_{b}/downsample", f"layer{s}.{b}.downsample")
+
+
+def convert_cnn14(sd: Mapping, prefix: str = "") -> dict:
+    """PANN Cnn14's keys (``_walk_cnn14``) → CAVP's spec tower's flax
+    params and batch_stats. Keys the walk does not read are left alone,
+    as in a pretrained checkpoint's other heads."""
+    m = _Mapper(sd, prefix)
+    _walk_cnn14(m)
+    return {"params": m.tree, "batch_stats": m.stats}
+
+
+def convert_slowonly(sd: Mapping, prefix: str = "",
+                     stage_blocks=(3, 4, 6, 3)) -> dict:
+    """mmaction ResNet3dSlowOnly's keys (``_walk_slowonly``) → CAVP's
+    video tower's flax params and batch_stats; other keys are left
+    alone."""
+    m = _Mapper(sd, prefix)
+    _walk_slowonly(m, stage_blocks)
+    return {"params": m.tree, "batch_stats": m.stats}
+
+
+def merge_params(init_tree, loaded_tree, _path: str = ""):
+    """strict=False checkpoint semantics (ddpm.py:191-207): the loaded
+    value where its key exists and its shape matches, the initial one
+    otherwise. → (merged, missing, unexpected): the "/"-joined paths of
+    the initial leaves kept (absent or of another shape) and of the loaded
+    keys with no place, each in walk order."""
+    missing, unexpected = [], []
+
+    def walk(init, loaded, path):
+        if isinstance(init, Mapping):
+            loaded = loaded if isinstance(loaded, Mapping) else {}
+            out = {}
+            for k, v in init.items():
+                if k in loaded:
+                    out[k] = walk(v, loaded[k], f"{path}/{k}")
+                else:
+                    missing.append(f"{path}/{k}")
+                    out[k] = v
+            unexpected.extend(f"{path}/{k}" for k in loaded if k not in init)
+            return out
+        if loaded is None or np.shape(loaded) != np.shape(init) or \
+                isinstance(loaded, Mapping):
+            missing.append(path)
+            return init
+        return loaded
+
+    merged = walk(init_tree, loaded_tree, _path)
+    return merged, missing, unexpected
+
+
+def inflate_resnet50_to_slowonly(sd: Mapping, prefix: str = "",
+                                 stage_blocks=(3, 4, 6, 3)) -> dict:
+    """torchvision ResNet-50 (2-D) → SlowOnly-R50 (3-D) flax variables by
+    mmaction's weight inflation (audio_contrastive.py:706-766): each 2-D
+    kernel repeated along time to the 3-D kernel's t and divided by t;
+    BatchNorm copied. Temporal sizes: the stem 1, each block's conv1 1 in
+    stages 1-2 and 3 in stages 3-4, every conv2, conv3 and downsample
+    1. The classifier head (``fc``) is left alone."""
+    m = _Mapper(sd, prefix)
+
+    def inflate(my: str, key: str, t: int) -> None:
+        w = _np(m._get(f"{key}.weight"))   # (O, I, kh, kw)
+        w3 = np.repeat(w[:, :, None], t, axis=2) / float(t)
+        _set(m.tree, f"{my}/conv/kernel", w3.transpose(2, 3, 4, 1, 0))
+
+    inflate("conv1", "conv1", 1)
+    m.bn("conv1/bn", "bn1")
+    conv1_t = {1: 1, 2: 1, 3: 3, 4: 3}
+    for s, blocks in enumerate(stage_blocks, start=1):
+        for b in range(blocks):
+            my, key = f"layer{s}_{b}", f"layer{s}.{b}"
+            for j, t in ((1, conv1_t[s]), (2, 1), (3, 1)):
+                inflate(f"{my}/conv{j}", f"{key}.conv{j}", t)
+                m.bn(f"{my}/conv{j}/bn", f"{key}.bn{j}")
+            if b == 0:
+                inflate(f"{my}/downsample", f"{key}.downsample.0", 1)
+                m.bn(f"{my}/downsample/bn", f"{key}.downsample.1")
+    return {"params": m.tree, "batch_stats": m.stats}
+
+
+def init_cavp_pretrained_towers(cavp_variables: Mapping,
+                                slowonly_kinetics_sd: Mapping | None = None,
+                                cnn14_pann_sd: Mapping | None = None):
+    """CAVP's towers from pretrained checkpoints (model.py:557-573): a
+    Kinetics-400 SlowOnly state dict (``backbone.``-prefixed keys) and a
+    PANN Cnn14 one (a ``{"model": …}`` payload or the bare dict), each
+    converted and merged by ``merge_params`` into CAVPModel's flax
+    variables ``cavp_variables`` ({"params", "batch_stats"}, numpy).
+    → (merged variables, {"video" / "spec": (missing, unexpected)} of the
+    parameters); ``from_jax_params`` of the variables loads into
+    ``CAVPModel`` with ``strict=True``. The input is not modified."""
+    params = dict(cavp_variables["params"])
+    stats = dict(cavp_variables.get("batch_stats", {}))
+    report = {}
+    towers = []
+    if slowonly_kinetics_sd is not None:
+        sd = {k.removeprefix("backbone."): v
+              for k, v in slowonly_kinetics_sd.items()}
+        towers.append(("video", "video_encoder", convert_slowonly(sd)))
+    if cnn14_pann_sd is not None:
+        towers.append(("spec", "spec_encoder", convert_cnn14(
+            cnn14_pann_sd.get("model", cnn14_pann_sd))))
+    for tag, name, conv in towers:
+        params[name], missing, unexpected = merge_params(params[name],
+                                                         conv["params"])
+        stats[name], _, _ = merge_params(stats[name], conv["batch_stats"])
+        report[tag] = (missing, unexpected)
+    return {"params": params, "batch_stats": stats}, report
 
 
 def convert_cavp(sd: Mapping, stage_blocks=(3, 4, 6, 3)) -> dict:
@@ -710,6 +929,41 @@ def convert_cnn10(sd: Mapping, prefix: str = "") -> dict:
     m.dense("final_project", "final_project")
     m.check_used()
     return m.params()
+
+
+# torchvision vgg16.features' conv indices, and the end index of each of
+# its five slices
+_VGG_TORCH_CONV_IDX = (0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28)
+_VGG_SLICE_BOUNDS = (4, 9, 16, 23, 30)
+
+
+def _convert_perceptual(sd: Mapping, prefix: str) -> dict:
+    m = _Mapper(sd, prefix)
+    for i, t in enumerate(_VGG_TORCH_CONV_IDX):
+        s = next(k for k, bound in enumerate(_VGG_SLICE_BOUNDS, 1)
+                 if t < bound)
+        m.conv(f"net/conv{i}", f"net.slice{s}.{t}")
+    for k in range(5):
+        # the 1×1 conv head (1, C, 1, 1) → flax (1, 1, C, 1)
+        m.take(f"lin{k}/kernel", f"lin{k}.model.1.weight", _conv)
+    for leaf in ("shift", "scale"):
+        m.take(leaf, f"scaling_layer.{leaf}", lambda t: _np(t).reshape(-1))
+    m.check_used()
+    return m.params()
+
+
+def convert_lpips(sd: Mapping, prefix: str = "") -> dict:
+    """Reference LPIPS (taming/lpips.py:54: ``scaling_layer.{shift,scale}``
+    buffers, ``net.slice{1..5}.{idx}`` VGG16 convs, ``lin{0..4}.model.1``
+    heads) → flax params of ``train/perceptual.py::LPIPS``."""
+    return _convert_perceptual(sd, prefix)
+
+
+def convert_lpaps(sd: Mapping, prefix: str = "") -> dict:
+    """Reference LPAPS (adm/modules/losses/lpaps.py:21, the same layout with
+    per-frequency scaling statistics) → flax params of
+    ``train/perceptual.py::LPAPS``."""
+    return _convert_perceptual(sd, prefix)
 
 
 _LDM_PREFIXES = (("model.diffusion_model.", 0), ("first_stage_model.", 1),

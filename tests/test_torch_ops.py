@@ -353,9 +353,9 @@ def test_cuda_kernels_match_plain(kind, dtype):
 
 
 @pytest.mark.parametrize("d,ok", [(32, True), (40, True), (80, True),
-                                  (160, True), (64, False), (48, True),
+                                  (160, True), (64, True), (48, True),
                                   (96, True), (16, False), (20, False),
-                                  (512, False)])
+                                  (128, False), (512, False)])
 def test_kernel_wrappers_take_the_path_head_dims(d, ok):
     # the CUDA sources instantiate the path's head dims only
     heads = 2
@@ -471,6 +471,28 @@ def test_per_head_backward_scratch(dtype, lk, lds, mib):
     assert t.dtype == torch.float32 and t.dim() == 1
     assert t.numel() * 4 == 4 * 1024 * lds * (8 + 2 * dtype.itemsize)
     assert t.numel() * 4 / 2**20 == mib
+
+
+@pytest.mark.parametrize("lq,lk,dtype,fp64", [
+    (32, 1024, torch.float32, True), (33, 1024, torch.float32, False),
+    (1, 65, torch.float32, True), (1024, 7, torch.float32, True),
+    (1024, 8, torch.float32, False), (16, 16, torch.bfloat16, False)])
+def test_backward_over_few_queries_runs_in_fp64(lq, lk, dtype, fp64):
+    # fp32 over at most 32 queries (the AR encoder's 32 video tokens
+    # against 1024 latent keys, the prior's and the spec decoder's 16, the
+    # pool's one) or under 8 keys: S, dP, P and dS in fp64 (32 bytes an
+    # entry), else S and dP in fp32 and P̃, dS in the operand type
+    assert ha.fp64_backward(dtype, lq, lk) == fp64
+    t = ha.head_bwd_scratch(2, 8, lq, lk, dtype, "meta")
+    per = 32 if fp64 else 8 + 2 * dtype.itemsize
+    assert t.dtype == torch.float32
+    assert t.numel() * 4 == 2 * 8 * lq * ha.scratch_ld(lk) * per
+    # the rule's constants are the CUDA source's
+    src = (cuda_build.CSRC / "head_bwd.cuh").read_text()
+    assert re.search(r"constexpr int FEW_QUERIES = (\d+);", src).group(1) \
+        == str(ha._FEW_QUERIES)
+    assert re.search(r"constexpr int SHALLOW_K = (\d+);", src).group(1) \
+        == str(ha._SHALLOW_K)
 
 
 @pytest.mark.parametrize("d", [32, 40, 80, 160])

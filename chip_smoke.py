@@ -54,7 +54,7 @@
    (80 mels, 22.05 kHz) and back: shapes, range, the round trip's
    distance, seconds per file.
    Before each main-path run (3, 4, 5, 5's CLI run, 6, 7, 7b, 8 and its
-   SoundLogger calls, 9 and 10) the
+   SoundLogger calls, 9, 10 and 11c–11f) the
    launch counts are reset; read just after, they must equal what the model
    structure predicts, by kernel and operand dtype.
 6. Serving, ``BatchingEngine`` and ``FoleyServer``, at the same full width
@@ -171,6 +171,24 @@
     512: kernels 3 and 4 at L 4096, D 512), ``UpsampleDecoder`` and
     ``SimpleDecoder``, forward and the gradient of Σ out², twice each.
     Launches as predicted; outputs and gradients finite; seconds.
+11f. The last missing modules (PERF.md's columns q, k and m). Run q:
+    ``cli.profile.main(["--family", "all", "--time"])`` at batch 1 in fp32
+    (the UNet and the classifier over 40 context tokens, the VAE encode
+    and decode, CAVP), each family's parameters, flops, bytes, ms and
+    TFLOP/s, its counts equal to the same call's on ``meta``; CAVP
+    launches nothing. Run k: ``data.synthetic.write_ldm_data_dir`` writes a
+    small world that ``SpecFeatDataset`` reads, the frozen SD VAE's
+    posterior moments and the features resident on the card, and
+    ``train.scan.scan_train`` runs 4 classifier steps at
+    ``CLASSIFIER_BACKBONE`` fp32 batch 32 through an ``index_fn`` gather
+    under ``torch.cuda.set_sync_debug_mode("error")``, against 4 sequential
+    ``train_step`` calls from the same state and draws; per-step ms of
+    both. Run m: one stage-2 step of ``LDM_UNET`` in bf16 on fp32 masters
+    at batch 16 with dropout 0.1, its gradients without block recompute
+    and under ``remat_policy`` "none", "dots" and "dots_no_batch" (the
+    same draws; bit for bit, peak memory each), then the model through
+    ``export_ldm_state_dict``, ``split_ldm_state_dict`` and the port's
+    converters into a fresh model, strict, bit for bit.
 12. Agreement: tiny ``generate``, ``inpaint``, ``DiffFoley.extract_features``
    plus ``generate_from_features``, two tiny VAE train steps, one tiny
    stage-2 train step, one tiny classifier train step (D 32, 40 keys) and
@@ -239,13 +257,16 @@ from diff_foley_tpu_torch.audio.transforms import mel_to_wav
 from diff_foley_tpu_torch.cli import align_acc as align_acc_cli
 from diff_foley_tpu_torch.cli import extract_features as extract_features_cli
 from diff_foley_tpu_torch.cli import generate as generate_cli
+from diff_foley_tpu_torch.cli import profile as profile_cli
 from diff_foley_tpu_torch.cli import train_cavp as train_cavp_cli
 from diff_foley_tpu_torch.cli import train_classifier as train_classifier_cli
 from diff_foley_tpu_torch.cli import train_sound_vae as train_sound_vae_cli
 from diff_foley_tpu_torch.cli import train_stage2 as train_stage2_cli
 from diff_foley_tpu_torch.cli import train_vae as train_vae_cli
 from diff_foley_tpu_torch.cli import transform_spec as transform_spec_cli
-from diff_foley_tpu_torch.data.ldm_dataset import SpecDataset, SpecFeatDataset
+from diff_foley_tpu_torch.data import synthetic
+from diff_foley_tpu_torch.data.ldm_dataset import (LDMDataConfig, SpecDataset,
+                                                   SpecFeatDataset)
 from diff_foley_tpu_torch.data.loader import DevicePrefetcher, PrefetchLoader
 from diff_foley_tpu_torch.diffusion import samplers as sampler_lib
 from diff_foley_tpu_torch.diffusion.guidance import (GuidanceSpec,
@@ -310,6 +331,7 @@ from diff_foley_tpu_torch.train.stage2_decode import (DecodeConfig,
                                                       DecoderWrapper,
                                                       GANDecoderWrapper,
                                                       _adam)
+from diff_foley_tpu_torch.train.scan import scan_train
 from diff_foley_tpu_torch.train.stage2_ldm import (Stage2TrainConfig,
                                                    Stage2Trainer,
                                                    init_ldm_weights_)
@@ -319,6 +341,11 @@ from diff_foley_tpu_torch.utils import checkpoint as checkpoint_module
 from diff_foley_tpu_torch.utils.checkpoint import (load_native_cavp,
                                                    load_native_ldm,
                                                    load_native_sound_vae)
+from diff_foley_tpu_torch.utils.convert import (convert_cond_encoder,
+                                                convert_unet, convert_vae,
+                                                export_ldm_state_dict,
+                                                from_jax_params,
+                                                split_ldm_state_dict)
 from diff_foley_tpu_torch.utils.ema import ema_update
 from diff_foley_tpu_torch.utils.init import randomize_
 from diff_foley_tpu_torch.utils.padding import pad_axis0
@@ -429,6 +456,27 @@ FIRST_STAGES = (
     ("upsample", lambda: UpsampleDecoder(512, 3, 128, 2, (2, 2)),
      (FS_BATCH, *LATENT_HW, 512)),
     ("simple", lambda: SimpleDecoder(128, 3), (FS_BATCH, 32, 128, 128)))
+# cli.profile on the card (run "profile", column q): every family at batch
+# Q_BATCH in fp32, the UNet's and the classifier's cross-attention over the
+# JAX profiler's 40 tokens; each line's forward runs once under
+# cost_analysis, once warm and TIME_ITERS times timed
+Q_BATCH, Q_TOKENS = 1, 40
+Q_CALLS = 2 + profile_cli.TIME_ITERS
+# train/scan.py (run "scan", column k): the classifier's trainer at
+# CLASSIFIER_BACKBONE in fp32 at the CLI's batch over data/synthetic.py's
+# SC_ITEMS items (the frozen SD VAE's posterior moments and the features
+# resident on the card, gathered by an index_fn): SC_K scanned steps and
+# SC_K sequential steps from the same state and draws, with cuDNN
+# deterministic and then with its defaults, then four timed loops of SC_K
+# steps (SC_STEPS in all)
+SC_BATCH, SC_K, SC_ITEMS = C_BATCH, 4, 64
+SC_STEPS = 8 * SC_K
+# stage 2 with dropout and block recompute (run "dropout_remat", column m):
+# LDM_UNET in bf16 on fp32 masters at stage 2's batch and tokens, dropout
+# DR_RATE, the gradients of one step without the recompute and under each
+# of DR_POLICIES (the same draws), then AdamW once
+DR_RATE, DR_POLICIES = 0.1, ("none", "dots", "dots_no_batch")
+DR_CALLS = 1 + len(DR_POLICIES)
 # the stage-2 CLI's SoundLogger: every SL_EVERY steps of the main-path
 # call (SL_CALLS calls), SL_N items (the UNet at the CFG batch 2·SL_N,
 # the VAE encoder once and the decoder twice at SL_N), the JAX logger's
@@ -442,13 +490,14 @@ SV_WINDOW, SV_BATCH, SV_STEPS = 65536, 8, 6
 # the sampler library (``sampler_phase``): 1 window × SP_SAMPLES samples
 # (the UNet at the CFG batch 4, the classifier gradient at 2, bf16), CFG
 # 4.5 and classifier guidance 50; the DPM-Solver and DDIM calls take
-# SP_STEPS steps, PLMS 25, the ancestral chains SP_CHAIN timesteps; img2img
+# SP_STEPS steps (cut to fit the smoke's time limit), PLMS
+# 25, the ancestral chains SP_CHAIN timesteps; img2img
 # enters a 25-step DDIM run at index 12. The tiled calls run on a
 # TILED_CANVAS latent: the decode at the JAX defaults (ks 16×16, stride
 # 8×8, vqf 8: 15 tiles of 128×128 pixels a sample, TILED_TILES·2 rows in
 # one decoder call), the UNet at ks (16, 64), stride (16, 32) (3 tiles
 # at the trained window)
-SP_SAMPLES, SP_STEPS, SP_CHAIN, SP_PLMS = 2, 10, 25, 25
+SP_SAMPLES, SP_STEPS, SP_CHAIN, SP_PLMS = 2, 6, 25, 25
 SP_IMG2IMG = (25, 12)
 TILED_CANVAS, TILED_TILES = (16, 128), 15
 # the phase's work in the units its launches scale with: guided model
@@ -537,7 +586,8 @@ SYMBOLS = {"fwd": ("attn_packed_fwd",), "bwd": ("head_bwd_",),
 RUNS = ("generate", "inpaint", "train_vae", "video", "train_stage2",
         "train_classifier", "align_acc", "serve", "sound_log",
         "train_sound_vae", "samplers", "decode", "audio_unet", "prior",
-        "encoder_unet", "other_cond", "first_stages")
+        "encoder_unet", "other_cond", "first_stages", "profile", "scan",
+        "dropout_remat")
 
 
 def calls(generate: int = 0, inpaint: int = 0, train_vae: int = 0,
@@ -546,7 +596,8 @@ def calls(generate: int = 0, inpaint: int = 0, train_vae: int = 0,
           train_sound_vae: int = 0, samplers: int = 0,
           decode: int = 0, audio_unet: int = 0, prior: int = 0,
           encoder_unet: int = 0, other_cond: int = 0,
-          first_stages: int = 0) -> dict:
+          first_stages: int = 0, profile: int = 0, scan: int = 0,
+          dropout_remat: int = 0) -> dict:
     """Calls of one kernel shape in each main-path run."""
     return {"generate": generate, "inpaint": inpaint, "train_vae": train_vae,
             "video": video, "train_stage2": train_stage2,
@@ -555,7 +606,8 @@ def calls(generate: int = 0, inpaint: int = 0, train_vae: int = 0,
             "train_sound_vae": train_sound_vae, "samplers": samplers,
             "decode": decode, "audio_unet": audio_unet, "prior": prior,
             "encoder_unet": encoder_unet, "other_cond": other_cond,
-            "first_stages": first_stages}
+            "first_stages": first_stages, "profile": profile, "scan": scan,
+            "dropout_remat": dropout_remat}
 
 
 class Units(dict):
@@ -860,7 +912,11 @@ def gn_path(pipe, n: int, steps: int, sp=None):
     the decoder on 16×16 tiles at TILED_TILES·SP_SAMPLES rows, the
     ancestral inpaint the encoder at one window and the decoder at
     SP_SAMPLES, and cli.generate the video run's models, all bf16 but the
-    video run's classifier."""
+    video run's classifier. Run k's (``scan``) steps are the classifier
+    trainer's at its batch on posterior moments (no encode); run m's
+    (``dropout_remat``) gradient calls run the UNet's forward at stage 2's
+    batch, once each (the recomputed blocks hold no GroupNorm32). Run q's
+    fp32 norms are ``profile_gn_sites``'."""
     vae = pipe.ldm.vae
     sp = sp_units(**(sp or {}))
     models = (("unet", pipe.ldm.unet, LATENT_HW, 2 * n, BF16,
@@ -876,11 +932,11 @@ def gn_path(pipe, n: int, steps: int, sp=None):
               ("train-dec", vae.decoder, LATENT_HW, TRAIN_BATCH, FP32,
                calls(train_vae=TRAIN_STEPS)),
               ("s2-unet", pipe.ldm.unet, LATENT_HW, S2_BATCH, BF16,
-               calls(train_stage2=S2_FORWARDS)),
+               calls(train_stage2=S2_FORWARDS, dropout_remat=DR_CALLS)),
               ("s2-enc", vae.encoder, SPEC_HW, S2_BATCH, BF16,
                calls(train_stage2=S2_FORWARDS)),
               ("c-clf", pipe.classifier, LATENT_HW, C_BATCH, FP32,
-               calls(train_classifier=C_STEPS)),
+               calls(train_classifier=C_STEPS, scan=SC_STEPS)),
               ("c-enc", vae.encoder, SPEC_HW, C_BATCH, FP32,
                calls(train_classifier=C_STEPS)),
               ("a-clf", pipe.classifier, LATENT_HW, AA_BATCH, FP32,
@@ -987,6 +1043,23 @@ def predicted_launches(pipe, steps: int, sp=None):
         for k in gn_kernels(c, h, w, dtype.itemsize):
             for run in RUNS:
                 pred[run][f"{k}/{str(dtype).split('.')[-1]}"] += per_run[run]
+    # cli.profile (fp32): the UNet's and the classifier's attention forward
+    # and the VAE's mid attention in the encode and the decode, Q_CALLS
+    # times each; run k: the classifier trainer's steps; run m: the UNet's
+    # attention forward in each gradient call and again in the backward
+    # of each policy's recomputed blocks, its backward in each call
+    q = pred["profile"]
+    q["attn_packed_fwd/float32"] = Q_CALLS * (unet + clf)
+    q["attn_fwd/float32"] = 2 * Q_CALLS
+    for (c, h, w, _, _), n in profile_gn_sites(pipe).items():
+        for k in gn_kernels(c, h, w, 4):
+            q[f"{k}/float32"] += n
+    k_run = pred["scan"]
+    k_run["attn_packed_fwd/float32"] = SC_STEPS * clf
+    k_run["attn_packed_bwd/float32"] = SC_STEPS * clf
+    m = pred["dropout_remat"]
+    m["attn_packed_fwd/bfloat16"] = (DR_CALLS + len(DR_POLICIES)) * unet
+    m["attn_packed_bwd/bfloat16"] = DR_CALLS * unet
     pred["decode"].update(decode_launches())
     for run, c in other_launches().items():
         pred[run].update(c)
@@ -994,6 +1067,21 @@ def predicted_launches(pipe, steps: int, sp=None):
         pred[run].update(c)
     return {run: {k: n for k, n in sorted(c.items()) if n}
             for run, c in pred.items()}
+
+
+def profile_gn_sites(pipe) -> collections.Counter:
+    """{(channels, h, w, eps, act): calls} of run q's GroupNorm32 calls, all
+    fp32 at Q_BATCH: the UNet and the classifier over the latent, the VAE
+    encoder over the mel image and the decoder over the latent, each
+    forward Q_CALLS times (the models the pipeline holds have cli.profile's
+    structure)."""
+    out = collections.Counter()
+    for model, hw in ((pipe.ldm.unet, LATENT_HW), (pipe.classifier, LATENT_HW),
+                      (pipe.ldm.vae.encoder, SPEC_HW),
+                      (pipe.ldm.vae.decoder, LATENT_HW)):
+        for site in gn_sites(model, hw):
+            out[site] += Q_CALLS
+    return out
 
 
 def decode_launches() -> collections.Counter:
@@ -1775,6 +1863,33 @@ def other_rows(gen) -> list:
     return rows
 
 
+def profile_rows(pipe, gen) -> list:
+    """The kernel rows of run q (cli.profile, fp32 at Q_BATCH), each
+    credited Q_CALLS calls a forward: the UNet's and the classifier's
+    packed attention forward, self and over Q_TOKENS context tokens (a
+    ragged key tile of 40), the VAE's mid attention (L 1024, D 512) in the
+    encode and the decode, and every GroupNorm32 map of the four
+    forwards."""
+    rows = []
+    for tag, b, lq, lk, hd, heads, per in (
+            attention_sites("q-unet", LDM_UNET, Q_BATCH, Q_TOKENS, True)
+            + attention_sites("q-clf", CLASSIFIER_BACKBONE, Q_BATCH,
+                              Q_TOKENS, False)):
+        rows.append(("attn_packed_fwd", {**check_packed(
+            "fwd", tag, b, lq, lk, hd, heads, FP32, gen),
+            "calls": calls(profile=Q_CALLS * per)}))
+    d = SD_VAE.ch * SD_VAE.ch_mult[-1]
+    l = LATENT_HW[0] * LATENT_HW[1]
+    rows.append(("attn_fwd", {**check_head("q-vae-mid", Q_BATCH, l, l, d,
+                                           FP32, gen),
+                              "calls": calls(profile=2 * Q_CALLS)}))
+    for (c, h, w, eps, act), n in profile_gn_sites(pipe).items():
+        for name, r in check_gn(f"q-{c}x{h}x{w}", Q_BATCH, c, h, w, eps, act,
+                                FP32, gen):
+            rows.append((name, {**r, "calls": calls(profile=n)}))
+    return rows
+
+
 def check_gn(tag, b, c, h, w, eps, act, dtype, gen):
     """The GroupNorm kernels one call at this map launches: the block
     kernel, or the stats and apply pair (one row each)."""
@@ -2002,14 +2117,18 @@ def kernel_phase(pipe, sp):
     # stage-2 training: the UNet's attention at the train batch in bf16,
     # forward in every train and validation forward, backward in each
     # train step; the frozen encoder's mid attention once a forward
+    # (run m's gradient calls: the same shapes, the forward again in the
+    # backward of each policy's recomputed blocks)
     for tag, b, lq, lk, hd, heads, per in attention_sites(
             "s2-unet", LDM_UNET, S2_BATCH, S2_TOKENS, True):
         rows.append(("attn_packed_fwd", {**check_packed(
             "fwd", tag, b, lq, lk, hd, heads, BF16, gen),
-            "calls": calls(train_stage2=S2_FORWARDS * per)}))
+            "calls": calls(train_stage2=S2_FORWARDS * per, dropout_remat=(
+                DR_CALLS + len(DR_POLICIES)) * per)}))
         rows.append(("attn_packed_bwd", {**check_packed(
             "bwd", tag, b, lq, lk, hd, heads, BF16, gen),
-            "calls": calls(train_stage2=S2_STEPS * per)}))
+            "calls": calls(train_stage2=S2_STEPS * per,
+                           dropout_remat=DR_CALLS * per)}))
     rows.append(("attn_fwd", {**check_head("s2-enc-mid", S2_BATCH, l, l, d,
                                            BF16, gen),
                               "calls": calls(train_stage2=S2_FORWARDS)}))
@@ -2017,13 +2136,15 @@ def kernel_phase(pipe, sp):
     # the crops' 32 tokens; align-acc: fp32 forward at batch 64 over 40
     # tokens (a ragged last key tile), and the backward held there too at
     # the trainer's batch. The frozen encoder's mid attention at both.
+    # (run k's scanned and sequential steps: the same shapes)
     for tag, b, lq, lk, hd, heads, per in attention_sites(
             "c-clf", CLASSIFIER_BACKBONE, C_BATCH, S2_TOKENS, False):
         for kind, name in (("fwd", "attn_packed_fwd"),
                            ("bwd", "attn_packed_bwd")):
             rows.append((name, {**check_packed(
                 kind, tag, b, lq, lk, hd, heads, FP32, gen),
-                "calls": calls(train_classifier=C_STEPS * per)}))
+                "calls": calls(train_classifier=C_STEPS * per,
+                               scan=SC_STEPS * per)}))
     for tag, b, lq, lk, hd, heads, per in attention_sites(
             "a-clf", CLASSIFIER_BACKBONE, AA_BATCH, AA_TOKENS, False):
         rows.append(("attn_packed_fwd", {**check_packed(
@@ -2050,6 +2171,9 @@ def kernel_phase(pipe, sp):
     torch.cuda.empty_cache()
     # runs o and f, from a generator of their own
     rows += other_rows(torch.Generator("cuda").manual_seed(17))
+    torch.cuda.empty_cache()
+    # run q, from a generator of its own
+    rows += profile_rows(pipe, torch.Generator("cuda").manual_seed(18))
     torch.cuda.empty_cache()
     # the block kernel's branch-free SiLU division, bit for bit __fdiv_rn's
     # over every fp32 input in its range (the rest go through __fdiv_rn)
@@ -4578,6 +4702,320 @@ def first_stages_phase(expect: dict):
     return launches, times
 
 
+def profile_phase(expect: dict):
+    """Run q: ``cli.profile.main(["--family", "all", "--time"])`` on the card
+    at batch Q_BATCH (fp32, each family's construction weights), the launch
+    counts reset before and read after the call; then the same call on
+    ``meta``, whose counts (parameters, flops, bytes, transcendentals) must
+    equal the card's, family by family: the kernels count by formula on
+    both. CAVP launches no kernel of the port."""
+    args = ["--family", "all", "--batch", str(Q_BATCH)]
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    card = profile_cli.main(args + ["--time"])
+    torch.cuda.synchronize()
+    call_s = time.perf_counter() - t0
+    launches = read_counts()
+    meta = profile_cli.main(args + ["--device", "meta"])
+    keys = ("params", "flops", "bytes_accessed", "transcendentals")
+    off = {name: {k: (r[k], meta[name][k]) for k in keys
+                  if r[k] != meta[name][k]} for name, r in card.items()}
+    off = {name: v for name, v in off.items() if v}
+    times = {name: {"params": r["params"], "gflops": r["flops"] / 1e9,
+                    "mbytes": r["bytes_accessed"] / 1e6,
+                    "transcendentals": r["transcendentals"],
+                    "ms": r["seconds"] * 1e3,
+                    "tflops_per_second": r["tflops_per_second"]}
+             for name, r in card.items()}
+    log(f"profile cli.profile --family all --batch {Q_BATCH} --time on the "
+        f"card, {call_s:.3f} s: {json.dumps(times)}; counts on meta equal "
+        f"the card's: {not off}")
+    if list(card) != ["unet", "vae.encode", "vae.decode", "classifier",
+                      "cavp"] or off:
+        raise AssertionError(f"cli.profile lines {list(card)}; counts that "
+                             f"differ from meta's {off}")
+    check_launches("profile", launches, expect)
+    return launches, {**times, "call_s": call_s}
+
+
+def scan_without_waits(step_fn, state, plan, gen, index_fn):
+    """``scan_train`` under ``torch.cuda.set_sync_debug_mode("error")``: a
+    wait for the card inside the K steps raises."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return scan_train(step_fn, state, plan, gen, index_fn=index_fn)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def scan_phase(expect: dict, root: str):
+    """Run k: ``data.synthetic.write_ldm_data_dir`` writes SC_ITEMS items
+    (512 spec frames, S2_TOKENS features of 512) under ``root``; the port's
+    ``SpecFeatDataset`` reads them (no mixing), the frozen SD VAE (fp32,
+    seeded random weights) encodes every spec once, and the posterior
+    moments and the features stay resident on the card. Two classifier
+    trainers at CLASSIFIER_BACKBONE (fp32, the same seeded random weights)
+    take SC_K steps at batch SC_BATCH, planned as scripts/quality_gate.py
+    plans them (random items, random labels, a random other item's
+    features for a negative) and gathered on the card by an ``index_fn``:
+    trainer A through ``scan_train`` under the sync debug mode "error",
+    trainer B as SC_K sequential ``train_step`` calls that read each step's
+    loss, both from generators of one seed; twice. First with cuDNN
+    deterministic: metrics and parameters equal bit for bit (the port's
+    kernels use no atomics). Then with cuDNN's defaults, as the CLIs run
+    (its convolution backward may sum in another order from call to
+    call): bit for bit, or the metrics within 1e-5 and the parameters
+    within ``leaf_agreement``'s step rule. Then per-step ms of each loop,
+    SC_K steps at a time, timed in turns (sequential, scan, scan,
+    sequential). The launch counts are reset before the first step and
+    read after the last."""
+    data = os.path.join(root, "scan-data")
+    t0 = time.perf_counter()
+    synthetic.write_ldm_data_dir(data, n_train=SC_ITEMS, n_test=2,
+                                 spec_frames=512, feat_len=S2_TOKENS,
+                                 seed=90)
+    ds = SpecFeatDataset.from_split_file(data, "train",
+                                         LDMDataConfig(mix_prob=0.0))
+    items = [ds[i] for i in range(SC_ITEMS)]
+    write_s = time.perf_counter() - t0
+    vae = AutoencoderKL()
+    init_weights_(vae.to("cuda"), torch.Generator("cuda").manual_seed(91))
+    spec = torch.as_tensor(np.stack([it["spec"] for it in items]),
+                           device="cuda")
+    feat = torch.as_tensor(np.stack([it["video_feat"] for it in items]),
+                           device="cuda")
+    with torch.no_grad():
+        posts = [vae.eval().encode(spec[i:i + 8])
+                 for i in range(0, SC_ITEMS, 8)]
+    mu = torch.cat([p.mean for p in posts])
+    sigma = torch.cat([p.std for p in posts])
+    del posts, spec
+    rng = np.random.default_rng(92)
+
+    def plan(k: int) -> dict:
+        spec_idx = rng.integers(0, SC_ITEMS, (k, SC_BATCH))
+        labels = rng.integers(0, 2, (k, SC_BATCH))
+        swap = rng.integers(0, SC_ITEMS, (k, SC_BATCH))
+        swap = np.where(swap == spec_idx, (swap + 1) % SC_ITEMS, swap)
+        feat_idx = np.where(labels == 1, spec_idx, swap)
+        return {k_: torch.as_tensor(v, device="cuda") for k_, v in (
+            ("spec_idx", spec_idx), ("feat_idx", feat_idx),
+            ("labels", labels))}
+
+    def index_fn(xs, step):
+        return {"z_mu": mu[xs["spec_idx"]], "z_sigma": sigma[xs["spec_idx"]],
+                "video_feat": feat[xs["feat_idx"]], "labels": xs["labels"]}
+
+    def trainer_state():
+        trainer = ClassifierTrainer(vae=vae)
+        randomize_(trainer.model, 93)
+        return trainer, trainer.init_train_state(None, "cuda")
+
+    (ta, sa), (tb, sb) = trainer_state(), trainer_state()
+    deterministic = torch.backends.cudnn.deterministic
+    passes = {}
+    torch.cuda.synchronize()
+    reset_counts()
+    for seed, (mode, det) in enumerate((("cudnn_deterministic", True),
+                                        ("cudnn_default", False)), 94):
+        steps = plan(SC_K)
+        torch.backends.cudnn.deterministic = det
+        try:
+            t0 = time.perf_counter()
+            _, m_scan = scan_without_waits(
+                ta.train_step, sa, steps,
+                torch.Generator("cuda").manual_seed(seed), index_fn)
+            torch.cuda.synchronize()
+            scan_s = time.perf_counter() - t0
+            gen_b = torch.Generator("cuda").manual_seed(seed)
+            t0 = time.perf_counter()
+            seq, losses = [], []
+            for i in range(SC_K):
+                seq.append(tb.train_step(sb, index_fn(
+                    {k: v[i] for k, v in steps.items()}, sb.step), gen_b))
+                losses.append(float(seq[-1]["bce_loss"]))
+            seq_s = time.perf_counter() - t0
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        m_seq = {k: torch.stack([m[k] for m in seq]) for k in m_scan}
+        exact = all(torch.equal(m_scan[k], m_seq[k]) for k in m_scan) and \
+            all(torch.equal(sa.params[k], sb.params[k]) for k in sa.params)
+        held = "bit for bit"
+        if not exact:
+            if det:
+                raise AssertionError("with cuDNN deterministic the scanned "
+                                     "steps differ from the sequential ones")
+            gap = max(float((m_scan[k] - m_seq[k]).abs().max())
+                      for k in m_scan)
+            leaves = leaf_agreement(
+                {k: p.detach() for k, p in sa.params.items()},
+                {k: p.detach() for k, p in sb.params.items()}, set(),
+                ta.cfg.lr, SC_K, 1e-6)
+            held = (f"metrics within {gap:.3e} (limit 1e-5); leaf_agreement "
+                    f"(elements off, compared, rms/(steps·lr), nearest) "
+                    f"{list(leaves)}")
+            if not gap <= 1e-5:
+                raise AssertionError(f"scanned metrics off the sequential "
+                                     f"by {gap}")
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"scan losses {losses}")
+        passes[mode] = {"scan_ms_per_step": scan_s / SC_K * 1e3,
+                        "sequential_ms_per_step": seq_s / SC_K * 1e3,
+                        "held": held, "bce": losses}
+    # timed in turns (sequential, scan, scan, sequential), cuDNN's
+    # defaults: each loop's first steps after the checks above pay for
+    # their own warm-up
+    per_step = {"scan": [], "sequential": []}
+    for seed, kind in enumerate(("sequential", "scan", "scan",
+                                 "sequential"), 96):
+        steps, gen = plan(SC_K), torch.Generator("cuda").manual_seed(seed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if kind == "scan":
+            _, m = scan_train(ta.train_step, sa, steps, gen,
+                              index_fn=index_fn)
+            float(m["bce_loss"][-1])
+        else:
+            for i in range(SC_K):
+                float(tb.train_step(sb, index_fn(
+                    {k: v[i] for k, v in steps.items()}, sb.step),
+                    gen)["bce_loss"])
+        per_step[kind].append((time.perf_counter() - t0) / SC_K * 1e3)
+    launches = read_counts()
+    times = {"write_and_load_s": write_s, **passes,
+             "timed_in_turns_ms_per_step": per_step}
+    log(f"scan CLASSIFIER_BACKBONE fp32 batch {SC_BATCH}, {SC_K} steps "
+        f"scanned (no wait for the card inside them) against {SC_K} "
+        f"sequential (a loss read a step) over {SC_ITEMS} synthetic items "
+        f"resident on the card, twice: {json.dumps(times)}")
+    check_launches("scan", launches, expect)
+    del ta, tb, sa, sb, vae, mu, sigma, feat
+    torch.cuda.empty_cache()
+    return launches, times
+
+
+def dropout_remat_phase(expect: dict):
+    """Run m: LDM_UNET with dropout DR_RATE and block recompute, built on
+    the card with seeded lecun-normal weights (no zero-init layer, so every
+    block's gradient is live), under ``Stage2Trainer`` in bf16 on fp32
+    masters, on a seeded batch of S2_BATCH posterior moments and
+    S2_TOKENS-token features. The gradients of one step, with the same
+    draws (t, noise, the CFG keep mask and the dropout masks from one seed),
+    without the recompute and then under each of DR_POLICIES; cuDNN
+    deterministic for the run. Each policy's gradients must equal the
+    others' and the unrecomputed ones bit for bit (the dropout masks drawn
+    again in the recompute). Each call's peak memory, absolute and over
+    what was held before it. Then AdamW once, and
+    the model exported with ``export_ldm_state_dict``, split back with
+    ``split_ldm_state_dict`` and loaded through the port's converters into
+    a fresh LatentDiffusion with strict=True: every tensor bit for bit the
+    exported one's."""
+    gen = torch.Generator("cuda").manual_seed(96)
+    cfg = dataclasses.replace(LDM_UNET, dropout=DR_RATE, use_checkpoint=True)
+    with torch.device("cuda"):
+        ldm = LatentDiffusion(LDMConfig(unet=cfg))
+    init_weights_(ldm, gen)
+    with torch.no_grad():
+        ldm.cond.pos_emb.normal_(generator=gen)
+    trainer = Stage2Trainer(ldm, Stage2TrainConfig(
+        base_lr=S2_LR, warmup_steps=1, compute_dtype="bfloat16"))
+    state = trainer.init_train_state(None, "cuda")
+    rng = np.random.default_rng(97)
+    batch = {"z_mu": rng.standard_normal((S2_BATCH, *LATENT_HW, 4)),
+             "z_sigma": rng.uniform(0.1, 0.5, (S2_BATCH, *LATENT_HW, 4)),
+             "video_feat": rng.standard_normal((S2_BATCH, S2_TOKENS, 512))}
+    batch = {k: torch.as_tensor(v, dtype=FP32, device="cuda")
+             for k, v in batch.items()}
+    blocks = [m for m in ldm.unet.modules()
+              if isinstance(m, SpatialTransformer)]
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    grads, stats = {}, {}
+    torch.cuda.synchronize()
+    reset_counts()
+    try:
+        for policy in ("off",) + DR_POLICIES:
+            for m in blocks:
+                m.checkpoint = policy != "off"
+                m.remat_policy = "none" if policy == "off" else policy
+            for p in trainer.full.values():
+                p.grad = None
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            held_before = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            metrics = trainer.gradients(
+                state, batch, torch.Generator("cuda").manual_seed(98))
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            # the call's own peak: over what was held before it (the
+            # state, and the reference gradients kept for the comparison)
+            stats[policy] = {
+                "s": time.perf_counter() - t0,
+                "peak_mem_GiB": peak / 2**30,
+                "call_peak_GiB": (peak - held_before) / 2**30,
+                "loss": float(metrics["loss"])}
+            mine = {k: p.grad for k, p in trainer.full.items()}
+            if policy in ("off", "none"):
+                grads[policy] = {k: g.clone() for k, g in mine.items()}
+            for ref in [r for r in ("off", "none") if r != policy]:
+                if ref not in grads:
+                    continue
+                same = sum(torch.equal(mine[k], g)
+                           for k, g in grads[ref].items())
+                stats[policy][f"leaves_equal_to_{ref}"] = same
+                if same != len(mine):
+                    worst = max((float((mine[k] - g).abs().max()) / max(
+                        _rms(g), 1e-30), k) for k, g in grads[ref].items())
+                    raise AssertionError(
+                        f"dropout_remat {policy}: {len(mine) - same} "
+                        f"gradient leaves differ from {ref}'s; worst max|Δ|"
+                        f"/rms {worst}")
+        trainer.apply_gradients(state)
+        state.step += 1
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    torch.cuda.synchronize()
+    launches = read_counts()
+    del grads
+    log(f"dropout_remat LDM_UNET bf16 on fp32 masters, dropout {DR_RATE}, "
+        f"batch {S2_BATCH}: {len(trainer.full)} gradient leaves equal bit for "
+        f"bit without the recompute and under each policy; "
+        f"{json.dumps(stats)}")
+    check_launches("dropout_remat", launches, expect)
+    # the export round trip of the stepped model
+    t0 = time.perf_counter()
+    sd = export_ldm_state_dict(state.params, ldm.vae, LDM_UNET, SD_VAE)
+    u, v, c = split_ldm_state_dict(sd)
+    with torch.device("cuda"):
+        fresh = LatentDiffusion(LDMConfig())
+    fresh.unet.load_state_dict(from_jax_params(convert_unet(u, LDM_UNET)),
+                               strict=True)
+    fresh.cond.load_state_dict(from_jax_params(convert_cond_encoder(c)),
+                               strict=True)
+    fresh.vae.load_state_dict(from_jax_params(convert_vae(v, SD_VAE)),
+                              strict=True)
+    theirs = {**{f"unet.{k}": t for k, t in ldm.unet.state_dict().items()},
+              **{f"cond.{k}": t for k, t in ldm.cond.state_dict().items()},
+              **{f"vae.{k}": t for k, t in ldm.vae.state_dict().items()}}
+    theirs.update({k: p.detach() for k, p in state.params.items()})
+    ours = {k: t for k, t in fresh.state_dict().items()
+            if k.startswith(("unet.", "cond.", "vae."))}
+    off = [k for k, t in ours.items()
+           if not torch.equal(t, theirs[k].to(t.dtype))]
+    export_s = time.perf_counter() - t0
+    log(f"dropout_remat export_ldm_state_dict → split_ldm_state_dict → "
+        f"convert_* → strict load: {len(sd)} reference keys, {len(ours)} "
+        f"tensors, {len(off)} differ, {export_s:.3f} s")
+    if off or set(ours) != set(theirs):
+        raise AssertionError(f"export round trip: {off[:5]} differ")
+    del ldm, fresh, trainer, state, sd, u, v, c
+    torch.cuda.empty_cache()
+    return launches, {**stats, "export_roundtrip_s": export_s}
+
+
 def native_compose_phase(clip: str, ldm_logdir: str, cavp_logdir: str,
                          clf_logdir: str):
     """``DiffFoley.from_native_checkpoints`` over the port's own three
@@ -6100,7 +6538,10 @@ def main(argv):
                            ("prior", prior_phase),
                            ("encoder_unet", encoder_unet_phase),
                            ("other_cond", other_cond_phase),
-                           ("first_stages", first_stages_phase)):
+                           ("first_stages", first_stages_phase),
+                           ("profile", profile_phase),
+                           ("scan", lambda e: scan_phase(e, root)),
+                           ("dropout_remat", dropout_remat_phase)):
             t0 = time.perf_counter()
             launches[run], times = phase(expect[run])
             times["phase_s"] = time.perf_counter() - t0

@@ -142,6 +142,7 @@ def main(argv=None):
     from ..train.stage2_ldm import Stage2TrainConfig, Stage2Trainer
     from ..utils.checkpoint import latest_checkpoint, save_checkpoint
     from ..utils.logging import MetricsLogger, Stopwatch
+    from ..utils.profiling import count_params
     from ..utils.resilience import PreemptionCheckpointer
 
     device, mesh, rank, world = setup(args.device)
@@ -195,7 +196,8 @@ def main(argv=None):
                  and args.mixed_precision else None)
     trainer = Stage2Trainer(ldm, tcfg, mesh=mesh, fsdp=args.fsdp)
     state = trainer.init_train_state(args.seed, device)
-    n_params = sum(p.numel() for p in trainer.full.values())
+    n_params = count_params(trainer.full, verbose=True,
+                            name="LatentDiffusion")
     print(f"LatentDiffusion: {n_params} trained parameters on {device}, "
           f"rank {rank} of {world}")
     if args.fsdp:

@@ -159,9 +159,6 @@ def _build_vae_cfg(**p):
     from .models.vae import VAEConfig
 
     dd = p.get("ddconfig", {})
-    if dd.get("dropout", 0.0) > 0:
-        raise NotImplementedError(
-            f"VAE dropout {dd['dropout']}: the port runs the shipped rate 0")
     return VAEConfig(
         in_channels=dd.get("in_channels", 3),
         out_channels=dd.get("out_ch", 3),
@@ -171,6 +168,7 @@ def _build_vae_cfg(**p):
         z_channels=dd.get("z_channels", 4),
         embed_dim=p.get("embed_dim", 4),
         double_z=dd.get("double_z", True),
+        dropout=dd.get("dropout", 0.0),
     )
 
 

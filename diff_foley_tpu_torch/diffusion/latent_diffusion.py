@@ -17,6 +17,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..models.cond_encoder import VideoFeatEncoderPosembed
+from ..models.layers import dropout_draws
 from ..models.unet import LDM_UNET, UNetConfig, UNetModel
 from ..models.vae import SD_VAE, AutoencoderKL, VAEConfig
 from ..parallel.mesh import draw_rows
@@ -139,7 +140,9 @@ class LatentDiffusion(nn.Module):
         ``cond_drop_prob``; the context is zeroed where an example is
         dropped). ``draws`` gives them instead, as tensors under "t",
         "noise" and "keep" (B, 1, 1): the seam through which a test hands
-        in the JAX package's draws."""
+        in the JAX package's draws. The UNet's dropout, when its rate is
+        over 0, then draws its masks from ``generator`` (the JAX loss's
+        ``deterministic=False`` with its own key); it needs one."""
         b = z_start.shape[0]
         dev = z_start.device
         if draws is None:
@@ -157,7 +160,11 @@ class LatentDiffusion(nn.Module):
         if self.cfg.cond_drop_prob > 0:
             context = torch.where(keep.to(dev).view(b, 1, 1), context,
                                   torch.zeros_like(context))
-        eps_hat = self.apply_model(z_noisy, t.float(), context)
+        if self.unet.cfg.dropout > 0 and generator is None:
+            raise ValueError(f"UNet dropout {self.unet.cfg.dropout} draws "
+                             "its masks from a generator: pass one")
+        with dropout_draws(generator):
+            eps_hat = self.apply_model(z_noisy, t.float(), context)
         per_example = (eps_hat.float() - noise.float()).square() \
             .reshape(b, -1).mean(dim=1)
         loss_simple = per_example.mean()

@@ -121,6 +121,21 @@ class DiffusionSchedule:
                 getattr(self, name)).to(t.device)
         return table[t]
 
+    def place(self, device) -> "DiffusionSchedule":
+        """Copy every table to ``device`` now, as ``gather`` would at its
+        first call there: a train step then reads no table from the host
+        (each copy waits for the device)."""
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        for f in dataclasses.fields(self):
+            value = getattr(self, f.name)
+            if isinstance(value, np.ndarray) and \
+                    (f.name, device) not in self._on_device:
+                self._on_device[(f.name, device)] = torch.from_numpy(
+                    value).to(device)
+        return self
+
     def at(self, name: str, t, ndim: int):
         """Table ``name`` at step ``t``: a float for an int ``t``, else the
         (B, 1, …) float32 tensor of a per-example tensor of steps."""

@@ -21,7 +21,7 @@ import torch.nn.functional as F
 
 from ..diffusion.schedule import timestep_embedding
 from .attention import SpatialTransformer1D
-from .layers import (Conv1d, Dense, GroupNorm32, TimestepEmbedMLP,
+from .layers import (Conv1d, Dense, Dropout, GroupNorm32, TimestepEmbedMLP,
                      init_weights_, run_plan, zero_init_)
 
 
@@ -39,10 +39,11 @@ class ResBlock1D(nn.Module):
     """Time-conditioned residual block over NCL: GN32·SiLU → conv → the
     time embedding added before (plain) or as a scale and shift after
     (``use_scale_shift_norm``) the second GN32 → SiLU → conv, plus the
-    input (through a 1×1 conv when the width changes)."""
+    input (through a 1×1 conv when the width changes); ``dropout`` acts
+    before the second conv."""
 
     def __init__(self, in_ch: int, out_ch: int, emb_dim: int,
-                 use_scale_shift_norm: bool = False):
+                 use_scale_shift_norm: bool = False, dropout: float = 0.0):
         super().__init__()
         self.use_scale_shift_norm = use_scale_shift_norm
         self.in_norm = GroupNorm32(in_ch, act="silu")
@@ -51,6 +52,7 @@ class ResBlock1D(nn.Module):
                                2 * out_ch if use_scale_shift_norm else out_ch)
         self.out_norm = GroupNorm32(
             out_ch, act=None if use_scale_shift_norm else "silu")
+        self.dropout = Dropout(dropout)
         self.out_conv = conv1d(out_ch, out_ch)
         self.skip_conv = Conv1d(in_ch, out_ch, 1) if in_ch != out_ch else None
 
@@ -62,7 +64,7 @@ class ResBlock1D(nn.Module):
             h = F.silu(group_norm_1d(self.out_norm, h) * (1 + scale) + shift)
         else:
             h = group_norm_1d(self.out_norm, h + emb_out)
-        h = self.out_conv(h)
+        h = self.out_conv(self.dropout(h))
         if self.skip_conv is not None:
             x = self.skip_conv(x)
         return x + h
@@ -102,10 +104,6 @@ class AudioUNetModel(nn.Module):
 
     def __init__(self, cfg: AudioUNetConfig = AudioUNetConfig()):
         super().__init__()
-        if cfg.dropout > 0:
-            raise NotImplementedError(
-                f"audio UNet dropout {cfg.dropout}: the port runs rate 0 "
-                "only, as its UNet (ROADMAP §1, configuration breadth)")
         self.cfg = cfg
         mc = cfg.model_channels
         emb_dim = 4 * mc
@@ -121,12 +119,13 @@ class AudioUNetModel(nn.Module):
 
         def res(name, cin, cout):
             add(name, ResBlock1D(cin, cout, emb_dim,
-                                 cfg.use_scale_shift_norm), "res")
+                                 cfg.use_scale_shift_norm, cfg.dropout),
+                "res")
 
         def attn(name, c):
             add(name, SpatialTransformer1D(
                 c, cfg.context_dim, cfg.num_heads, c // cfg.num_heads,
-                cfg.transformer_depth), "attn")
+                cfg.transformer_depth, cfg.dropout), "attn")
 
         for level, mult in enumerate(cfg.channel_mult):
             out = mult * mc

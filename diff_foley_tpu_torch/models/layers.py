@@ -10,9 +10,16 @@ variance max(0, E[x²] − E[x]²), y = (x − μ)·(rsqrt(σ² + ε)·scale) + 
 result in the promoted type of input and parameters. ``GroupNorm32`` goes
 through ``ops/hopper_groupnorm.py::fused_group_norm``: the GroupNorm
 kernels on CUDA tensors, their plain versions on CPU tensors.
+
+``Dropout`` is flax's: the identity unless a generator is given by
+``dropout_draws`` (the JAX package's ``deterministic=False`` with the
+step's dropout key), and then keep with probability 1 − rate, scaled by
+1 / (1 − rate).
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 
 import torch
@@ -20,6 +27,52 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.hopper_groupnorm import fused_group_norm
+from ..parallel.mesh import draw_rows
+
+_DROPOUT_GENERATOR = contextvars.ContextVar("dropout_generator",
+                                            default=None)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    return F.silu(x)
+
+
+@contextlib.contextmanager
+def dropout_draws(generator: torch.Generator | None):
+    """Inside the block every ``Dropout`` of rate > 0 draws its keep mask
+    from ``generator``, in the order the forward runs them; with None, or
+    outside any block, dropout is the identity."""
+    token = _DROPOUT_GENERATOR.set(generator)
+    try:
+        yield
+    finally:
+        _DROPOUT_GENERATOR.reset(token)
+
+
+def dropout_generator() -> torch.Generator | None:
+    """The generator of the innermost ``dropout_draws`` block, or None."""
+    return _DROPOUT_GENERATOR.get()
+
+
+class Dropout(nn.Module):
+    """flax nn.Dropout: keep = U[0, 1) < 1 − rate, drawn over the whole
+    tensor (the global batch's rows under ``parallel.mesh.global_rows``),
+    then x / (1 − rate) where kept and 0 elsewhere, in x's dtype."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x):
+        gen = _DROPOUT_GENERATOR.get()
+        if gen is None or self.rate == 0:
+            return x
+        if self.rate >= 1:
+            return torch.zeros_like(x)
+        keep_prob = 1.0 - self.rate
+        keep = draw_rows(torch.rand, x.shape, generator=gen,
+                         device=x.device) < keep_prob
+        return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 
 @torch.no_grad()
@@ -220,10 +273,11 @@ class ResBlock(nn.Module):
     ``pos_seq_len`` > 0 adds a learned positional embedding over the map's
     W axis (the time axis of a mel latent) after the time embedding, as
     the openai_unetmodel_pos.py variant does; a map wider than
-    ``pos_seq_len`` raises."""
+    ``pos_seq_len`` raises. ``dropout`` acts between the second GN·SiLU
+    and its conv."""
 
     def __init__(self, in_ch: int, out_ch: int, emb_dim: int,
-                 pos_seq_len: int = 0):
+                 pos_seq_len: int = 0, dropout: float = 0.0):
         super().__init__()
         self.in_norm = GroupNorm32(in_ch, act="silu")
         self.in_conv = conv3x3(in_ch, out_ch)
@@ -231,6 +285,7 @@ class ResBlock(nn.Module):
         self.pos_emb = (nn.Embedding(pos_seq_len, out_ch) if pos_seq_len > 0
                         else None)
         self.out_norm = GroupNorm32(out_ch, act="silu")
+        self.dropout = Dropout(dropout)
         self.out_conv = conv3x3(out_ch, out_ch)
         self.skip_conv = conv1x1(in_ch, out_ch) if in_ch != out_ch else None
 
@@ -242,7 +297,7 @@ class ResBlock(nn.Module):
             if w > n:
                 raise ValueError(f"feature width {w} exceeds pos_seq_len {n}")
             h = h + self.pos_emb.weight[:w].T[None, :, None, :].to(h.dtype)
-        h = self.out_conv(self.out_norm(h))
+        h = self.out_conv(self.dropout(self.out_norm(h)))
         if self.skip_conv is not None:
             x = self.skip_conv(x)
         return x + h

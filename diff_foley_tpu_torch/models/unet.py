@@ -41,10 +41,12 @@ class UNetConfig:
     num_heads: int = 8
     transformer_depth: int = 1
     context_dim: int = 768
-    # training knobs: the shipped rate is 0, and ``use_checkpoint``
+    # training knobs: dropout (the shipped rate is 0) acts only inside
+    # ``layers.dropout_draws``, as in stage 2's loss; ``use_checkpoint``
     # recomputes each BasicTransformerBlock in the backward
-    # (torch.utils.checkpoint, the scope of the JAX package's nn.remat);
-    # ``remat_policy`` names XLA save policies, which have no counterpart
+    # (torch.utils.checkpoint, the scope of the JAX package's nn.remat),
+    # keeping what ``remat_policy`` saves: "none", "dots" or
+    # "dots_no_batch" (``attention.REMAT_SAVES``)
     dropout: float = 0.0
     use_checkpoint: bool = False
     remat_policy: str = "none"
@@ -78,15 +80,6 @@ class _Trunk(nn.Module):
     def __init__(self, cfg: UNetConfig, skips: bool, num_classes: int = 0,
                  pos_seq_len: int = 0, with_context: bool = True):
         super().__init__()
-        if cfg.dropout > 0:
-            raise NotImplementedError(
-                f"UNet dropout {cfg.dropout}: the port runs the shipped rate "
-                "0 only (ROADMAP §1, the long tail)")
-        if cfg.remat_policy != "none":
-            raise NotImplementedError(
-                f"remat_policy {cfg.remat_policy!r} is an XLA save policy; "
-                "the port recomputes whole blocks (use_checkpoint) only "
-                "(ROADMAP §1, the long tail)")
         self.cfg = cfg
         self.pos_seq_len, self.with_context = pos_seq_len, with_context
         mc = cfg.model_channels
@@ -125,14 +118,16 @@ class _Trunk(nn.Module):
         self.channels, self.ds = ch, ds
 
     def res(self, in_ch: int, out_ch: int) -> ResBlock:
-        return ResBlock(in_ch, out_ch, self.emb_dim, self.pos_seq_len)
+        return ResBlock(in_ch, out_ch, self.emb_dim, self.pos_seq_len,
+                        self.cfg.dropout)
 
     def attn(self, ch: int) -> SpatialTransformer:
         cfg = self.cfg
         return SpatialTransformer(
             ch, cfg.context_dim if self.with_context else None,
             cfg.num_heads, ch // cfg.num_heads, cfg.transformer_depth,
-            checkpoint=cfg.use_checkpoint)
+            checkpoint=cfg.use_checkpoint, dropout=cfg.dropout,
+            remat_policy=cfg.remat_policy)
 
     def _add(self, plan, name: str, module: nn.Module, kind: str):
         setattr(self, name, module)
@@ -258,7 +253,9 @@ POOLS = ("adaptive", "attention", "spatial", "spatial_v2")
 class EncoderUNetModel(nn.Module):
     """The generic half-UNet encoder with a pooled head (guided-diffusion's
     classifier): the trunk's down path with self-attention only (no
-    context) and a middle of two ResBlocks (no attention), then ``pool``:
+    context) and a middle of two ResBlocks (no attention; the ResBlocks
+    take ``cfg.dropout``, the transformers none, as in the JAX model), then
+    ``pool``:
 
     - "adaptive": GN·SiLU → spatial mean → 1×1 conv;
     - "attention": GN·SiLU → :class:`AttentionPool2d`, in float32;
@@ -275,10 +272,6 @@ class EncoderUNetModel(nn.Module):
         super().__init__()
         if pool not in POOLS:
             raise ValueError(f"pool {pool!r} is not one of {POOLS}")
-        if cfg.dropout > 0:
-            raise NotImplementedError(
-                f"UNet dropout {cfg.dropout}: the port runs the shipped rate "
-                "0 only (ROADMAP §1, the long tail)")
         self.cfg, self.pool = cfg, pool
         mc = cfg.model_channels
         emb_dim = 4 * mc
@@ -297,8 +290,8 @@ class EncoderUNetModel(nn.Module):
         for level, mult in enumerate(cfg.channel_mult):
             out = mult * mc
             for i in range(cfg.num_res_blocks):
-                add(f"down_{level}_{i}_res", ResBlock(ch, out, emb_dim),
-                    "res")
+                add(f"down_{level}_{i}_res",
+                    ResBlock(ch, out, emb_dim, dropout=cfg.dropout), "res")
                 ch = out
                 if ds in cfg.attention_resolutions:
                     # no context: the cross-attention reads the tokens
@@ -314,8 +307,8 @@ class EncoderUNetModel(nn.Module):
                     self.plan.append((None, "mean"))
                     means.append(ch)
                 ds *= 2
-        add("mid_res1", ResBlock(ch, ch, emb_dim), "res")
-        add("mid_res2", ResBlock(ch, ch, emb_dim), "res")
+        add("mid_res1", ResBlock(ch, ch, emb_dim, dropout=cfg.dropout), "res")
+        add("mid_res2", ResBlock(ch, ch, emb_dim, dropout=cfg.dropout), "res")
         if spatial:
             self.plan.append((None, "mean"))
             means.append(ch)

@@ -27,7 +27,7 @@ import torch.nn.functional as F
 
 from ..ops.attention import multi_head_attention
 from ..parallel.mesh import draw_rows
-from .layers import Conv2d, GroupNorm32, conv1x1, conv3x3
+from .layers import Conv2d, Dropout, GroupNorm32, conv1x1, conv3x3
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -49,22 +49,28 @@ class VAEConfig:
     z_channels: int = 4
     embed_dim: int = 4
     double_z: bool = True
+    # the ResnetBlocks' dropout, active only inside layers.dropout_draws
+    dropout: float = 0.0
 
 
 SD_VAE = VAEConfig()
 
 
 class VAEResnetBlock(nn.Module):
-    def __init__(self, in_ch: int, out_ch: int):
+    """GN·SiLU → conv3x3 → GN·SiLU → dropout → conv3x3, plus the input
+    (through a 1×1 conv when the width changes)."""
+
+    def __init__(self, in_ch: int, out_ch: int, dropout: float = 0.0):
         super().__init__()
         self.norm1 = _gn(in_ch, "silu")
         self.conv1 = conv3x3(in_ch, out_ch)
         self.norm2 = _gn(out_ch, "silu")
+        self.dropout = Dropout(dropout)
         self.conv2 = conv3x3(out_ch, out_ch)
         self.nin_shortcut = conv1x1(in_ch, out_ch) if in_ch != out_ch else None
 
     def forward(self, x):
-        h = self.conv2(self.norm2(self.conv1(self.norm1(x))))
+        h = self.conv2(self.dropout(self.norm2(self.conv1(self.norm1(x)))))
         if self.nin_shortcut is not None:
             x = self.nin_shortcut(x)
         return x + h
@@ -120,15 +126,15 @@ class Encoder(nn.Module):
             out = cfg.ch * mult
             for i in range(cfg.num_res_blocks):
                 name = f"down_{level}_block{i}"
-                setattr(self, name, VAEResnetBlock(ch, out))
+                setattr(self, name, VAEResnetBlock(ch, out, cfg.dropout))
                 self.plan.append(name)
                 ch = out
             if level != len(cfg.ch_mult) - 1:
                 setattr(self, f"down_{level}_ds", VAEDownsample(ch))
                 self.plan.append(f"down_{level}_ds")
-        self.mid_block1 = VAEResnetBlock(ch, ch)
+        self.mid_block1 = VAEResnetBlock(ch, ch, cfg.dropout)
         self.mid_attn = VAEAttnBlock(ch)
-        self.mid_block2 = VAEResnetBlock(ch, ch)
+        self.mid_block2 = VAEResnetBlock(ch, ch, cfg.dropout)
         self.norm_out = _gn(ch, "silu")
         z = 2 * cfg.z_channels if cfg.double_z else cfg.z_channels
         self.conv_out = conv3x3(ch, z)
@@ -150,15 +156,15 @@ class Decoder(nn.Module):
         super().__init__()
         ch = cfg.ch * cfg.ch_mult[-1]
         self.conv_in = conv3x3(in_channels or cfg.z_channels, ch)
-        self.mid_block1 = VAEResnetBlock(ch, ch)
+        self.mid_block1 = VAEResnetBlock(ch, ch, cfg.dropout)
         self.mid_attn = VAEAttnBlock(ch)
-        self.mid_block2 = VAEResnetBlock(ch, ch)
+        self.mid_block2 = VAEResnetBlock(ch, ch, cfg.dropout)
         self.plan = []
         for level, mult in reversed(list(enumerate(cfg.ch_mult))):
             out = cfg.ch * mult
             for i in range(cfg.num_res_blocks + 1):
                 name = f"up_{level}_block{i}"
-                setattr(self, name, VAEResnetBlock(ch, out))
+                setattr(self, name, VAEResnetBlock(ch, out, cfg.dropout))
                 self.plan.append(name)
                 ch = out
             if level != 0:
@@ -206,14 +212,12 @@ class UpsampleDecoder(nn.Module):
                  num_res_blocks: int, ch_mult: Sequence[int] = (2, 2),
                  dropout: float = 0.0):
         super().__init__()
-        if dropout > 0:
-            raise NotImplementedError(
-                f"VAE dropout {dropout}: the port runs the shipped rate 0")
         self.plan = []
         c = in_channels
         for level, mult in enumerate(ch_mult):
             for i in range(num_res_blocks + 1):
-                setattr(self, f"res_{level}_{i}", VAEResnetBlock(c, ch * mult))
+                setattr(self, f"res_{level}_{i}",
+                        VAEResnetBlock(c, ch * mult, dropout))
                 self.plan.append(f"res_{level}_{i}")
                 c = ch * mult
             if level != len(ch_mult) - 1:

@@ -38,7 +38,8 @@ backward and the per-head forward and backward run on the tensor cores
 
 Each wrapper runs its kernel's plain version when its tensors lie on the
 CPU, launches the kernel when they lie on a CUDA device, and raises
-otherwise. ``LAUNCHES`` counts the kernel launches of each wrapper,
+otherwise. Under ``utils.profiling.cost_analysis`` each call counts its
+kernel's work by formula (``kernel_cost.py``), on any device. ``LAUNCHES`` counts the kernel launches of each wrapper,
 ``LAUNCHES_BY_DTYPE`` the same launches by (wrapper, operand dtype).
 """
 from __future__ import annotations
@@ -49,6 +50,7 @@ import ctypes
 import torch
 
 from . import cuda_build
+from .kernel_cost import counted, packed_work, per_head_work
 from .cuda_build import DTYPE_CODES as _DTYPE_CODES, ptr as _ptr, \
     stream as _stream
 
@@ -184,6 +186,7 @@ def _launch(fn: str, key: str, *args, device, dtype):
     LAUNCHES_BY_DTYPE[(key, str(dtype).removeprefix("torch."))] += 1
 
 
+@counted(packed_work(backward=False), attention_packed_reference)
 def attention_packed_fwd(q3, k3, v3, scale: float, heads: int):
     """softmax(Q_h K_hᵀ·scale) V_h per head over packed (B, L, H·D)."""
     if _on_cpu(q3, k3, v3):
@@ -212,6 +215,8 @@ def packed_head_strides(l: int, heads: int, d: int) -> tuple:
     return (l * heads * d, d, heads * d, 1)
 
 
+@counted(packed_work(backward=True),
+         attention_packed_backward_reference)
 def attention_packed_bwd(q3, k3, v3, g3, scale: float, heads: int):
     """(dQ, dK, dV) of :func:`attention_packed_fwd` for output gradient g3,
     in the operand type and the packed layout. One call launches the
@@ -306,6 +311,7 @@ def head_fwd_scratch(b: int, h: int, lq: int, lk: int,
                        device=device)
 
 
+@counted(per_head_work(backward=False), attention_reference)
 def attention_fwd(q, k, v, scale: float):
     """softmax(Q Kᵀ·scale) V per (batch, head) over (B, H, L, D), in q's
     strides. One call launches three grids: the scores S into a scratch,
@@ -347,6 +353,7 @@ def head_bwd_scratch(b: int, h: int, lq: int, lk: int, dtype,
                        device=device)
 
 
+@counted(per_head_work(backward=True), attention_backward_reference)
 def attention_bwd(q, k, v, g, scale: float):
     """(dQ, dK, dV) of :func:`attention_fwd` for output gradient g, in the
     operand type and in q's, k's and v's strides. One call launches three

@@ -29,7 +29,9 @@ their own dtype. Bound on the H100: bytes, 2·N·itemsize over 3.35 TB/s
 for the block kernel and 3·N·itemsize for the streaming pair.
 
 Each wrapper runs the plain version when its tensors lie on the CPU,
-launches the kernel when they lie on a CUDA device, and raises otherwise.
+launches the kernel when they lie on a CUDA device, and raises otherwise;
+under ``utils.profiling.cost_analysis`` each call counts its kernel's
+bytes by formula (``kernel_cost.py``), on any device.
 ``LAUNCHES`` counts the kernel launches of each wrapper,
 ``LAUNCHES_BY_DTYPE`` the same launches by (wrapper, operand dtype).
 """
@@ -42,6 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from . import cuda_build
+from .kernel_cost import counted, groupnorm_work
 from .cuda_build import DTYPE_CODES as _DTYPE_CODES, ptr as _ptr, \
     stream as _stream
 
@@ -167,6 +170,7 @@ def _launch(fn: str, key: str, *args, device, dtype):
     LAUNCHES_BY_DTYPE[(key, str(dtype).removeprefix("torch."))] += 1
 
 
+@counted(groupnorm_work(passes=2), group_norm_reference)
 def group_norm_block(x, gamma, beta, groups: int, eps: float, act=None):
     """GroupNorm(+SiLU) of an NCHW map, one launch over every (sample,
     group) slab, each held in registers."""
@@ -185,6 +189,7 @@ def group_norm_block(x, gamma, beta, groups: int, eps: float, act=None):
     return y
 
 
+@counted(groupnorm_work(passes=1), stream_stats_reference)
 def stream_stats(x, groups: int):
     """Partial (Σx, Σx²), (B, G, chunks, 2) fp32, of each slab chunk."""
     if _on_cpu(x):
@@ -200,6 +205,7 @@ def stream_stats(x, groups: int):
     return partial
 
 
+@counted(groupnorm_work(passes=2), stream_apply_reference)
 def stream_apply(x, a, b, act=None):
     """y = x·a + b (+SiLU) with the folded (B, C) fp32 affine."""
     if _on_cpu(x, a, b):
@@ -234,7 +240,7 @@ def silu_division_check(device) -> tuple[int, int]:
 
 def group_norm_stream(x, gamma, beta, groups: int, eps: float, act=None):
     """GroupNorm(+SiLU) in two sweeps: partial sums, the fold, the apply."""
-    if not _on_cpu(x, gamma, beta):
+    if not x.is_meta and not _on_cpu(x, gamma, beta):
         _check(x, groups, gamma, beta)
     partial = stream_stats(x, groups)
     n = x[0].numel() // groups

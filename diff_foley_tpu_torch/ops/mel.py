@@ -35,13 +35,18 @@ def mel_to_hz(mel):
     )
 
 
+def mel_frequencies(n_mels: int, fmin: float, fmax: float) -> np.ndarray:
+    """n_mels float64 frequencies (Hz) evenly spaced on the slaney mel
+    scale from fmin to fmax."""
+    return mel_to_hz(np.linspace(hz_to_mel(fmin), hz_to_mel(fmax), n_mels))
+
+
 @lru_cache(maxsize=8)
 def mel_filterbank_np(sr: int, n_fft: int, n_mels: int, fmin: float,
                       fmax: float) -> np.ndarray:
     """(n_mels, 1 + n_fft//2) float64 slaney filterbank."""
     fftfreqs = np.linspace(0, sr / 2.0, 1 + n_fft // 2, dtype=np.float64)
-    mel_f = mel_to_hz(np.linspace(hz_to_mel(fmin), hz_to_mel(fmax),
-                                  n_mels + 2))
+    mel_f = mel_frequencies(n_mels + 2, fmin, fmax)
     fdiff = np.diff(mel_f)
     ramps = mel_f[:, None] - fftfreqs[None, :]
     lower = -ramps[:-2] / fdiff[:-1, None]

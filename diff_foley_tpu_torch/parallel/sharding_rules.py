@@ -35,7 +35,7 @@ import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..models.attention import CrossAttention
+from ..models.attention import CrossAttention, FeedForward
 from ..models.layers import Dense, _cast, _promote
 from .collectives import all_gather, copy_to_model, reduce_from_model
 
@@ -232,6 +232,11 @@ def tensor_parallel_(module: nn.Module, mesh, prefix: str = "",
         shapes = {prefix + k: p.shape for k, p in module.named_parameters()}
         specs = param_specs(shapes, mesh.shape["data"], tp=True)
     for name, child in list(module.named_modules()):
+        if isinstance(child, FeedForward) and child.dropout.rate > 0:
+            # the hidden layer's mask would be drawn at this rank's width
+            raise NotImplementedError(
+                f"{name}: feed-forward dropout {child.dropout.rate} under "
+                "tensor parallelism")
         if isinstance(child, CrossAttention):
             if child.heads % n:
                 raise ValueError(f"{name}: {child.heads} heads do not "

@@ -124,6 +124,9 @@ class ClassifierTrainer:
         device = resolve_device(device)
         self.model.to(device).train()
         self.vae.to(device).eval()
+        # the schedule's tables on the device now: a step then reads
+        # nothing from the host (train/scan.py runs K steps without a wait)
+        self.schedule.place(device)
         if seed is not None:
             init_classifier_weights_(
                 self.model, torch.Generator(device).manual_seed(seed))

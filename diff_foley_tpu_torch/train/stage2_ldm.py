@@ -150,6 +150,7 @@ class Stage2Trainer:
         weights the model has."""
         device = resolve_device(device)
         self.ldm.to(device)
+        self.ldm.schedule.place(device)
         if seed is not None:
             init_ldm_weights_(self.ldm,
                               torch.Generator(device).manual_seed(seed))

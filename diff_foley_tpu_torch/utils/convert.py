@@ -34,6 +34,10 @@ time ``Embed`` table and the free ``null_video_embeds`` and
 The same function carries gradients and updated parameters of a JAX train
 step into the port's layout, so a test compares them leaf by leaf under
 the state dict's names.
+
+The way back, the port's weights → reference torch checkpoints, is the
+seven ``export_*`` functions at the end, which walk the converters' own
+walks in reverse (``_ExportMapper``).
 """
 from __future__ import annotations
 
@@ -284,9 +288,7 @@ def _unet_down_mid(m: _Mapper, cfg) -> int:
     return ds
 
 
-def convert_unet(sd: Mapping, cfg) -> dict:
-    """Reference UNetModel state dict → flax params of the UNet."""
-    m = _Mapper(sd)
+def _walk_unet(m: _Mapper, cfg) -> None:
     ds = _unet_down_mid(m, cfg)
     mc = cfg.model_channels
     skip_chs = [mc]
@@ -312,18 +314,28 @@ def convert_unet(sd: Mapping, cfg) -> dict:
             mo += 1
     m.gn("out_norm", "out.0")
     m.conv("out_conv", "out.2")
+
+
+def convert_unet(sd: Mapping, cfg) -> dict:
+    """Reference UNetModel state dict → flax params of the UNet."""
+    m = _Mapper(sd)
+    _walk_unet(m, cfg)
     m.check_used()
     return m.params()
+
+
+def _walk_classifier_backbone(m: _Mapper, cfg) -> None:
+    _unet_down_mid(m, cfg)
+    m.gn("out_norm", "out.0")
+    m.conv("out_conv", "out.2")
+    m.dense("classifier", "classifier")
 
 
 def convert_classifier_backbone(sd: Mapping, cfg) -> dict:
     """Reference Classifier_Backbone state dict → flax params (the encoder
     half and the head)."""
     m = _Mapper(sd)
-    _unet_down_mid(m, cfg)
-    m.gn("out_norm", "out.0")
-    m.conv("out_conv", "out.2")
-    m.dense("classifier", "classifier")
+    _walk_classifier_backbone(m, cfg)
     m.check_used()
     return m.params()
 
@@ -373,22 +385,30 @@ def _convert_vae_half(m: _Mapper, t: str, cfg) -> None:
     m.conv(f"{t}/conv_out", f"{t}.conv_out")
 
 
-def convert_vae(sd: Mapping, cfg) -> dict:
-    """Reference AutoencoderKL state dict → flax params of the VAE."""
-    m = _Mapper(sd)
+def _walk_vae(m: _Mapper, cfg) -> None:
     _convert_vae_half(m, "encoder", cfg)
     _convert_vae_half(m, "decoder", cfg)
     m.conv("quant_conv", "quant_conv")
     m.conv("post_quant_conv", "post_quant_conv")
+
+
+def convert_vae(sd: Mapping, cfg) -> dict:
+    """Reference AutoencoderKL state dict → flax params of the VAE."""
+    m = _Mapper(sd)
+    _walk_vae(m, cfg)
     m.check_used()
     return m.params()
+
+
+def _walk_cond_encoder(m: _Mapper) -> None:
+    m.dense("embedder", "embedder.0")
+    m.take("pos_emb", "pos_emb.weight")
 
 
 def convert_cond_encoder(sd: Mapping) -> dict:
     """Reference Video_Feat_Encoder_Posembed state dict → flax params."""
     m = _Mapper(sd)
-    m.dense("embedder", "embedder.0")
-    m.take("pos_emb", "pos_emb.weight")
+    _walk_cond_encoder(m)
     m.check_used()
     return m.params()
 
@@ -988,3 +1008,214 @@ def load_torch_state_dict(path: str) -> dict:
     ckpt = torch.load(path, map_location="cpu", weights_only=False)
     sd = ckpt.get("state_dict", ckpt) if isinstance(ckpt, dict) else ckpt
     return {k.removeprefix("module."): v for k, v in sd.items()}
+
+
+# ---- the port's weights → reference checkpoints ---------------------------
+#
+# The export direction walks the same walks as the converters above, so no
+# second key table can drift from them: an ``_ExportMapper`` reads the
+# port's state dict where a ``_Mapper`` writes the flax tree. Each leaf
+# goes the way back of ``from_jax_params`` (the port's layout → the flax
+# one) and then of the walk's transform (the flax layout → the reference
+# one), as the JAX package's exporters run the second half; the result is
+# numpy arrays under the reference torch keys.
+
+
+def _port_key(my_path: str) -> str:
+    """The state-dict key ``from_jax_params`` gives a flax path."""
+    parts = [p for p in my_path.split("/") if p not in _FOLDED_SCOPES]
+    parts[-1] = _LEAF_NAMES.get(parts[-1], parts[-1])
+    return ".".join(parts)
+
+
+# a port weight's axes → a flax kernel's, by rank (the inverse of ``_leaf``)
+_KERNEL_BACK = {2: (1, 0), 3: (2, 1, 0), 4: (2, 3, 1, 0), 5: (2, 3, 4, 1, 0)}
+
+
+def _flax_leaf(name: str, t) -> np.ndarray:
+    """A port tensor → the flax layout of leaf ``name`` (the inverse of
+    ``_leaf``); bf16 comes out as float32, which numpy holds."""
+    if isinstance(t, torch.Tensor):
+        t = t.detach().cpu()
+        t = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    a = np.asarray(t)
+    if name == "kernel":
+        a = a.transpose(_KERNEL_BACK[a.ndim])
+    return a
+
+
+# the way back of each walk transform: the flax layout → the reference one
+_INVERSE = {_np: np.asarray,
+            _conv: lambda a: np.asarray(a).transpose(3, 2, 0, 1),
+            _conv3d: lambda a: np.asarray(a).transpose(4, 3, 0, 1, 2),
+            _dense: lambda a: np.asarray(a).T,
+            _conv1d: lambda a: np.asarray(a).transpose(2, 1, 0)}
+
+_STATS = ("running_mean", "running_var")
+
+
+def _state_dict(weights) -> dict:
+    """A module's state dict, or the given mapping as a dict."""
+    if isinstance(weights, torch.nn.Module):
+        return weights.state_dict()
+    return dict(weights)
+
+
+class _ExportMapper(_Mapper):
+    """A walk in the export direction over the port's weights ``sd`` (a
+    state dict in this package's names): every ``take`` reads the port's
+    leaf and writes the reference key under ``prefix`` into ``out``."""
+
+    def __init__(self, sd: Mapping, prefix: str = ""):
+        super().__init__({}, prefix)
+        self.port = {k: v for k, v in sd.items()
+                     if not k.endswith(".num_batches_tracked")}
+        self.out: dict[str, np.ndarray] = {}
+
+    def _leaf(self, my_path: str) -> np.ndarray:
+        key = _port_key(my_path)
+        if key not in self.port:
+            raise KeyError(f"the port's weights lack {key!r} (config/layout "
+                           "mismatch?)")
+        if key in self.used:
+            raise ValueError(f"{key!r} exported twice")
+        self.used.add(key)
+        return _flax_leaf(my_path.rsplit("/", 1)[-1], self.port[key])
+
+    def take(self, my_path: str, torch_key: str, tf=_np) -> None:
+        self.out[self.prefix + torch_key] = _INVERSE[tf](self._leaf(my_path))
+
+    def dense_halves(self, my_first: str, my_second: str,
+                     torch_key: str) -> None:
+        # the reference's stacked Linear(2F): rows [first; second]
+        kf, bf, ks, bs = (self._leaf(f"{my}/{leaf}")
+                          for my in (my_first, my_second)
+                          for leaf in ("kernel", "bias"))
+        self.out[f"{self.prefix}{torch_key}.weight"] = np.concatenate(
+            [kf, ks], axis=1).transpose(1, 0)
+        self.out[f"{self.prefix}{torch_key}.bias"] = np.concatenate([bf, bs])
+
+    def bn(self, my: str, torch_key: str) -> None:
+        self.gn_flat(my, torch_key)
+        for src, dst in (("mean", "running_mean"), ("var", "running_var")):
+            self.out[f"{self.prefix}{torch_key}.{dst}"] = self._leaf(
+                f"{my}/{src}")
+        # the reference's BatchNorm state dicts carry this counter; its value
+        # matters only to momentum=None BatchNorm, which the reference never
+        # uses: 0, as the JAX exporter writes it
+        self.out[f"{self.prefix}{torch_key}.num_batches_tracked"] = \
+            np.asarray(0, dtype=np.int64)
+
+    def assert_complete(self) -> None:
+        """Every parameter leaf and every BatchNorm statistic of the port's
+        weights exported once: catches a config that walks a smaller
+        structure than the weights have."""
+        left = sorted(set(self.port) - self.used)
+        if left:
+            n_stats = sum(k.endswith(_STATS) for k in left)
+            raise ValueError(
+                f"export incomplete: {len(left) - n_stats} parameter and "
+                f"{n_stats} batch-stat leaves of the port's weights not "
+                f"exported (config/layout mismatch?): {left[:5]}")
+
+
+def _export(walk, weights, prefix: str, *args) -> dict:
+    m = _ExportMapper(_state_dict(weights), prefix)
+    walk(m, *args)
+    m.assert_complete()
+    return m.out
+
+
+def export_unet(weights, cfg, prefix: str = "") -> dict:
+    """The port's UNet (an ``UNetModel`` or its state dict) → the
+    reference UNetModel state dict (numpy), keys under ``prefix``."""
+    return _export(_walk_unet, weights, prefix, cfg)
+
+
+def export_classifier_backbone(weights, cfg, prefix: str = "") -> dict:
+    """The port's ``ClassifierBackbone`` (or its state dict) → the
+    reference Classifier_Backbone state dict (numpy)."""
+    return _export(_walk_classifier_backbone, weights, prefix, cfg)
+
+
+def export_vae(weights, cfg, prefix: str = "") -> dict:
+    """The port's ``AutoencoderKL`` (or its state dict) → the reference
+    AutoencoderKL state dict (numpy)."""
+    return _export(_walk_vae, weights, prefix, cfg)
+
+
+def export_cond_encoder(weights, prefix: str = "") -> dict:
+    """The port's ``VideoFeatEncoderPosembed`` (or its state dict) → the
+    reference Video_Feat_Encoder_Posembed state dict (numpy)."""
+    return _export(_walk_cond_encoder, weights, prefix)
+
+
+def _children(weights, names) -> dict:
+    """{name: state dict} of a module's children or of a state dict's
+    ``name.``-prefixed keys, or the given mapping of per-child weights."""
+    if isinstance(weights, torch.nn.Module):
+        return {n: getattr(weights, n).state_dict() for n in names}
+    if set(weights) >= set(names) and all(
+            isinstance(weights[n], (Mapping, torch.nn.Module)) for n in names):
+        return {n: _state_dict(weights[n]) for n in names}
+    return {n: {k[len(n) + 1:]: v for k, v in weights.items()
+                if k.startswith(n + ".")} for n in names}
+
+
+def export_ldm_state_dict(params, vae_params, unet_cfg, vae_cfg) -> dict:
+    """The composite LatentDiffusion checkpoint (numpy), the inverse of
+    ``split_ldm_state_dict`` and the three converters: ``params`` the UNet
+    and the cond encoder (a ``LatentDiffusion``, {"unet": …, "cond": …}
+    of modules or state dicts, or one state dict with ``unet.`` and
+    ``cond.`` keys, as a stage-2 train state's masters), ``vae_params`` the
+    first stage (an ``AutoencoderKL`` or its state dict). A model trained
+    here then loads into the reference code."""
+    parts = _children(params, ("unet", "cond"))
+    out = {}
+    out.update(export_unet(parts["unet"], unet_cfg, "model.diffusion_model."))
+    out.update(export_cond_encoder(parts["cond"], "cond_stage_model."))
+    out.update(export_vae(vae_params, vae_cfg, "first_stage_model."))
+    return out
+
+
+def export_cavp(weights, prefix: str = "") -> dict:
+    """The port's ``CAVPModel`` at the shipped towers (SlowOnly-R50,
+    CNN14), or its state dict → the reference CLIP_Video_Spec state dict
+    (numpy, ``open_clip/model.py:457-671``): parameters, BatchNorm running
+    statistics, ``num_batches_tracked`` 0 and a 0-d ``logit_scale``; the
+    spec projection head is the identity there and has no parameters. Wrap
+    it with ``export_cavp_checkpoint`` for the training envelope."""
+    sd = _state_dict(weights)
+    parts = _children(sd, ("video_encoder", "spec_encoder",
+                           "video_project_head"))
+    out = {}
+    for name, walk in (("video_encoder", _walk_slowonly),
+                       ("spec_encoder", _walk_cnn14)):
+        m = _ExportMapper(parts[name], f"{prefix}{name}.")
+        walk(m)
+        m.assert_complete()
+        out.update(m.out)
+    head = _ExportMapper({f"video_project_head.{k}": v for k, v in
+                          parts["video_project_head"].items()}, prefix)
+    head.dense("video_project_head", "video_project_head")
+    head.assert_complete()
+    out.update(head.out)
+    out[prefix + "logit_scale"] = _flax_leaf(
+        "logit_scale", sd["logit_scale"]).reshape(())
+    left = sorted(k for k in sd if not k.startswith((
+        "video_encoder.", "spec_encoder.", "video_project_head."))
+        and k != "logit_scale")
+    if left:
+        raise ValueError(f"export incomplete: {left[:5]} have no place in "
+                         "the reference CAVP")
+    return out
+
+
+def export_cavp_checkpoint(weights, epoch: int = 0,
+                           name: str = "diff_foley_tpu_cavp") -> dict:
+    """An exported CAVP state dict in the reference training checkpoint's
+    envelope (``main_wds_intra_contrast.py:393-421``): {epoch, name,
+    state_dict}; the optimizer and scaler states are torch's own and left
+    out (the reference needs them only to resume training)."""
+    return {"epoch": epoch, "name": name,
+            "state_dict": export_cavp(weights)}

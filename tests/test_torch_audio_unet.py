@@ -36,7 +36,7 @@ from diff_foley_tpu_torch.models import attention as tattn
 from diff_foley_tpu_torch.models import audio_unet as ta
 from diff_foley_tpu_torch.utils.convert import (
     convert_spatial_transformer1d, from_jax_params)
-from diff_foley_tpu_torch.utils.init import random_flax_params
+from diff_foley_tpu_torch.utils.init import random_flax_params, randomize_
 
 if os.environ.get("PYTEST_XDIST_WORKER"):
     # one intra-op thread per xdist worker: six workers of eight threads
@@ -225,5 +225,23 @@ def test_audio_unet_published_width_matches_jax_leaves():
 
 
 def test_audio_unet_refuses_dropout():
-    with pytest.raises(NotImplementedError, match="dropout"):
-        ta.AudioUNetModel(ta.AudioUNetConfig(**TINY, dropout=0.1))
+    # dropout is ported: a rate over 0 builds, and outside
+    # ``dropout_draws`` (JAX's deterministic=True) the model is its rate-0
+    # self, bit for bit; with a generator the masks act
+    from diff_foley_tpu_torch.models.layers import dropout_draws
+
+    model = ta.AudioUNetModel(ta.AudioUNetConfig(**TINY, context_dim=CTX,
+                                                 dropout=0.1))
+    plain = ta.AudioUNetModel(ta.AudioUNetConfig(**TINY, context_dim=CTX))
+    randomize_(plain, 3)
+    model.load_state_dict(plain.state_dict(), strict=True)
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.standard_normal((2, L, TINY["in_channels"]))
+                         .astype(np.float32))
+    t = torch.tensor([3.0, 700.0])
+    ctx = torch.from_numpy(rng.standard_normal((2, LC, CTX)).astype(
+        np.float32))
+    with torch.no_grad():
+        assert torch.equal(model(x, t, ctx), plain(x, t, ctx))
+        with dropout_draws(torch.Generator().manual_seed(0)):
+            assert not torch.equal(model(x, t, ctx), plain(x, t, ctx))

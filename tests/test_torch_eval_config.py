@@ -134,7 +134,7 @@ def test_transform_spec_workers_and_failures(tmp_path):
 
 def common_fields(port_cfg, jax_cfg) -> tuple:
     """The two configs' shared fields as dicts (the port's UNetConfig has
-    its own dtype/remat fields, JAX's VAEConfig a dropout rate)."""
+    its own fields beside JAX's)."""
     a, b = dataclasses.asdict(port_cfg), dataclasses.asdict(jax_cfg)
 
     def common(x, y):
@@ -152,7 +152,7 @@ def test_load_ldm_from_yaml_matches_jax():
     assert isinstance(ldm, tld.LatentDiffusion)
     got, want = common_fields(ldm.cfg, jconfig.load_ldm_from_yaml(path).cfg)
     assert got == want and len(got) >= 11
-    assert len(got["unet"]) >= 11 and len(got["vae"]) == 8
+    assert len(got["unet"]) >= 11 and len(got["vae"]) == 9
     # the shipped point, with the YAML's block recompute
     flagship = dataclasses.replace(tld.LDMConfig(), unet=dataclasses.replace(
         tld.LDMConfig().unet, use_checkpoint=True))
@@ -174,10 +174,13 @@ def test_instantiate_from_config_matches_jax():
     for bad in ({"target": "no.such.Thing", "params": {}}, {"params": {}}):
         with pytest.raises(KeyError):
             tconfig.instantiate_from_config(bad)
-    with pytest.raises(NotImplementedError, match="dropout"):
-        tconfig.instantiate_from_config(
-            {"target": vae["target"], "params": {"ddconfig": {
-                "dropout": 0.1}}})
+    # the VAE's dropout rate is read, as the JAX reader reads it
+    drop = {"target": vae["target"], "params": {"ddconfig": {
+        "dropout": 0.1}}}
+    assert tconfig.instantiate_from_config(drop) == VAEConfig(dropout=0.1)
+    a, b = common_fields(tconfig.instantiate_from_config(drop),
+                         jconfig.instantiate_from_config(drop))
+    assert a == b and a["dropout"] == 0.1
 
 
 # ---- logging and resilience --------------------------------------------------

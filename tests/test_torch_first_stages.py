@@ -26,7 +26,7 @@ from diff_foley_tpu.utils import convert as jconv
 from diff_foley_tpu_torch.models import vae as tv
 from diff_foley_tpu_torch.utils import convert as tconv
 from diff_foley_tpu_torch.utils.convert import from_jax_params
-from diff_foley_tpu_torch.utils.init import random_flax_params
+from diff_foley_tpu_torch.utils.init import random_flax_params, randomize_
 from test_torch_cond_encoders import _close, _ref_sd, _same_tree, _x
 
 if os.environ.get("PYTEST_XDIST_WORKER"):
@@ -91,8 +91,16 @@ def test_nearest_resize_is_the_jax_rule(src, factor):
 
 
 def test_upsample_decoder_refuses_dropout():
-    with pytest.raises(NotImplementedError, match="dropout"):
-        tv.UpsampleDecoder(64, 3, 32, 1, dropout=0.1)
+    # dropout is ported: a rate over 0 builds, and outside
+    # ``dropout_draws`` (JAX's deterministic=True) the decoder is its
+    # rate-0 self, bit for bit
+    model = tv.UpsampleDecoder(64, 3, 32, 1, dropout=0.1)
+    plain = tv.UpsampleDecoder(64, 3, 32, 1)
+    randomize_(plain, 5)
+    model.load_state_dict(plain.state_dict(), strict=True)
+    x = torch.from_numpy(_x((1, 4, 4, 64), 6))
+    with torch.no_grad():
+        assert torch.equal(model(x), plain(x))
 
 
 @pytest.mark.parametrize("vq", [False, True])

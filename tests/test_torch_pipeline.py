@@ -169,7 +169,8 @@ def test_port_imports_no_jax():
                  "samplers.py", "guidance.py", "x3d.py", "r2plus1d.py",
                  "spec_towers.py", "vivit.py", "spec_augment.py",
                  "stage2_decode.py", "audio_unet.py", "prior.py",
-                 "cond_text.py", "cond_encoder.py"):
+                 "cond_text.py", "cond_encoder.py", "profiling.py",
+                 "profile.py", "synthetic.py", "scan.py", "kernel_cost.py"):
         assert any(p.name == name for p in files), name
     banned = ("jax", "flax", "optax", "orbax", "diff_foley_tpu")
     for path in files:
